@@ -5,19 +5,31 @@
 
 Phases, one line each as they go:
 1. the card's name and power limit;
-2. the build of the CUDA kernels (one ``nvcc`` call, ``v1t_tpu_torch/_build``);
-3. every kernel against its plain PyTorch version at the flagship serving
-   shapes (batch 64, 1654 tokens, emb 155, 4 heads of 155, MLP 488, a 29x57
-   core map, 7000 neurons), with its time, the plain version's time, one
-   PyTorch library call's time where one computes the same function, and the
-   least time the card could take (bytes at 3.35 TB/s or operations at the
-   peak rate of their type, whichever is larger);
-4. the main path: the flagship model (random weights from a seed) serving 3
+2. the build of the CUDA kernels (one ``nvcc`` per source, in parallel,
+   into ``v1t_tpu_torch/_build``);
+3. every kernel against its plain PyTorch version at the flagship shapes
+   (batch 64, 1654 tokens, emb 155, 4 heads of 155, MLP 488, a 29x57 core
+   map, 7000 neurons), the training variants and the backward kernels with
+   the flagship's dropout on (the same keep masks), with its time, the
+   plain version's time, one PyTorch library call's time where one computes
+   the same function, and the least time the card could take (bytes at
+   3.35 TB/s or operations at the peak rate of their type, whichever is
+   larger);
+4. serving: the flagship model (random weights from a seed) serving 3
    batches of 64 through ``training.inference`` / ``Trainer.predict`` with
    the kernel launch counters set to 0 just before and read just after; the
    outputs, and the core map of one batch, are held against the same
    model's plain path on the card;
-5. a ``kernels`` JSON line, then the result line
+5. training, the main path of this slice: ``Trainer.train_step`` on the
+   flagship model (dropout on, readout noise on), two mice of 7000 neurons,
+   batch 64, two cycles with cross-mouse accumulation and one AdamW update
+   each, with the counters set to 0 just before and read just after; the
+   per-step losses and the first step's gradient of every parameter are
+   held against the same weights and seeds through the plain path on the
+   card;
+6. where the time goes: one serving batch and one training step under
+   ``torch.profiler``;
+7. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the result line, if there is no CUDA device, if
@@ -46,12 +58,29 @@ KERNEL_TOL = 2e-2
 # with the reference's init)
 MODEL_TOL = 6e-3
 CORE_TOL = 2.5e-2
+# training, kernel path against the plain path on the card, same weights and
+# seeds: |loss - ref| / |ref| per step, and max|d| / max|ref| of every
+# parameter's gradient of the first step; ~3x the largest readings on an
+# H100 (losses 1.4e-5, after two updates; gradients 6.8e-3, the core
+# shifter's and the QKV weight's: bf16 rounding flips through 4 blocks)
+LOSS_TOL = 5e-5
+GRAD_TOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
 
 B, N, E, H, F_HID, NEURONS = 64, 1654, 155, 4, 488, 7000
 MAP_H, MAP_W = 29, 57
+T_DROP = 0.2544  # the flagship's transformer dropout (configs.py t_dropout)
 DEVICE = "cuda"
+MICE, CYCLES = ("A", "B"), 2
+# kernel launches per train step (one micro-batch of 64, one mouse), written
+# down before the first run: 4 blocks x (QKV, out-proj, fc1, fc2) forward
+# projections, 4 attention cores, one readout sampling; backward per block
+# 2 + 2 dX / dW for the attention sublayer and 2 + 2 for the MLP
+TRAIN_LAUNCHES_PER_STEP = {
+    "ln_linear": 16, "attention": 4, "bilinear_sample_cm": 1, "ln_linear_bwd": 16,
+    "ln_linear_wgrad": 16, "attention_bwd": 4, "bilinear_sample_cm_bwd": 1,
+}
 
 
 def log(*args) -> None:
@@ -117,9 +146,32 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> tupl
     return err, rel
 
 
-def check_kernels(gen: torch.Generator) -> list:
+def torch_ln_linear(kw: dict) -> torch.Tensor:
+    """ln_linear's function as separate PyTorch calls in bf16 (LayerNorm,
+    F.linear, GELU, residual): the yardstick no single library call gives."""
     import torch.nn.functional as F
 
+    bf = torch.bfloat16
+    z = kw["x"]
+    if kw.get("pro_row") is not None:
+        z = z + kw["pro_row"][:, None, :]
+    if kw.get("gamma") is not None:
+        z = F.layer_norm(z, (z.shape[-1],), kw["gamma"].to(bf), kw["beta"].to(bf), 1e-5)
+    y = F.linear(z, kw["w"], None if kw.get("bias") is None else kw["bias"].to(bf))
+    if kw.get("gelu"):
+        y = F.gelu(y)
+    if kw.get("residual") is not None:
+        r = kw["residual"]
+        if kw.get("res_row") is not None:
+            r = r + kw["res_row"][:, None, :]
+        y = y + r
+    return y
+
+
+def check_kernels(gen: torch.Generator) -> tuple:
+    import torch.nn.functional as F
+
+    from v1t_tpu_torch.ops.dropout import Dropout
     from v1t_tpu_torch.ops.fused_mha import attention, attention_plain
     from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_plain
     from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_plain
@@ -152,22 +204,6 @@ def check_kernels(gen: torch.Generator) -> list:
         "fc1": dict(x=x, w=w1, gamma=gamma, beta=beta, bias=b1, gelu=True),
         "fc2": dict(x=hid, w=w2, bias=b2, residual=x),
     }
-
-    def torch_ln_linear(kw):
-        z = kw["x"]
-        if kw.get("pro_row") is not None:
-            z = z + kw["pro_row"][:, None, :]
-        if kw.get("gamma") is not None:
-            z = F.layer_norm(z, (z.shape[-1],), kw["gamma"].to(bf), kw["beta"].to(bf), 1e-5)
-        y = F.linear(z, kw["w"], None if kw.get("bias") is None else kw["bias"].to(bf))
-        if kw.get("gelu"):
-            y = F.gelu(y)
-        if kw.get("residual") is not None:
-            r = kw["residual"]
-            if kw.get("res_row") is not None:
-                r = r + kw["res_row"][:, None, :]
-            y = y + r
-        return y
 
     rows = []
     log("phase 3: kernels against their plain versions at the flagship shapes")
@@ -227,6 +263,50 @@ def check_kernels(gen: torch.Generator) -> list:
         library_ms=lib_ms, library="F.scaled_dot_product_attention",
     ))
     del q, k, v
+
+    # training variants, the flagship's dropout on: attention with the
+    # probabilities' keep mask and the LSE out; ln_linear with the keep mask
+    # in its epilogue and fc1's pre-GELU activation saved
+    drop_p, drop_o, drop1, drop2 = (Dropout(T_DROP, 20261017, site) for site in range(4))
+    (got, lse), (ref, lse_ref) = (fn(qkv, scale, E, drop=drop_p, with_lse=True)
+                                  for fn in (attention, attention_plain))
+    err, rel = compare("attention[train]", got, ref, KERNEL_TOL)
+    compare("attention[train] lse", lse, lse_ref, KERNEL_TOL)
+    train_ms = cuda_ms(lambda: attention(qkv, scale, E, drop=drop_p, with_lse=True))
+    rows[-1].update(train_ms=train_ms, train_max_abs_err=err)
+    log(f"  attention[train] kernel_ms {train_ms:.4f}")
+    # the keep masks bit for bit: with q = 0 every probability is 1/N, and
+    # v[k] = e_(k mod D) makes o count the kept keys of each residue class:
+    # exact small integers times one scale, equal only if the masks are
+    qkv_ones = torch.zeros_like(qkv)
+    keys = torch.arange(N, device=dev)
+    qkv_ones[2, :, :, keys, keys % E] = 1.0
+    o_k = attention(qkv_ones, scale, E, drop=drop_p, with_lse=True)[0]
+    o_p = attention_plain(qkv_ones, scale, E, drop=drop_p, with_lse=True)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(o_k, o_p):
+        raise AssertionError("attention[train]: the kernel's keep mask differs from the plain one")
+    log("  attention[train] keep mask: bit-identical to the plain version's")
+    del qkv_ones, o_k, o_p
+    train_uses = {
+        "out_proj": dict(uses["out_proj"], drop=drop_o),
+        "fc1": dict(uses["fc1"], drop=drop1, save_pre=True),
+        "fc2": dict(uses["fc2"], drop=drop2),
+    }
+    for use, kw in train_uses.items():
+        args = {k: v for k, v in kw.items() if k not in ("x", "w")}
+        got, ref = ln_linear(kw["x"], kw["w"], **args), ln_linear_plain(kw["x"], kw["w"], **args)
+        if use == "fc1":
+            compare("ln_linear[fc1, train] pre-GELU", got[1], ref[1], KERNEL_TOL)
+            got, ref = got[0], ref[0]
+            torch.cuda.synchronize()
+            if not torch.equal(got == 0, ref == 0):
+                raise AssertionError("ln_linear[fc1, train]: the keep masks differ")
+            log("  ln_linear[fc1, train] keep mask: bit-identical to the plain version's")
+        compare(f"ln_linear[{use}, train]", got, ref, KERNEL_TOL)
+        ms = cuda_ms(lambda: ln_linear(kw["x"], kw["w"], **args))
+        rows[0]["per_use"][use]["train_ms"] = ms
+        log(f"  ln_linear[{use}, train] kernel_ms {ms:.4f}")
     # the kernel's other head widths (built for padded widths 32..160), small
     ones = torch.ones(48, device=dev)
     for d_head, lsa in ((32, False), (64, True), (100, False), (128, True)):
@@ -257,6 +337,205 @@ def check_kernels(gen: torch.Generator) -> list:
         replaces="v1t_tpu/ops/interp_matmul.py:99 (_fwd_kernel)",
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, library="F.grid_sample",
+    ))
+    tensors = dict(x=x, row=row, gamma=gamma, beta=beta, wqkv=wqkv, wp=wp, bp=bp, w1=w1, b1=b1,
+                   w2=w2, b2=b2, scale=scale, qkv=qkv, table=table, grid=grid,
+                   drops=(drop_p, drop_o, drop1, drop2))
+    return rows, tensors
+
+
+def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
+    """The four backward kernels against their plain versions at the
+    flagship shapes, dropout on, on the forward kernels' outputs."""
+    import torch.nn.functional as F
+
+    from v1t_tpu_torch.ops.fused_mha import attention, attention_bwd, attention_bwd_plain
+    from v1t_tpu_torch.ops.interp_matmul import (
+        bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain,
+    )
+    from v1t_tpu_torch.ops.ln_linear import (
+        ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_wgrad, ln_linear_wgrad_plain,
+        merge_heads,
+    )
+
+    dev, bf, f32 = DEVICE, torch.bfloat16, torch.float32
+    drop_p, drop_o, drop1, drop2 = t["drops"]
+    x, qkv, scale = t["x"], t["qkv"], t["scale"]
+    m = B * N
+
+    def randn(*shape, scale_=1.0):
+        return (torch.randn(*shape, generator=gen) * scale_).to(dev, bf)
+
+    o, lse = attention(qkv, scale, E, drop=drop_p, with_lse=True)
+    h, pre = ln_linear(x, t["w1"], gamma=t["gamma"], beta=t["beta"], bias=t["b1"], gelu=True,
+                       drop=drop1, save_pre=True)
+    dout = randn(B, N, E)
+    do = randn(B, N, H * E, scale_=0.1)
+    rows = []
+    log("phase 3b: backward kernels against their plain versions, dropout on")
+
+    # attention_bwd: dq, dk, dv head-major and dscale
+    (dqkv, dscale), (dqkv_ref, dscale_ref) = (
+        fn(qkv, o, do, lse, scale, E, drop=drop_p)
+        for fn in (attention_bwd, attention_bwd_plain))
+    worst = max(compare(f"attention_bwd {part}", dqkv[i], dqkv_ref[i], KERNEL_TOL)
+                for i, part in enumerate(("dq", "dk", "dv")))
+    compare("attention_bwd dscale", dscale, dscale_ref, KERNEL_TOL)
+    del dqkv_ref
+    ms = cuda_ms(lambda: attention_bwd(qkv, o, do, lse, scale, E, drop=drop_p))
+    plain_ms = cuda_ms(lambda: attention_bwd_plain(qkv, o, do, lse, scale, E, drop=drop_p),
+                       iters=1)
+    with torch.enable_grad():
+        qs, ks, vs = (y.detach().clone().requires_grad_() for y in qkv[..., :E])
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=E ** -0.5)
+        do_h = do.reshape(B, N, H, E).permute(0, 2, 1, 3).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), do_h,
+                                                     retain_graph=True))
+    del qs, ks, vs, sdpa, do_h
+    b_ms, b_by = bound(2 * head_bytes(qkv, E) + nbytes(o, do, lse, scale, dscale),
+                       5 * 2.0 * B * H * N * N * E, "bf16")
+    log(f"  attention_bwd (B {B}, H {H}, N {N}, D {E}): kernel_ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} sdpa_backward_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    rows.append(dict(
+        name="attention_bwd", route="cuda", source="v1t_tpu_torch/csrc/attention_bwd.cu",
+        replaces="v1t_tpu/ops/fused_mha.py:676 (_mha_bwd_kernel_dt2, attention core)",
+        max_abs_err=worst[0], rel_err=worst[1], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        library="autograd backward of F.scaled_dot_product_attention (no dropout)",
+    ))
+
+    # ln_linear_bwd (dX, with the LayerNorm backward or fc1's GELU' fused)
+    # and ln_linear_wgrad (dW, db) on each projection of a block
+    heads = (H, E)
+    fc2_dx = ln_linear_bwd(dout, t["w2"], drop=drop2, pre=pre, pre_drop=drop1)
+    uses = {
+        "out_proj": dict(dy=dout, w=t["wp"], drop=drop_o),
+        "qkv": dict(dy=dqkv, w=t["wqkv"], heads=heads, x=x, pro_row=t["row"], gamma=t["gamma"],
+                    beta=t["beta"], dres=dout),
+        "fc2": dict(dy=dout, w=t["w2"], drop=drop2, pre=pre, pre_drop=drop1),
+        "fc1": dict(dy=fc2_dx, w=t["w1"], x=x, gamma=t["gamma"], beta=t["beta"], dres=dout),
+    }
+    forward = {  # each projection's forward arguments, for the PyTorch yardstick
+        "out_proj": dict(x=o, w=t["wp"], bias=t["bp"], residual=x, res_row=t["row"]),
+        "qkv": dict(x=x, w=t["wqkv"], gamma=t["gamma"], beta=t["beta"], pro_row=t["row"]),
+        "fc2": dict(x=h, w=t["w2"], bias=t["b2"], residual=x),
+        "fc1": dict(x=x, w=t["w1"], gamma=t["gamma"], beta=t["beta"], bias=t["b1"], gelu=True),
+    }
+    ln_outs = {}
+    bwd_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, torch_ms=0.0, worst=(0.0, 0.0),
+                   kinds=set(), per_use={})
+    wgrad_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, torch_ms=0.0, worst=(0.0, 0.0),
+                     kinds=set(), per_use={})
+    for use, kw in uses.items():
+        args = {k: v for k, v in kw.items() if k not in ("dy", "w")}
+        got = ln_linear_bwd(kw["dy"], kw["w"], **args)
+        ref = ln_linear_bwd_plain(kw["dy"], kw["w"], **args)
+        if "x" in kw:
+            ln_outs[use] = got[1]
+            names = ("dz", "ln_out", "dgamma", "dbeta", "dbias_row")
+            errs = [compare(f"ln_linear_bwd[{use}] {n_}", g_, r_, KERNEL_TOL)
+                    for n_, g_, r_ in zip(names, got, ref) if r_ is not None]
+            err = max(errs)
+        else:
+            err = compare(f"ln_linear_bwd[{use}]", got, ref, KERNEL_TOL)
+        del ref
+        nout, k = kw["w"].shape
+        flops = 2.0 * m * nout * k
+        out = got if "x" not in kw else got[:2] + tuple(g_ for g_ in got[2:] if g_ is not None)
+        moved = (m * nout * 2 + nbytes(kw["w"], *(out if isinstance(out, tuple) else (out,)),
+                                       kw.get("x"), kw.get("pro_row"), kw.get("gamma"),
+                                       kw.get("beta"), kw.get("dres"), kw.get("pre")))
+        b_ms, b_by = bound(moved, flops, "bf16")
+        ms = cuda_ms(lambda: ln_linear_bwd(kw["dy"], kw["w"], **args))
+        plain_ms = cuda_ms(lambda: ln_linear_bwd_plain(kw["dy"], kw["w"], **args), iters=3)
+        # the same layer's backward as separate PyTorch calls: dX and dW together
+        with torch.enable_grad():
+            fw = dict(forward[use])
+            fw["x"], fw["w"] = (fw[k_].detach().clone().requires_grad_() for k_ in ("x", "w"))
+            y = torch_ln_linear(fw)
+            dy_rm = merge_heads(kw["dy"], E).contiguous() if use == "qkv" else kw["dy"]
+            torch_ms = cuda_ms(lambda: torch.autograd.grad(y, (fw["x"], fw["w"]), dy_rm,
+                                                           retain_graph=True))
+        del y, fw
+        bwd_row["ms"] += ms
+        bwd_row["plain_ms"] += plain_ms
+        bwd_row["bound_ms"] += b_ms
+        bwd_row["torch_ms"] += torch_ms
+        bwd_row["worst"] = max(bwd_row["worst"], err)
+        bwd_row["kinds"].add(b_by)
+        bwd_row["per_use"][use] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       torch_bf16_bwd_ms=torch_ms, max_abs_err=err[0])
+        log(f"  ln_linear_bwd[{use}] ({m}x{nout} @ {nout}x{k}): kernel_ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} torch_bf16_bwd_ms {torch_ms:.4f} bound_ms {b_ms:.4f} "
+            f"({b_by})")
+        del got
+
+    wgrad_uses = {
+        "out_proj": dict(dy=dout, a=o, drop=drop_o, bias=True),
+        "qkv": dict(dy=dqkv, a=ln_outs["qkv"], heads=heads),
+        "fc2": dict(dy=dout, a=h, drop=drop2, bias=True),
+        "fc1": dict(dy=fc2_dx, a=ln_outs["fc1"], bias=True),
+    }
+    for use, kw in wgrad_uses.items():
+        args = {k: v for k, v in kw.items() if k not in ("dy", "a")}
+        (dw, db), (dw_ref, db_ref) = (fn(kw["dy"], kw["a"], **args)
+                                      for fn in (ln_linear_wgrad, ln_linear_wgrad_plain))
+        err = compare(f"ln_linear_wgrad[{use}] dW", dw, dw_ref, KERNEL_TOL)
+        if db is not None:
+            compare(f"ln_linear_wgrad[{use}] db", db, db_ref, KERNEL_TOL)
+        nout, k = dw.shape
+        b_ms, b_by = bound(m * nout * 2 + nbytes(kw["a"], dw, db), 2.0 * m * nout * k, "bf16")
+        ms = cuda_ms(lambda: ln_linear_wgrad(kw["dy"], kw["a"], **args))
+        plain_ms = cuda_ms(lambda: ln_linear_wgrad_plain(kw["dy"], kw["a"], **args), iters=3)
+        wgrad_row["ms"] += ms
+        wgrad_row["plain_ms"] += plain_ms
+        wgrad_row["bound_ms"] += b_ms
+        wgrad_row["worst"] = max(wgrad_row["worst"], err)
+        wgrad_row["kinds"].add(b_by)
+        wgrad_row["per_use"][use] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                         max_abs_err=err[0])
+        log(f"  ln_linear_wgrad[{use}] ({nout}x{m} @ {m}x{k}): kernel_ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    for name, acc in (("ln_linear_bwd", bwd_row), ("ln_linear_wgrad", wgrad_row)):
+        rows.append(dict(
+            name=name, route="cuda", source="v1t_tpu_torch/csrc/ln_linear_bwd.cu",
+            replaces="v1t_tpu/ops/fused_mha.py:676 (projection backwards); "
+                     "v1t_tpu/ops/fused_mlp.py:150",
+            max_abs_err=acc["worst"][0], rel_err=acc["worst"][1], ms=acc["ms"],
+            plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+            bound_by="bytes" if acc["kinds"] == {"bytes"} else "operations", library_ms=None,
+            torch_bf16_bwd_ms=bwd_row["torch_ms"],
+            note="times summed over the 4 calls of one block; torch_bf16_bwd_ms is dX and dW "
+                 "together as separate PyTorch calls", per_use=acc["per_use"],
+        ))
+
+    # bilinear_sample_cm_bwd: d(table) by fp32 atomics, d(grid)
+    table, grid = t["table"], t["grid"]
+    ds = randn(B, E, NEURONS)
+    got, ref = (fn(table, grid, ds, MAP_H, MAP_W)
+                for fn in (bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain))
+    err = compare("bilinear_sample_cm_bwd d(table)", got[0], ref[0], KERNEL_TOL)
+    compare("bilinear_sample_cm_bwd d(grid)", got[1], ref[1], KERNEL_TOL)
+    ms = cuda_ms(lambda: bilinear_sample_cm_bwd(table, grid, ds, MAP_H, MAP_W))
+    plain_ms = cuda_ms(lambda: bilinear_sample_cm_bwd_plain(table, grid, ds, MAP_H, MAP_W),
+                       iters=3)
+    with torch.enable_grad():
+        table4 = table.reshape(B, E, MAP_H, MAP_W).detach().clone().requires_grad_()
+        grid4 = grid.reshape(B, 1, NEURONS, 2).to(bf).requires_grad_()
+        sampled = F.grid_sample(table4, grid4, mode="bilinear", padding_mode="zeros",
+                                align_corners=True)
+        ds4 = ds.reshape(B, E, 1, NEURONS)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(sampled, (table4, grid4), ds4,
+                                                     retain_graph=True))
+    b_ms, b_by = bound(nbytes(table, grid, ds, *got), 16.0 * B * NEURONS * E, "fp32")
+    log(f"  bilinear_sample_cm_bwd (B {B}, C {E}, {MAP_H}x{MAP_W}, P {NEURONS}): kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} grid_sample_backward_ms {lib_ms:.4f} "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+    rows.append(dict(
+        name="bilinear_sample_cm_bwd", route="cuda", source="v1t_tpu_torch/csrc/bilinear_sample.cu",
+        replaces="v1t_tpu/ops/interp_matmul.py:116 (_bwd_kernel)",
+        max_abs_err=err[0], rel_err=err[1], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, library="autograd backward of F.grid_sample",
     ))
     return rows
 
@@ -305,8 +584,35 @@ def sublayer_yardsticks(gen: torch.Generator) -> None:
         f"fused_mlp kernels_ms {mlp_ms:.4f} vs nn.Sequential MLP_ms {seq_ms:.4f}")
 
 
-def main_path(card_text: str) -> dict:
+def flagship_model(config, card):
+    """The flagship model on the card, weights from seed 0. Two draws from a
+    second seed replace the reference's init where it would hide a fault of
+    the kernel path: the readout features (a constant 1/C averages every
+    response over the channels) and the behavior MLPs (trunc_normal(0.02)
+    leaves a latent of ~1e-2, which the comparison could not tell from a
+    dropped bias_row)."""
+    from v1t_tpu_torch.models import build_model
+
+    model = build_model(config, card, seed=0, device=DEVICE)
+    gen = torch.Generator().manual_seed(1)
+    redrawn = [(readout.features, E) for readout in model.readouts.values()]
+    for block in model.core.transformer.blocks:
+        for mlp in block.b_mlp.models.values():
+            redrawn += [(mlp[0].weight, mlp[0].in_features), (mlp[3].weight, mlp[3].in_features)]
+    with torch.no_grad():
+        for param, fan_in in redrawn:
+            param.copy_(torch.randn(param.shape, generator=gen) * fan_in ** -0.5)
+    return model
+
+
+def flagship_config(**kwargs):
     from v1t_tpu_torch.configs import Config
+
+    return Config(core="vit", readout="gaussian2d", behavior_mode=3, shift_mode=2,
+                  precision="bf16", resize_image=0, batch_size=B, **kwargs)
+
+
+def serving_path(card_text: str) -> tuple:
     from v1t_tpu_torch.data.cards import synthetic_data_card
     from v1t_tpu_torch.models import build_model
     from v1t_tpu_torch.ops.fused_mha import attention
@@ -314,24 +620,10 @@ def main_path(card_text: str) -> dict:
     from v1t_tpu_torch.ops.ln_linear import ln_linear
     from v1t_tpu_torch.training import Trainer, inference
 
-    log("phase 4: main path, flagship V1T serving (Trainer.predict) on the card")
-    config = Config(core="vit", readout="gaussian2d", behavior_mode=3, shift_mode=2,
-                    precision="bf16", resize_image=0, batch_size=B)
+    log("phase 4: serving, flagship V1T (Trainer.predict) on the card")
+    config = flagship_config()
     card = synthetic_data_card(mouse_ids=("A",), num_neurons=NEURONS, input_shape=(1, 36, 64))
-    model = build_model(config, card, seed=0, device=DEVICE)
-    # two draws from a second seed replace the reference's init where it
-    # would hide a fault of the kernel path: the readout features (a
-    # constant 1/C averages every response over the channels) and the
-    # behavior MLPs (trunc_normal(0.02) leaves a latent of ~1e-2, which the
-    # comparison could not tell from a dropped bias_row)
-    gen = torch.Generator().manual_seed(1)
-    redrawn = [(model.readouts["A"].features, E)]
-    for block in model.core.transformer.blocks:
-        for mlp in block.b_mlp.models.values():
-            redrawn += [(mlp[0].weight, mlp[0].in_features), (mlp[3].weight, mlp[3].in_features)]
-    with torch.no_grad():
-        for param, fan_in in redrawn:
-            param.copy_(torch.randn(param.shape, generator=gen) * fan_in ** -0.5)
+    model = flagship_model(config, card)
     trainer = Trainer(config, model, card, device=DEVICE)
     rng = np.random.default_rng(0)
     batches = [
@@ -388,8 +680,109 @@ def main_path(card_text: str) -> dict:
         raise AssertionError(f"model responses differ from the plain path: {rel:.3e}")
     got_map, ref_map = core_map(model, batches[0]), core_map(plain_model, batches[0])
     compare(f"core map {tuple(ref_map.shape)} vs plain path", got_map, ref_map, CORE_TOL)
-    where_the_time_goes(trainer, batches[0])
-    return launches
+    return launches, lambda: trainer.predict("A", batches[0])
+
+
+def train_batch(rng, neurons: int) -> dict:
+    return {
+        "image": rng.normal(size=(B, 1, 36, 64)).astype(np.float32),
+        "behavior": rng.normal(size=(B, 3)).astype(np.float32),
+        "pupil_center": rng.normal(size=(B, 2)).astype(np.float32),
+        "response": rng.poisson(2.0, size=(B, neurons)).astype(np.float32),
+    }
+
+
+def training_path(card_text: str) -> tuple:
+    """Trainer.train_step at the flagship widths, dropout and readout noise
+    on: two cycles over two mice (gradients accumulated across the cycle,
+    one AdamW update at its end), through the kernels with the counters set
+    to 0 just before and read just after, then the same weights, seeds and
+    batches through the plain path."""
+    from v1t_tpu_torch.data.cards import synthetic_data_card
+    from v1t_tpu_torch.models import build_model
+    from v1t_tpu_torch.training import Trainer
+
+    counters = kernel_counters()
+    log("phase 5: training, flagship V1T Trainer.train_step on the card (the main path)")
+    config = flagship_config()
+    card = synthetic_data_card(mouse_ids=MICE, num_neurons=NEURONS, input_shape=(1, 36, 64))
+    state = flagship_model(config, card).state_dict()
+    rng = np.random.default_rng(2)
+    warm = train_batch(rng, NEURONS)
+    batches = [[train_batch(rng, NEURONS) for _ in MICE] for _ in range(CYCLES)]
+    steps = CYCLES * len(MICE)
+    runs = {}
+    for path, cfg in (("kernel", config),
+                      ("plain", config.replace(attention_impl="xla", readout_impl="xla"))):
+        model = build_model(cfg, card, seed=None, device=DEVICE)
+        model.load_state_dict(state)
+        trainer = Trainer(cfg, model, card, device=DEVICE)
+        # warm-up step without an update (the run below starts from zero
+        # gradients); both paths take it, so their seeds stay in step
+        trainer.train_step(MICE[0], warm, None, update=False)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        losses, first_grads = [], None
+        start = time.perf_counter()
+        for cycle in range(CYCLES):
+            acc = None
+            for i, mouse in enumerate(MICE):
+                acc, metrics = trainer.train_step(mouse, batches[cycle][i], acc,
+                                                  update=i == len(MICE) - 1)
+                losses.append(metrics["loss/loss"])
+                if first_grads is None:
+                    first_grads = {name: p.grad.detach().clone()
+                                   for name, p in model.named_parameters() if p.grad is not None}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {fn.__name__: fn.launches for fn in counters}
+        losses = [float(v) for v in losses]
+        log(f"  {path} path: {steps} train steps of {B} images in {seconds:.4f} s = "
+            f"{steps * B / seconds:.1f} train images/s ({card_text}); losses "
+            + " ".join(f"{v:.4f}" for v in losses))
+        log(f"  {path} path launches over {steps} steps: {launches}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{path} path: non-finite loss")
+        runs[path] = dict(losses=losses, grads=first_grads, launches=launches,
+                          images_per_s=steps * B / seconds, trainer=trainer)
+    expected = {name: n * steps for name, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    if runs["kernel"]["launches"] != expected:
+        raise AssertionError(f"training launch counts {runs['kernel']['launches']} != {expected}")
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError(f"the plain path launched kernels: {runs['plain']['launches']}")
+    for step, (got, ref) in enumerate(zip(runs["kernel"]["losses"], runs["plain"]["losses"])):
+        rel = abs(got - ref) / abs(ref)
+        log(f"  step {step} loss: kernel {got:.4f} plain {ref:.4f} |d|/|ref| {rel:.3e} "
+            f"(tol {LOSS_TOL:g}) {'ok' if rel <= LOSS_TOL else 'FAIL'}")
+        if rel > LOSS_TOL:
+            raise AssertionError(f"step {step}: loss differs from the plain path by {rel:.3e}")
+    grads, refs = runs["kernel"]["grads"], runs["plain"]["grads"]
+    if grads.keys() != refs.keys():
+        raise AssertionError("the two paths gave gradients for different parameters")
+    rels = {}
+    for name, ref in refs.items():
+        got = grads[name].float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite gradient")
+        rels[name] = (got - ref.float()).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    worst = sorted(rels.items(), key=lambda kv: kv[1], reverse=True)
+    log(f"  first step's gradients of {len(rels)} parameters, max|d|/max|ref|, largest: "
+        + ", ".join(f"{n} {r:.3e}" for n, r in worst[:4]) + f" (tol {GRAD_TOL:g})")
+    if worst[0][1] > GRAD_TOL:
+        raise AssertionError(f"gradient {worst[0][0]} differs from the plain path: {worst[0][1]:.3e}")
+    trainer = runs["kernel"]["trainer"]
+    return runs["kernel"]["launches"], lambda: trainer.train_step(
+        MICE[0], batches[0][0], None, update=True), runs
+
+
+def kernel_counters() -> tuple:
+    from v1t_tpu_torch.ops.fused_mha import attention, attention_bwd
+    from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_bwd
+    from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_bwd, ln_linear_wgrad
+
+    return (ln_linear, attention, bilinear_sample_cm, ln_linear_bwd, ln_linear_wgrad,
+            attention_bwd, bilinear_sample_cm_bwd)
 
 
 def core_map(model, batch) -> torch.Tensor:
@@ -402,15 +795,15 @@ def core_map(model, batch) -> torch.Tensor:
         return model.core(images, "A", behaviors, pupils)
 
 
-def where_the_time_goes(trainer, batch) -> None:
-    """Device time by kernel over one Trainer.predict call (torch.profiler),
-    and the device's busy share of the call's wall time."""
+def where_the_time_goes(label: str, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    log("phase 5: where the time goes, one batch of 64 under torch.profiler")
+    log(f"phase 6: where the time goes, {label} under torch.profiler")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        trainer.predict("A", batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
 
@@ -428,7 +821,7 @@ def where_the_time_goes(trainer, batch) -> None:
         return
     busy_ms = sum(device_us(e) for e in events) / 1e3
     log(f"  device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled call)")
-    for e in sorted(events, key=device_us, reverse=True)[:12]:
+    for e in sorted(events, key=device_us, reverse=True)[:16]:
         log(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
@@ -458,14 +851,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
-    with torch.inference_mode():
-        rows = check_kernels(gen)
+    with torch.no_grad():
+        rows, tensors = check_kernels(gen)
+        rows += check_backward_kernels(gen, tensors)
+    del tensors
     torch.cuda.empty_cache()
     sublayer_yardsticks(gen)
     torch.cuda.empty_cache()
-    launches = main_path(text)
+    serving_launches, serve_one = serving_path(text)
+    torch.cuda.empty_cache()
+    train_launches, train_one, runs = training_path(text)
+    torch.cuda.empty_cache()
+    where_the_time_goes("one serving batch of 64", serve_one)
+    where_the_time_goes(f"one training step of {B} (forward, backward, AdamW update)", train_one)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = train_launches[row["name"]]
+        row["serving_launches"] = serving_launches.get(row["name"])
+    log(f"training throughput: kernel path {runs['kernel']['images_per_s']:.1f}, plain path "
+        f"{runs['plain']['images_per_s']:.1f} train images/s; launches are those of the "
+        f"training phase ({CYCLES * len(MICE)} steps)")
     log(text)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions at edge shapes, on
 the card: rows, outputs and K that are no multiple of a tile, one row, one
-key tile, every padded head width, batch 1, and the small model end to end.
+key tile, every padded head width, batch 1, dropout rates 0 and 0.5 (the
+kernels and the plain versions draw the same masks), and the small model
+end to end, forward and training step.
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
@@ -8,19 +10,36 @@ key tile, every padded head width, batch 1, and the small model end to end.
 running only the port lacks.) Without a CUDA device every test skips.
 
 Tolerance: max|kernel - plain| <= 2e-2 * max|plain| on bf16 outputs, as in
-``chip_smoke.py`` (one bf16 rounding is 2^-8; the two sum in other orders).
+``chip_smoke.py`` (one bf16 rounding is 2^-8; the two sum in other orders),
+and on float32 sums of bf16 products (weight, bias and LayerNorm gradients,
+dscale, d(grid)): the two take the same bf16 operands, but a rounding flip in
+an intermediate (dS, P) moves a sum by up to a bf16 step of one term.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from v1t_tpu_torch.ops.fused_mha import attention, attention_plain
-from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_plain
-from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_plain
+from v1t_tpu_torch.ops.dropout import Dropout
+from v1t_tpu_torch.ops.fused_mha import (
+    attention, attention_bwd, attention_bwd_plain, attention_plain,
+)
+from v1t_tpu_torch.ops.interp_matmul import (
+    bilinear_sample_cm, bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain,
+    bilinear_sample_cm_plain,
+)
+from v1t_tpu_torch.ops.ln_linear import (
+    ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_plain, ln_linear_wgrad,
+    ln_linear_wgrad_plain,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+# the small model's training step, kernel path against the plain path:
+# max|d| / max|ref| of every parameter's gradient, ~3x the reading on an
+# H100 (2.1e-3: bf16 rounding flips carried through 2 blocks of a bf16
+# residual stream)
+GRAD_TOL = 6e-3
 
 
 @pytest.fixture
@@ -40,6 +59,10 @@ def _close(got, ref):
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= TOL * ref.abs().max().item() + 1e-6
+
+
+def _drop(rate, site=3):
+    return Dropout(rate, 12345, site) if rate else None
 
 
 LN_CASES = [
@@ -151,3 +174,152 @@ def test_float32_model_on_the_card_raises(gen):
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         readout(core_map)
     assert counts == (ln_linear.launches, attention.launches, bilinear_sample_cm.launches)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("b,n,k,nout,opts", [
+    (1, 1, 7, 5, "ln+gelu+pre"), (2, 65, 155, 488, "ln+bias+gelu+pre"),
+    (3, 100, 620, 155, "bias+residual+row"), (1, 70, 488, 155, "bias+residual"),
+], ids=lambda v: str(v))
+def test_ln_linear_training_matches_plain(gen, rate, b, n, k, nout, opts):
+    x = _randn(gen, b, n, k)
+    w = _randn(gen, nout, k, scale=k ** -0.5)
+    kw = {"drop": _drop(rate)}
+    if "ln" in opts:
+        kw["gamma"] = 1.0 + _randn(gen, k, scale=0.1, dtype=torch.float32)
+        kw["beta"] = _randn(gen, k, scale=0.1, dtype=torch.float32)
+    if "bias" in opts:
+        kw["bias"] = _randn(gen, nout, scale=0.1, dtype=torch.float32)
+    if "gelu" in opts:
+        kw["gelu"] = True
+    if "residual" in opts:
+        kw["residual"] = _randn(gen, b, n, nout)
+        if "row" in opts:
+            kw["res_row"] = _randn(gen, b, nout, scale=0.5)
+    if "pre" in opts:
+        kw["save_pre"] = True
+        (y, pre), (y_ref, pre_ref) = ln_linear(x, w, **kw), ln_linear_plain(x, w, **kw)
+        _close(pre, pre_ref)
+        # the same keep mask: the dropped elements are exactly the zeros
+        assert torch.equal(y == 0, y_ref == 0)
+    else:
+        y, y_ref = ln_linear(x, w, **kw), ln_linear_plain(x, w, **kw)
+    _close(y, y_ref)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("b,n,h,d,lsa", [
+    (1, 2, 1, 32, False), (2, 65, 3, 155, True), (1, 129, 2, 17, False),
+    (2, 300, 1, 160, True), (1, 64, 2, 96, False), (3, 200, 2, 128, True),
+], ids=lambda v: str(v))
+def test_attention_training_and_backward_match_plain(gen, rate, b, n, h, d, lsa):
+    x = _randn(gen, b, n, 48)
+    w = _randn(gen, 3 * h * d, 48, scale=0.3)
+    ones = torch.ones(48, device="cuda")
+    qkv = ln_linear(x, w, gamma=ones, beta=ones * 0.0, heads=(h, d))
+    scale = torch.full((h,), d ** -0.5, device="cuda") * (1.0 + 0.2 * torch.rand(h, generator=gen)).cuda()
+    drop = _drop(rate, site=1)
+    o, lse = attention(qkv, scale, d, use_lsa=lsa, drop=drop, with_lse=True)
+    o_ref, lse_ref = attention_plain(qkv, scale, d, use_lsa=lsa, drop=drop, with_lse=True)
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+    do = _randn(gen, b, n, h * d)
+    dqkv, dscale = attention_bwd(qkv, o_ref, do, lse_ref, scale, d, use_lsa=lsa, drop=drop)
+    dqkv_ref, dscale_ref = attention_bwd_plain(qkv, o_ref, do, lse_ref, scale, d, use_lsa=lsa,
+                                               drop=drop)
+    for i in range(3):  # dq, dk, dv
+        _close(dqkv[i], dqkv_ref[i])
+    assert torch.all(dqkv[..., d:] == 0)
+    _close(dscale, dscale_ref)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("b,n,k,nout,opts", [
+    (1, 1, 5, 7, "plain"), (2, 65, 620, 155, "plain"), (3, 100, 640, 33, "plain"),
+    (2, 129, 488, 155, "gelu"), (1, 70, 155, 488, "ln+res"),
+    (2, 65, 155, 3 * 4 * 155, "ln+heads+row+res"), (1, 17, 48, 3 * 2 * 17, "ln+heads"),
+], ids=lambda v: str(v))
+def test_ln_linear_backward_matches_plain(gen, rate, b, n, k, nout, opts):
+    w = _randn(gen, nout, k, scale=nout ** -0.5)
+    heads = None
+    if "heads" in opts:
+        d = 155 if nout == 3 * 4 * 155 else 17
+        heads = (nout // (3 * d), d)
+        dy = ln_linear(_randn(gen, b, n, 32), _randn(gen, nout, 32, scale=0.3), heads=heads)
+    else:
+        dy = _randn(gen, b, n, nout)
+    kw = {"heads": heads, "drop": None if heads else _drop(rate, site=2)}
+    if "gelu" in opts:
+        kw.update(pre=_randn(gen, b, n, k), pre_drop=_drop(rate, site=5))
+    if "ln" in opts:
+        kw.update(x=_randn(gen, b, n, k), gamma=1.0 + _randn(gen, k, scale=0.1, dtype=torch.float32),
+                  beta=_randn(gen, k, scale=0.1, dtype=torch.float32))
+        if "row" in opts:
+            kw["pro_row"] = _randn(gen, b, k, scale=0.5)
+        if "res" in opts:
+            kw["dres"] = _randn(gen, b, n, k)
+    got, ref = ln_linear_bwd(dy, w, **kw), ln_linear_bwd_plain(dy, w, **kw)
+    if "ln" not in opts:
+        _close(got, ref)
+    else:
+        for g_, r_ in zip(got, ref):
+            if r_ is None:
+                assert g_ is None
+            else:
+                _close(g_, r_)
+    a = _randn(gen, b, n, k)
+    for bias in (False, True):
+        kw_w = {"heads": heads, "drop": kw["drop"], "bias": bias and heads is None}
+        (dw, db), (dw_ref, db_ref) = ln_linear_wgrad(dy, a, **kw_w), ln_linear_wgrad_plain(dy, a, **kw_w)
+        _close(dw, dw_ref)
+        if kw_w["bias"]:
+            _close(db, db_ref)
+        else:
+            assert db is None
+
+
+@pytest.mark.parametrize("b,c,height,width,p", [
+    (1, 1, 1, 2, 1), (3, 7, 5, 9, 1000), (2, 155, 29, 57, 37), (1, 3, 4, 1, 300),
+], ids=lambda v: str(v))
+def test_bilinear_sample_cm_backward_matches_plain(gen, b, c, height, width, p):
+    table = _randn(gen, b, c, height * width)
+    grid = (torch.rand(b, p, 2, generator=gen) * 3.0 - 1.5).to("cuda")
+    dout = _randn(gen, b, c, p)
+    for got, ref in zip(bilinear_sample_cm_bwd(table, grid, dout, height, width),
+                        bilinear_sample_cm_bwd_plain(table, grid, dout, height, width)):
+        _close(got, ref)
+
+
+def test_small_model_training_step_matches_plain_path(gen):
+    """Two train steps of the small model, dropout on, through the kernels
+    and through the plain path: the losses and the first step's gradients
+    agree, and every backward kernel was launched."""
+    from v1t_tpu_torch.models import build_model
+    from v1t_tpu_torch.training import Trainer
+
+    config, card, batch, model = _small_model("bf16")  # the flagship's dropout rates
+    assert config.t_dropout > 0.0 and config.p_dropout > 0.0
+    batch["response"] = np.random.default_rng(1).poisson(2.0, (3, 24)).astype(np.float32)
+    plain_cfg = config.replace(attention_impl="xla", readout_impl="xla")
+    plain = build_model(plain_cfg, card, seed=None, device="cuda")
+    plain.load_state_dict(model.state_dict())
+    counters = (ln_linear_bwd, ln_linear_wgrad, attention_bwd, bilinear_sample_cm_bwd)
+    before = [fn.launches for fn in counters]
+    runs = []
+    for cfg, m in ((config, model), (plain_cfg, plain)):
+        trainer = Trainer(cfg, m, card)
+        acc, metrics = trainer.train_step("A", batch, None, update=False)
+        grads = {name: p.grad.clone() for name, p in m.named_parameters() if p.grad is not None}
+        runs.append((metrics["loss/loss"], grads))
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+    (loss, grads), (loss_ref, grads_ref) = runs
+    assert abs(loss - loss_ref) <= TOL * abs(loss_ref)
+    assert grads.keys() == grads_ref.keys()
+    worst = 0.0
+    for name, g_ in grads.items():
+        r_ = grads_ref[name]
+        assert torch.isfinite(g_).all(), name
+        rel = (g_ - r_).abs().max().item() / max(r_.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        assert rel <= GRAD_TOL, (name, rel)
+    print(f"worst gradient max|d|/max|ref| {worst:.3e}")

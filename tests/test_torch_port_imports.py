@@ -1,7 +1,8 @@
 """The port stands alone: ``v1t_tpu_torch`` and ``chip_smoke.py`` import no
-JAX and nothing of the JAX package (checked on the source, by an AST scan),
-the serving modules import without PyYAML, and ``chip_smoke.py`` fails
-without a CUDA device or without the port beside it."""
+JAX and nothing of the JAX package (checked on the source of every module,
+by an AST scan), the serving and training modules import without PyYAML,
+and ``chip_smoke.py`` fails without a CUDA device or without the port
+beside it."""
 
 import ast
 import os
@@ -64,6 +65,7 @@ def test_port_imports_without_jax_or_yaml():
         "sys.meta_path.insert(0, Refuse())\n"
         "import v1t_tpu_torch.models, v1t_tpu_torch.training, v1t_tpu_torch.utils.torch_export\n"
         "import v1t_tpu_torch.configs, v1t_tpu_torch._build, chip_smoke\n"
+        "import v1t_tpu_torch.losses, v1t_tpu_torch.optim, v1t_tpu_torch.ops.dropout\n"
         "print('ok')\n"
     )
     proc = _run(["-c", code], cwd=ROOT)

@@ -36,10 +36,11 @@ from v1t_tpu.ops.interp_matmul import interp_matmul_sample_cm as jax_interp_samp
 from v1t_tpu.models.cores.vit import MLP as JaxMLP
 
 from v1t_tpu_torch import _build
-from v1t_tpu_torch.ops.fused_mha import attention, fused_mha
+from v1t_tpu_torch.ops.dropout import Dropout
+from v1t_tpu_torch.ops.fused_mha import attention, attention_bwd, fused_mha
 from v1t_tpu_torch.ops.fused_mlp import fused_mlp
-from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm
-from v1t_tpu_torch.ops.ln_linear import ln_linear
+from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_bwd
+from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_bwd, ln_linear_wgrad
 
 torch.set_num_threads(1)
 
@@ -257,6 +258,21 @@ def _bad_calls():
         "bilinear:grid_batch": lambda: bilinear_sample_cm(table, grid[:1], 4, 5),
         "bilinear:meta_device": lambda: bilinear_sample_cm(
             table.to("meta"), grid.to("meta"), 4, 5),
+        "ln_linear:heads_with_dropout": lambda: ln_linear(
+            x, w, heads=(2, 6), drop=Dropout(0.1, 1, 0)),
+        "dropout:rate_one": lambda: ln_linear(x, w, drop=Dropout(1.0, 1, 0)),
+        "ln_linear_bwd:w_mismatch": lambda: ln_linear_bwd(x, w),
+        "ln_linear_bwd:pre_with_x": lambda: ln_linear_bwd(
+            x, w[:8], pre=x, x=x, gamma=g, beta=g),
+        "ln_linear_bwd:x_without_gamma": lambda: ln_linear_bwd(x, w[:8], x=x),
+        "ln_linear_bwd:heads_layout": lambda: ln_linear_bwd(qkv, w, heads=(2, 4)),
+        "ln_linear_wgrad:a_rows": lambda: ln_linear_wgrad(x, x[:, :4]),
+        "attention_bwd:lse_dtype": lambda: attention_bwd(
+            qkv, x[..., :8], x[..., :8], torch.zeros(2, 2, 5, dtype=bf), torch.ones(2), 4),
+        "attention_bwd:o_shape": lambda: attention_bwd(
+            qkv, x[..., :7], x[..., :7], torch.zeros(2, 2, 5), torch.ones(2), 4),
+        "bilinear_bwd:dout_shape": lambda: bilinear_sample_cm_bwd(
+            table, grid, torch.zeros(2, 3, 8, dtype=bf), 4, 5),
     }
 
 
@@ -269,12 +285,28 @@ def test_wrappers_reject_bad_inputs_without_building(monkeypatch, case):
 
 def test_cpu_tensors_take_the_plain_version_without_counting(monkeypatch):
     _no_build(monkeypatch)
-    before = (ln_linear.launches, attention.launches, bilinear_sample_cm.launches)
+    counters = (ln_linear, attention, bilinear_sample_cm, ln_linear_bwd, ln_linear_wgrad,
+                attention_bwd, bilinear_sample_cm_bwd)
+    before = [fn.launches for fn in counters]
     inp = _mha_inputs(7, False)
     _port_mha(inp, torch.bfloat16, False, True, True)
     table, grid, h, w = _interp_inputs(8)
     bilinear_sample_cm(_t(table, torch.bfloat16), _t(grid), h, w)
-    assert (ln_linear.launches, attention.launches, bilinear_sample_cm.launches) == before
+    # and the backwards, through autograd
+    x = _t(inp["x"], torch.bfloat16).requires_grad_()
+    wqkv = _t(inp["wqkv"].transpose(0, 1, 3, 2).reshape(3 * H * E, E), torch.bfloat16)
+    out = fused_mha(x, _t(inp["gamma"]), _t(inp["beta"]), wqkv,
+                    _t(inp["wp"].reshape(H * E, E).T, torch.bfloat16), _t(inp["bp"]),
+                    _t(inp["scale"]), num_heads=H, fold_residual=True,
+                    drop_p=Dropout(0.2, 3, 0), drop_o=Dropout(0.2, 3, 1))
+    out.float().sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+    tb = _t(table, torch.bfloat16).requires_grad_()
+    from v1t_tpu_torch.ops.interp_matmul import sample_cm
+
+    sample_cm(tb, _t(grid).requires_grad_(), h, w).float().sum().backward()
+    assert tb.grad is not None
+    assert [fn.launches for fn in counters] == before
 
 
 def _c_signatures():
@@ -293,16 +325,19 @@ def test_ctypes_argtypes_match_the_c_entry_points():
 
     c_sigs = _c_signatures()
     assert set(c_sigs) == set(_build.SIGNATURES)
-    as_ctypes = {"void*": ctypes.c_void_p, "int": ctypes.c_int}
+    as_ctypes = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "unsigned": ctypes.c_uint,
+                 "float": ctypes.c_float}
     for name, params in c_sigs.items():
         assert [as_ctypes[p] for p in params] == _build.SIGNATURES[name], name
 
 
 def test_build_flags_and_library_name():
-    flags = " ".join(_build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    flags, link = " ".join(_build.NVCC_FLAGS), " ".join(_build.LINK_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-fPIC" in flags
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     names = sorted(os.path.basename(p) for p in _build.sources())
-    assert {"ln_linear.cu", "attention.cu", "bilinear_sample.cu"} <= set(names)
+    assert {"ln_linear.cu", "ln_linear_bwd.cu", "attention.cu", "attention_bwd.cu",
+            "bilinear_sample.cu"} <= set(names)
     path = _build.library_path()
     assert path == _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR

@@ -164,8 +164,15 @@ def test_trainer_refuses_cuda_without_a_card(monkeypatch):
 
 
 def test_training_mode_forward_is_refused():
+    """A training forward is refused without the step's seed (its dropout
+    and noise need one), and with drop_path > 0 (not ported)."""
     config = Config(**{**SMALL, "precision": "fp32"})
     model = build_model(config, synthetic_data_card(**CARD), seed=0, device="cpu").train()
     batch = _batch()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         _port_predict(model, batch)
+    model = build_model(config.replace(drop_path=0.1), synthetic_data_card(**CARD), seed=0,
+                        device="cpu").train()
+    with pytest.raises(NotImplementedError, match="drop_path"):
+        model(torch.from_numpy(batch["image"]), "A", torch.from_numpy(batch["behavior"]),
+              torch.from_numpy(batch["pupil_center"]), seed=1)

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every source under ``csrc/`` goes through ONE ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers: that build takes
-seconds, where ``torch.utils.cpp_extension.load`` takes minutes), which is
-loaded with ``ctypes``. The library lands in ``v1t_tpu_torch/_build/``
-(listed in ``.gitignore``), named by a hash of the sources and the flags, so
-it is built at first use and reused until a source changes.
+Every ``.cu`` source under ``csrc/`` is compiled by its own ``nvcc -c``
+process, all started together, and the objects are linked by one more into
+a shared library with a plain C interface (no PyTorch headers: that build
+takes seconds, where ``torch.utils.cpp_extension.load`` takes minutes),
+which is loaded with ``ctypes``. The library lands in
+``v1t_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of the
+sources and the flags, so it is built at first use and reused until a
+source changes.
 
 Nothing here runs at import: the CPU test suite imports every module of the
 port on machines without ``nvcc``.
@@ -30,16 +32,24 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C entry point -> argtypes: a c_void_p for every pointer and the stream,
-# a c_int for every int (ctypes would otherwise cut pointers to 32 bits)
+# a c_int for every int (ctypes would otherwise cut pointers to 32 bits),
+# a c_uint for every unsigned (dropout seeds, sites, thresholds), a c_float
+# for every float
+_DROP = [_U] * 3 + [_F]  # seed, site, threshold, scale
 SIGNATURES = {
-    "v1t_ln_linear": [_P] * 9 + [_I] * 9 + [_P],
-    "v1t_attention": [_P] * 3 + [_I] * 6 + [_P],
+    "v1t_ln_linear": [_P] * 10 + [_I] * 9 + _DROP + [_P],
+    "v1t_ln_linear_dx": [_P] * 3 + [_I] * 8 + [_U] * 3 + [_P] + [_U] * 2 + [_F] + [_P] * 10,
+    "v1t_ln_linear_wgrad": [_P] * 4 + [_I] * 7 + _DROP + [_P],
+    "v1t_attention": [_P] * 4 + [_I] * 6 + _DROP + [_P],
+    "v1t_attention_bwd": [_P] * 10 + [_I] * 6 + _DROP + [_P],
     "v1t_bilinear_sample_cm": [_P] * 3 + [_I] * 5 + [_P],
+    "v1t_bilinear_sample_cm_bwd": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 
@@ -62,7 +72,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -79,23 +89,43 @@ def build() -> str:
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [p for p in sources() if p.endswith(".cu")]
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_so = os.path.join(tmp, "lib.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_so, *cu]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        objects = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objects)
+        ]
+        logs, failed = [], []
+        try:
+            for src, proc in zip(cu, procs):
+                out, _ = proc.communicate(timeout=600)
+                logs.append(out)
+                if proc.returncode != 0:
+                    failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out}")
+        finally:  # a timeout or an interrupt leaves no compiler running
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp_so = os.path.join(tmp, "lib.so")
+        if not failed:
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp_so, *objects],
+                                  capture_output=True, text=True, timeout=600)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         seconds = time.perf_counter() - start
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) in {seconds:.1f} s:\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        if failed:
+            raise RuntimeError(f"nvcc failed in {seconds:.1f} s:\n" + "\n".join(failed))
         with open(so_path + ".log", "w") as log:
-            log.write(proc.stdout + proc.stderr)
+            log.write("".join(logs))
         # atomic publish: a concurrent build never sees a partial file
         os.replace(tmp_so, so_path)
     print(
-        f"v1t_tpu_torch: nvcc built {len(cu)} kernel sources in "
+        f"v1t_tpu_torch: nvcc built {len(cu)} kernel sources in parallel in "
         f"{seconds:.1f} s -> {os.path.relpath(so_path, _HERE)}",
         flush=True,
     )

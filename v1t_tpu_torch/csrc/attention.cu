@@ -7,7 +7,12 @@
 // which compute the same function): per-head scale (learnable under LSA),
 // key-pad mask, LSA diagonal mask, softmax in base 2 with log2(e) folded into
 // the scale, head concat. The LayerNorm, QKV and output projections around it
-// are ln_linear.cu. Dropout is training-only and is not in this forward.
+// are ln_linear.cu. The training variant (TRAIN = true) also drops
+// probabilities as the TPU kernel does (:619-621): the row sum l is taken
+// before the keep mask, the kept unnormalised probabilities feed P.V and the
+// 1/keep scale folds into 1/l; and it writes each row's log2-domain
+// log-sum-exp, m + log2(l) (:641-645), which attention_bwd.cu recomputes P
+// from. Mask element (b * H + h, query, key) of the site (common.cuh).
 //
 // Bound on the H100: 4*B*H*N^2*D = 434 GFLOP per block at the flagship
 // shapes (B 64, H 4, N 1654, D 155) against ~540 MB of q/k/v/o: ~800
@@ -41,10 +46,11 @@ constexpr int smem_bytes() {
   return 2 /* K, V */ * 2 /* stages */ * BKV * (DP + 8) * (int)sizeof(bf16);
 }
 
-template <int DP>
+template <int DP, bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1) attention_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ scale,
-    bf16* __restrict__ out, int B, int N, int H, int D, int lsa) {
+    bf16* __restrict__ out, float* __restrict__ lse, int B, int N, int H, int D, int lsa,
+    Drop drop) {
   constexpr int LD = DP + 8, CHUNKS = DP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][BKV][LD]
@@ -161,10 +167,19 @@ __global__ void __launch_bounds__(THREADS, 1) attention_kernel(
     uint32_t pf[BKV / 16][4];
 #pragma unroll
     for (int ni = 0; ni < BKV / 8; ++ni) {
-      const float p00 = exp2f(s[ni][0] - m0), p01 = exp2f(s[ni][1] - m0);
-      const float p10 = exp2f(s[ni][2] - m1), p11 = exp2f(s[ni][3] - m1);
+      float p00 = exp2f(s[ni][0] - m0), p01 = exp2f(s[ni][1] - m0);
+      float p10 = exp2f(s[ni][2] - m1), p11 = exp2f(s[ni][3] - m1);
       l0 += p00 + p01;
       l1 += p10 + p11;
+      if (TRAIN && drop.on()) {  // select only: 1/keep folds into 1/l
+        bool keep[4];
+        keep_frag_rows(drop, (uint32_t)(b * H + h), qt * BQ + warp * 16, kt * BKV + ni * 8,
+                       lane, keep);
+        p00 = keep[0] ? p00 : 0.f;
+        p01 = keep[1] ? p01 : 0.f;
+        p10 = keep[2] ? p10 : 0.f;
+        p11 = keep[3] ? p11 : 0.f;
+      }
       // two adjacent 8-key C tiles form one 16-key A fragment
       pf[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(p00, p01);
       pf[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(p10, p11);
@@ -190,8 +205,17 @@ __global__ void __launch_bounds__(THREADS, 1) attention_kernel(
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+  float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  if (TRAIN) {
+    if (drop.on()) {
+      inv0 *= drop.scale;
+      inv1 *= drop.scale;
+    }
+    float* lrow = lse + ((size_t)b * H + h) * N;
+    if (t == 0 && r0 < N) lrow[r0] = m0 + log2f(fmaxf(l0, 1e-37f));
+    if (t == 0 && r1 < N) lrow[r1] = m1 + log2f(fmaxf(l1, 1e-37f));
+  }
   const int hd = H * D;
   bf16* ob = out + (size_t)b * N * hd + h * D;
 #pragma unroll
@@ -206,33 +230,47 @@ __global__ void __launch_bounds__(THREADS, 1) attention_kernel(
     }
 }
 
-template <int DP>
-int launch(const void* qkv, const void* scale, void* out, int B, int N, int H,
-           int D, int lsa, cudaStream_t stream) {
+template <int DP, bool TRAIN>
+int launch(const void* qkv, const void* scale, void* out, void* lse, int B, int N, int H,
+           int D, int lsa, Drop drop, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attention_kernel<DP, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BQ - 1) / BQ, H, B);
-  attention_kernel<DP><<<grid, THREADS, bytes, stream>>>(
-      (const bf16*)qkv, (const float*)scale, (bf16*)out, B, N, H, D, lsa);
+  attention_kernel<DP, TRAIN><<<grid, THREADS, bytes, stream>>>(
+      (const bf16*)qkv, (const float*)scale, (bf16*)out, (float*)lse, B, N, H, D, lsa, drop);
   return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dp(const void* qkv, const void* scale, void* out, void* lse, int B, int N, int H,
+              int D, int lsa, Drop drop, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch<DP, true>(qkv, scale, out, lse, B, N, H, D, lsa, drop, stream);
+  return launch<DP, false>(qkv, scale, out, lse, B, N, H, D, lsa, drop, stream);
 }
 
 }  // namespace
 
 // Returns a CUDA error code (0 on success). DP is the padded head width:
-// 32, 64, 96, 128 or 160, at least D.
-extern "C" int v1t_attention(const void* qkv, const void* scale, void* out,
-                             int B, int N, int H, int D, int DP, int lsa,
+// 32, 64, 96, 128 or 160, at least D. Training: lse, when not null,
+// receives the (B, H, N) float32 log2-domain log-sum-exp of every row and
+// selects the training kernel, which applies the keep mask of (seed, site)
+// to the probabilities when threshold > 0 (scaling by drop_scale).
+extern "C" int v1t_attention(const void* qkv, const void* scale, void* out, void* lse,
+                             int B, int N, int H, int D, int DP, int lsa, unsigned seed,
+                             unsigned site, unsigned threshold, float drop_scale,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (threshold != 0u && lse == nullptr) return (int)cudaErrorInvalidValue;
+  const Drop drop{seed, site, threshold, drop_scale};
   switch (DP) {
-    case 32: return launch<32>(qkv, scale, out, B, N, H, D, lsa, s);
-    case 64: return launch<64>(qkv, scale, out, B, N, H, D, lsa, s);
-    case 96: return launch<96>(qkv, scale, out, B, N, H, D, lsa, s);
-    case 128: return launch<128>(qkv, scale, out, B, N, H, D, lsa, s);
-    case 160: return launch<160>(qkv, scale, out, B, N, H, D, lsa, s);
+    case 32: return launch_dp<32>(qkv, scale, out, lse, B, N, H, D, lsa, drop, s);
+    case 64: return launch_dp<64>(qkv, scale, out, lse, B, N, H, D, lsa, drop, s);
+    case 96: return launch_dp<96>(qkv, scale, out, lse, B, N, H, D, lsa, drop, s);
+    case 128: return launch_dp<128>(qkv, scale, out, lse, B, N, H, D, lsa, drop, s);
+    case 160: return launch_dp<160>(qkv, scale, out, lse, B, N, H, D, lsa, drop, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,18 @@
 // indices and weights once, then walks the C channels, so that neighbouring
 // threads write neighbouring p (coalesced stores); the table of one image
 // (512 KB) is read through L1/L2.
+//
+// bilinear_sample_cm_bwd replaces v1t_tpu/ops/interp_matmul.py _bwd_kernel
+// (:116), reached from _interp_bwd (:210): d(table) and d(grid) in one pass.
+// The TPU kernel contracted the cotangent with the transposed hat matrix
+// (a matmul in place of XLA's corner scatters); Hopper scatters: one thread
+// per (b, p) adds w_i * dout to the 4 corners of every channel with fp32
+// atomics (d(table) float32, cast to the table's dtype by the caller; the
+// order of the adds varies from run to run) and accumulates torch's
+// piecewise-linear grid gradient, d/dx = sum_c dout (v(x0 + 1) - v(x0))
+// weighted over y inside the floor cell, in registers.
+// Bound: the same bytes as the forward plus d(table) (the atomics' 4 adds per
+// (b, c, p) stay in L2), ~16 FLOP per (b, c, p); bound by memory bytes.
 #include "common.cuh"
 
 namespace {
@@ -58,7 +70,66 @@ __global__ void __launch_bounds__(THREADS) bilinear_sample_cm_kernel(
   }
 }
 
+__global__ void __launch_bounds__(THREADS) bilinear_sample_cm_bwd_kernel(
+    const bf16* __restrict__ table, const float* __restrict__ grid,
+    const bf16* __restrict__ dout, float* __restrict__ dtable, float* __restrict__ dgrid,
+    int C, int height, int width, int P) {
+  const int p = blockIdx.x * THREADS + threadIdx.x, b = blockIdx.y;
+  if (p >= P) return;
+  const float gx = grid[((size_t)b * P + p) * 2];
+  const float gy = grid[((size_t)b * P + p) * 2 + 1];
+  const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (width - 1), -2.f), width + 1.f);
+  const float y = fminf(fmaxf((gy + 1.f) * 0.5f * (height - 1), -2.f), height + 1.f);
+  const float x0f = floorf(x), y0f = floorf(y);
+  const int ix0 = (int)x0f, iy0 = (int)y0f;
+  const float wx1 = x - x0f, wy1 = y - y0f, wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+  int idx[4];
+  bool valid[4];
+  float wt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ix = ix0 + (i & 1), iy = iy0 + (i >> 1);
+    valid[i] = ix >= 0 && ix < width && iy >= 0 && iy < height;
+    idx[i] = valid[i] ? iy * width + ix : 0;
+    wt[i] = ((i & 1) ? wx1 : wx0) * ((i >> 1) ? wy1 : wy0);
+  }
+  const int T = height * width;
+  const bf16* tb = table + (size_t)b * C * T;
+  float* db = dtable + (size_t)b * C * T;
+  const bf16* go = dout + (size_t)b * C * P + p;
+  float dx = 0.f, dy = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float g = to_f(go[(size_t)c * P]);
+    const bf16* row = tb + (size_t)c * T;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = valid[i] ? to_f(row[idx[i]]) : 0.f;
+      if (valid[i]) atomicAdd(db + (size_t)c * T + idx[i], wt[i] * g);
+    }
+    dx += g * ((v[1] - v[0]) * wy0 + (v[3] - v[2]) * wy1);
+    dy += g * ((v[2] - v[0]) * wx0 + (v[3] - v[1]) * wx1);
+  }
+  // pixel units -> the grid's [-1, 1] units (align_corners=True)
+  dgrid[((size_t)b * P + p) * 2] = dx * 0.5f * (width - 1);
+  dgrid[((size_t)b * P + p) * 2 + 1] = dy * 0.5f * (height - 1);
+}
+
 }  // namespace
+
+// Returns cudaGetLastError() after the launch. dtable (B, C, H*W) float32,
+// which the caller zeroes, receives d(table); dgrid (B, P, 2) float32
+// d(grid) in the grid's units.
+extern "C" int v1t_bilinear_sample_cm_bwd(const void* table, const void* grid,
+                                          const void* dout, void* dtable, void* dgrid,
+                                          int B, int C, int height, int width, int P,
+                                          void* stream) {
+  dim3 blocks((P + THREADS - 1) / THREADS, B);
+  bilinear_sample_cm_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)table, (const float*)grid, (const bf16*)dout, (float*)dtable,
+      (float*)dgrid, C, height, width, P);
+  return (int)cudaGetLastError();
+}
 
 // Returns cudaGetLastError() after the launch.
 extern "C" int v1t_bilinear_sample_cm(const void* table, const void* grid,

@@ -33,6 +33,12 @@
 // adds the residual and writes y with neighbouring threads on neighbouring
 // addresses. With heads > 0 the QKV output is written head-major and
 // zero-padded for attention.cu.
+// Training (TRAIN = true): the epilogue applies the dropout keep mask of
+// the output (after bias and GELU, before the rounding and the residual: the
+// out-projection's and fc2's output dropout, fc1's hidden dropout; element
+// (0, row, col) of the site, common.cuh) and, for fc1, also writes the
+// pre-GELU activation (bf16) that the backward's GELU' reads. The serving
+// launches take TRAIN = false, the kernel as it was.
 // Not yet: wgmma, TMA, a persistent schedule, vector stores, prefetching
 // across output tiles.
 #include "common.cuh"
@@ -55,13 +61,14 @@ __device__ __forceinline__ float load_z(const bf16* xr, const bf16* br, int k) {
   return z;
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float* __restrict__ gamma, const float* __restrict__ beta,
     const bf16* __restrict__ pro_row, const float* __restrict__ bias,
     const bf16* __restrict__ residual, const bf16* __restrict__ res_row,
-    bf16* __restrict__ y, int M, int N, int K, int KP, int rows_per_batch,
-    int gelu, int heads, int head_dim, int head_pad) {
+    bf16* __restrict__ y, bf16* __restrict__ pre, int M, int N, int K, int KP,
+    int rows_per_batch, int gelu, int heads, int head_dim, int head_pad, Drop drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ALD = KP + 8;
   bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [BM][ALD]
@@ -207,7 +214,17 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
           for (int jc = 0; jc < 2; ++jc) {
             const int col = n0 + c + jc;
             v[jc] = acc[mi][ni][half * 2 + jc] + (bias != nullptr && col < N ? bias[col] : 0.f);
+            if (TRAIN && pre != nullptr && m0 + r < M && col < N)
+              pre[(size_t)(m0 + r) * N + col] = __float2bfloat16_rn(v[jc]);
             if (gelu) v[jc] = 0.5f * v[jc] * (1.f + erff(v[jc] * 0.70710678118654752f));
+          }
+          if (TRAIN && drop.on()) {
+            // one Philox per pair: (c, c + 1) lie in one group of 4 columns
+            const uint4 w = keep_words(drop, 0u, (uint32_t)(m0 + r), (uint32_t)(n0 + c) >> 2);
+            const int j = (n0 + c) & 3;
+#pragma unroll
+            for (int jc = 0; jc < 2; ++jc)
+              v[jc] = word_of(w, j + jc) < drop.threshold ? v[jc] * drop.scale : 0.f;
           }
           *reinterpret_cast<uint32_t*>(Ys + r * YLD + c) = pack_bf16(v[0], v[1]);
         }
@@ -244,6 +261,24 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
   }
 }
 
+template <bool TRAIN>
+int launch(const void* x, const void* w, const void* gamma, const void* beta,
+           const void* pro_row, const void* bias, const void* residual,
+           const void* res_row, void* y, void* pre, int M, int N, int K, int KP,
+           int rows_per_batch, int gelu, int heads, int head_dim, int head_pad,
+           Drop drop, cudaStream_t stream) {
+  const int bytes = smem_bytes(KP);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_linear_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  ln_linear_kernel<TRAIN><<<(M + BM - 1) / BM, THREADS, bytes, stream>>>(
+      (const bf16*)x, (const bf16*)w, (const float*)gamma, (const float*)beta,
+      (const bf16*)pro_row, (const float*)bias, (const bf16*)residual,
+      (const bf16*)res_row, (bf16*)y, (bf16*)pre, M, N, K, KP, rows_per_batch, gelu,
+      heads, head_dim, head_pad, drop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns a CUDA error code (0 on success). w is (N, KP), zero-padded from K
@@ -251,22 +286,23 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
 // (gamma/beta), the row bias before it (pro_row), the output bias, the
 // residual and the row bias added to the residual (res_row). heads > 0
 // writes y head-major for attention.cu: (N / (heads*head_dim), B, heads,
-// rows_per_batch, head_pad), zero-padded past head_dim.
+// rows_per_batch, head_pad), zero-padded past head_dim. Training: pre, when
+// not null, receives the (M, N) activation before the GELU; threshold > 0
+// applies the keep mask of (seed, site) to the output (ops/dropout.py),
+// scaling kept elements by drop_scale.
 extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
                              const void* beta, const void* pro_row,
                              const void* bias, const void* residual,
-                             const void* res_row, void* y, int M, int N, int K,
-                             int KP, int rows_per_batch, int gelu, int heads,
-                             int head_dim, int head_pad, void* stream) {
+                             const void* res_row, void* y, void* pre, int M, int N,
+                             int K, int KP, int rows_per_batch, int gelu, int heads,
+                             int head_dim, int head_pad, unsigned seed, unsigned site,
+                             unsigned threshold, float drop_scale, void* stream) {
   if (K > MAX_K || KP % BK != 0 || KP < K) return (int)cudaErrorInvalidValue;
-  const int bytes = smem_bytes(KP);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  ln_linear_kernel<<<(M + BM - 1) / BM, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)gamma, (const float*)beta,
-      (const bf16*)pro_row, (const float*)bias, (const bf16*)residual,
-      (const bf16*)res_row, (bf16*)y, M, N, K, KP, rows_per_batch, gelu, heads,
-      head_dim, head_pad);
-  return (int)cudaGetLastError();
+  const Drop drop{seed, site, threshold, drop_scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pre != nullptr || threshold != 0u)
+    return launch<true>(x, w, gamma, beta, pro_row, bias, residual, res_row, y, pre, M, N,
+                        K, KP, rows_per_batch, gelu, heads, head_dim, head_pad, drop, s);
+  return launch<false>(x, w, gamma, beta, pro_row, bias, residual, res_row, y, pre, M, N, K,
+                       KP, rows_per_batch, gelu, heads, head_dim, head_pad, drop, s);
 }

@@ -2,6 +2,6 @@
 
 from v1t_tpu_torch.models.cores import vit  # noqa: F401  (registers "vit")
 from v1t_tpu_torch.models.readouts import gaussian2d  # noqa: F401  (registers "gaussian2d")
-from v1t_tpu_torch.models.model import Model, build_model
+from v1t_tpu_torch.models.model import Model, build_model, model_regularizer, param_labels
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "model_regularizer", "param_labels"]

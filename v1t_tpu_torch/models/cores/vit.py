@@ -1,5 +1,5 @@
 """V1T core — the flagship Vision Transformer with per-block behavior
-modulation, forward (eval) path.
+modulation, forward (eval and training) and regularizer.
 
 Mirrors ``v1t_tpu/models/cores/vit.py`` and the reference
 src/v1t/models/core/vit.py, with the reference's torch ``state_dict`` keys:
@@ -18,6 +18,14 @@ composed path on any device: the reference the kernel path is held against
 on the card. The behavior latent enters the attention sublayer as its
 ``bias_row`` and the residual it emits is x + latent, the JAX package's
 fold_residual form.
+
+Training (``module.train()``): the patch embedding's dropout (``p_dropout``)
+draws from the step's ``torch.Generator``; the transformer's dropout
+(``t_dropout``: attention probabilities, attention output, MLP hidden layer
+and output, as the TPU kernels fold them) is drawn inside the kernels from
+the step's seed, each block's four sites numbered 4 * block + 0..3
+(``ops/dropout.py``). ``drop_path > 0`` is not ported: a training forward
+with it raises.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from torch import nn
 from v1t_tpu_torch.models.layers import linear, run_mlp, torch_default_init_, trunc_normal_init_
 from v1t_tpu_torch.models.registry import register_core
 from v1t_tpu_torch.ops.common import find_shape, unfold_output_size, unfold_patches
+from v1t_tpu_torch.ops.dropout import Dropout
 from v1t_tpu_torch.ops.fused_mha import fused_mha
 from v1t_tpu_torch.ops.fused_mlp import fused_mlp
 
@@ -43,9 +52,14 @@ class _Unfold(nn.Module):
         return unfold_patches(images, self.patch_size, self.stride)
 
 
+def _drop(rate: float, seed: t.Optional[int], site: int) -> t.Optional[Dropout]:
+    """The dropout of one site of this step, or None outside training."""
+    return Dropout(rate, seed, site) if seed is not None and rate > 0.0 else None
+
+
 class Image2Patches(nn.Module):
     def __init__(self, image_shape, patch_mode: int, patch_size: int, stride: int,
-                 emb_dim: int, dtype=None):
+                 emb_dim: int, dropout: float = 0.0, dtype=None):
         super().__init__()
         if patch_mode != 0:
             raise NotImplementedError(f"patch_mode {patch_mode} is not ported yet")
@@ -53,7 +67,7 @@ class Image2Patches(nn.Module):
         self.num_patches = (
             unfold_output_size(h, patch_size, stride) * unfold_output_size(w, patch_size, stride) + 1
         )
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         # (Unfold, Rearrange, Linear) as the reference's Sequential
         self.projection = nn.Sequential(
             _Unfold(patch_size, stride), nn.Identity(),
@@ -62,11 +76,16 @@ class Image2Patches(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, emb_dim))
         self.pos_embedding = nn.Parameter(torch.zeros(self.num_patches, emb_dim))
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor,
+                generator: t.Optional[torch.Generator] = None) -> torch.Tensor:
         patches = linear(self.projection[0](inputs), self.projection[2], self.dtype)
         b = patches.shape[0]
         cls = self.cls_token.to(patches.dtype).expand(b, -1, -1)
-        return torch.cat([cls, patches], dim=1) + self.pos_embedding.to(patches.dtype)
+        tokens = torch.cat([cls, patches], dim=1) + self.pos_embedding.to(patches.dtype)
+        if self.training and self.dropout > 0.0:
+            keep = torch.rand(tokens.shape, generator=generator, device=tokens.device)
+            tokens = tokens * (keep >= self.dropout) / (1.0 - self.dropout)
+        return tokens
 
     def init_weights(self, generator: torch.Generator) -> None:
         torch_default_init_(self.projection[2], generator)
@@ -111,10 +130,11 @@ class Attention(nn.Module):
     learnable per-head temperature under LSA, projection + bias."""
 
     def __init__(self, emb_dim: int, num_heads: int, use_lsa: bool = False,
-                 use_bias: bool = True, impl: str = "auto"):
+                 use_bias: bool = True, impl: str = "auto", dropout: float = 0.0):
         super().__init__()
         inner = emb_dim * num_heads
         self.num_heads, self.use_lsa, self.impl = num_heads, use_lsa, impl
+        self.dropout = dropout
         self.layer_norm = nn.LayerNorm(emb_dim)
         self.to_qkv = nn.Linear(emb_dim, 3 * inner, bias=False)
         self.projection = nn.Sequential(nn.Linear(inner, emb_dim, bias=use_bias), nn.Dropout())
@@ -122,7 +142,10 @@ class Attention(nn.Module):
         if use_lsa:
             self.scale = nn.Parameter(torch.full((num_heads,), self.base_scale))
 
-    def forward(self, x: torch.Tensor, bias_row: t.Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias_row: t.Optional[torch.Tensor],
+                seed: t.Optional[int] = None, site: int = 0) -> torch.Tensor:
+        """``seed`` (training): dropout of the probabilities (site ``site``)
+        and of the output (``site + 1``)."""
         dt = x.dtype
         proj = self.projection[0]
         bp = proj.bias if proj.bias is not None else torch.zeros_like(self.layer_norm.bias)
@@ -132,6 +155,7 @@ class Attention(nn.Module):
             self.scale if self.use_lsa else self.base_scale,
             num_heads=self.num_heads, use_lsa=self.use_lsa, fold_residual=True,
             bias_row=bias_row, plain=self.impl == "xla",
+            drop_p=_drop(self.dropout, seed, site), drop_o=_drop(self.dropout, seed, site + 1),
         )
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -148,15 +172,18 @@ class MLP(nn.Module):
     """Pre-LN MLP sublayer: LayerNorm -> fc1 -> exact GELU -> fc2."""
 
     def __init__(self, emb_dim: int, hidden_dim: int, use_bias: bool = True,
-                 impl: str = "auto"):
+                 impl: str = "auto", dropout: float = 0.0):
         super().__init__()
-        self.impl = impl
+        self.impl, self.dropout = impl, dropout
         self.model = nn.Sequential(
             nn.LayerNorm(emb_dim), nn.Linear(emb_dim, hidden_dim, bias=use_bias), nn.GELU(),
             nn.Dropout(), nn.Linear(hidden_dim, emb_dim, bias=use_bias), nn.Dropout(),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: t.Optional[int] = None,
+                site: int = 0) -> torch.Tensor:
+        """``seed`` (training): dropout of the hidden layer (site ``site``)
+        and of the output (``site + 1``)."""
         dt = x.dtype
         ln, fc1, fc2 = self.model[0], self.model[1], self.model[4]
         b1 = fc1.bias if fc1.bias is not None else x.new_zeros(fc1.out_features, dtype=torch.float32)
@@ -164,6 +191,7 @@ class MLP(nn.Module):
         return fused_mlp(
             x, ln.weight, ln.bias, fc1.weight.to(dt), b1, fc2.weight.to(dt), b2,
             fold_residual=True, plain=self.impl == "xla",
+            drop1=_drop(self.dropout, seed, site), drop2=_drop(self.dropout, seed, site + 1),
         )
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -176,11 +204,11 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, emb_dim, num_heads, mlp_dim, behavior_mode, mouse_ids, use_lsa,
-                 use_bias, dtype, impl):
+                 use_bias, dtype, impl, dropout=0.0):
         super().__init__()
         # the sublayers compute in the dtype of the residual stream they get
-        self.mha = Attention(emb_dim, num_heads, use_lsa, use_bias, impl)
-        self.mlp = MLP(emb_dim, mlp_dim, use_bias, impl)
+        self.mha = Attention(emb_dim, num_heads, use_lsa, use_bias, impl, dropout)
+        self.mlp = MLP(emb_dim, mlp_dim, use_bias, impl, dropout)
         if behavior_mode in (2, 3, 4):
             # the reference's attribute name, hence its state_dict keys
             self.add_module(
@@ -191,25 +219,27 @@ class Block(nn.Module):
     def b_mlp(self) -> t.Optional[BehaviorMLP]:
         return self._modules.get("b-mlp")
 
-    def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
+                seed: t.Optional[int] = None, site: int = 0) -> torch.Tensor:
         latent = None if self.b_mlp is None else self.b_mlp(behaviors, mouse_id)
-        x = self.mha(x, latent)  # (x + latent) + attention sublayer
-        return self.mlp(x)  # x + MLP sublayer
+        x = self.mha(x, latent, seed, site)  # (x + latent) + attention sublayer
+        return self.mlp(x, seed, site + 2)  # x + MLP sublayer
 
 
 class Transformer(nn.Module):
     def __init__(self, emb_dim, num_blocks, num_heads, mlp_dim, behavior_mode, mouse_ids,
-                 use_lsa=False, use_bias=True, dtype=None, impl="auto"):
+                 use_lsa=False, use_bias=True, dtype=None, impl="auto", dropout=0.0):
         super().__init__()
         self.blocks = nn.ModuleList([
             Block(emb_dim, num_heads, mlp_dim, behavior_mode, mouse_ids, use_lsa, use_bias,
-                  dtype, impl)
+                  dtype, impl, dropout)
             for _ in range(num_blocks)
         ])
 
-    def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor) -> torch.Tensor:
-        for block in self.blocks:
-            x = block(x, mouse_id, behaviors)
+    def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
+                seed: t.Optional[int] = None) -> torch.Tensor:
+        for i, block in enumerate(self.blocks):
+            x = block(x, mouse_id, behaviors, seed, site=4 * i)
         return x
 
 
@@ -219,16 +249,17 @@ class ViTCore(nn.Module):
 
     def __init__(self, image_shape, mouse_ids, behavior_mode=0, patch_mode=0, patch_size=8,
                  patch_stride=1, num_blocks=4, num_heads=4, emb_dim=155, mlp_dim=488,
-                 use_lsa=False, use_bias=True, dtype=None, impl="auto"):
+                 p_dropout=0.0, t_dropout=0.0, drop_path=0.0, use_lsa=False, use_bias=True,
+                 dtype=None, impl="auto"):
         super().__init__()
-        self.behavior_mode, self.emb_dim = behavior_mode, emb_dim
+        self.behavior_mode, self.emb_dim, self.drop_path = behavior_mode, emb_dim, drop_path
         self.patch_embedding = Image2Patches(
-            image_shape, patch_mode, patch_size, patch_stride, emb_dim, dtype
+            image_shape, patch_mode, patch_size, patch_stride, emb_dim, p_dropout, dtype
         )
         self.num_patches = self.patch_embedding.num_patches - 1
         self.transformer = Transformer(
             emb_dim, num_blocks, num_heads, mlp_dim, behavior_mode, tuple(mouse_ids),
-            use_lsa, use_bias, dtype, impl,
+            use_lsa, use_bias, dtype, impl, t_dropout,
         )
 
     @classmethod
@@ -238,7 +269,8 @@ class ViTCore(nn.Module):
             behavior_mode=config.behavior_mode, patch_mode=config.patch_mode,
             patch_size=config.patch_size, patch_stride=config.patch_stride,
             num_blocks=config.num_blocks, num_heads=config.num_heads,
-            emb_dim=config.emb_dim, mlp_dim=config.mlp_dim, use_lsa=config.use_lsa,
+            emb_dim=config.emb_dim, mlp_dim=config.mlp_dim, p_dropout=config.p_dropout,
+            t_dropout=config.t_dropout, drop_path=config.drop_path, use_lsa=config.use_lsa,
             use_bias=not config.disable_bias, dtype=dtype, impl=config.attention_impl,
         )
 
@@ -247,13 +279,24 @@ class ViTCore(nn.Module):
         h, w = find_shape(self.num_patches)
         return (self.emb_dim, h, w)
 
-    def forward(self, inputs, mouse_id: str, behaviors, pupil_centers) -> torch.Tensor:
-        tokens = self.patch_embedding(inputs)
+    def forward(self, inputs, mouse_id: str, behaviors, pupil_centers,
+                seed: t.Optional[int] = None,
+                generator: t.Optional[torch.Generator] = None) -> torch.Tensor:
+        """In training, ``seed`` keys the kernels' dropout and ``generator``
+        draws the patch embedding's."""
+        if self.training and self.drop_path > 0.0:
+            raise NotImplementedError("drop_path > 0 is not ported yet")
+        tokens = self.patch_embedding(inputs, generator)
         if self.behavior_mode in (3, 4):
             behaviors = torch.cat([behaviors, pupil_centers], dim=-1)
-        out = self.transformer(tokens, mouse_id, behaviors)[:, 1:, :]  # drop CLS
+        seed = seed if self.training else None
+        out = self.transformer(tokens, mouse_id, behaviors, seed)[:, 1:, :]  # drop CLS
         c, h, w = self.output_shape
         return out.reshape(out.shape[0], h, w, c).permute(0, 3, 1, 2)
+
+    def regularizer(self, reg_scale: float) -> torch.Tensor:
+        """L1 over every core parameter (reference vit.py:419-421)."""
+        return reg_scale * sum(p.abs().sum() for p in self.parameters())
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.patch_embedding.init_weights(generator)

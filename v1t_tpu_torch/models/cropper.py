@@ -106,6 +106,13 @@ class ImageCropper(nn.Module):
             outputs = torch.cat([outputs, channels], dim=1)
         return outputs, grid
 
+    def regularizer(self, mouse_id: str, reg_scale: float) -> torch.Tensor:
+        """L1 over the mouse's image shifter (reference image_cropper.py:38-39,
+        113-118); zero without one."""
+        if self.image_shifter is None:
+            return self.grid.new_zeros(())
+        return reg_scale * sum(p.abs().sum() for p in self.image_shifter[mouse_id].parameters())
+
     def init_weights(self, generator: torch.Generator) -> None:
         if self.image_shifter is not None:
             for shifter in self.image_shifter.values():

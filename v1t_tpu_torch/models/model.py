@@ -1,13 +1,16 @@
 """Full model assembly: ImageCropper -> core -> CoreShifters -> per-mouse
-readouts -> ELU+1, forward (eval) path.
+readouts -> ELU+1, forward (eval and training), the regularizers and the
+learning-rate labels.
 
 Mirrors ``v1t_tpu/models/model.py`` and the reference
 src/v1t/models/model.py: the forward contract ``(outputs, images,
-image_grids)``, ``activate=False`` skipping the ELU+1, and shift_mode 0-4
-deciding which shifters exist. Parameters are float32; ``dtype`` (bf16 under
-``precision="bf16"``) is the compute type of the activations, as in the JAX
-package. The training forward (dropout, grid sampling noise) comes with the
-training slice: a module in training mode raises.
+image_grids)``, ``activate=False`` skipping the ELU+1, shift_mode 0-4
+deciding which shifters exist, ``model_regularizer`` and ``param_labels``.
+Parameters are float32; ``dtype`` (bf16 under ``precision="bf16"``) is the
+compute type of the activations, as in the JAX package. A training forward
+(``model.train()``) takes the step's ``seed``: the kernels key their
+dropout masks with it, and a ``torch.Generator`` on the device seeded with
+it draws the patch embedding's dropout and the readout's grid noise.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ class Readouts(nn.ModuleDict):
             for m in data_card.mouse_ids
         })
 
-    def forward(self, inputs, mouse_id: str, shifts=None):
-        return self[mouse_id](inputs, shifts=shifts)
+    def forward(self, inputs, mouse_id: str, shifts=None, sample=None, generator=None):
+        return self[mouse_id](inputs, shifts=shifts, sample=sample, generator=generator)
 
 
 class Model(nn.Module):
@@ -73,18 +76,23 @@ class Model(nn.Module):
         )
 
     def forward(self, inputs: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
-                pupil_centers: torch.Tensor, activate: bool = True):
-        """Returns (responses (B, N) float32, cropped images, image grids)."""
+                pupil_centers: torch.Tensor, activate: bool = True,
+                seed: t.Optional[int] = None, sample: t.Optional[bool] = None):
+        """Returns (responses (B, N) float32, cropped images, image grids).
+        In training ``seed`` (uint32) is required; ``sample`` switches the
+        readout's grid noise (default: on in training)."""
+        generator = None
         if self.training:
-            raise NotImplementedError(
-                "the training forward is not ported yet: call model.eval()"
-            )
+            if seed is None:
+                raise ValueError("a training forward needs the step's seed")
+            generator = torch.Generator(device=inputs.device).manual_seed(seed)
         images, image_grids = self.image_cropper(inputs, mouse_id, behaviors, pupil_centers)
-        outputs = self.core(images, mouse_id, behaviors, pupil_centers)
+        outputs = self.core(images, mouse_id, behaviors, pupil_centers, seed, generator)
         shifts = None
         if self.core_shifter is not None:
             shifts = self.core_shifter(pupil_centers, mouse_id)
-        outputs = self.readouts(outputs, mouse_id, shifts=shifts).float()
+        outputs = self.readouts(outputs, mouse_id, shifts=shifts, sample=sample,
+                                generator=generator).float()
         if activate:
             outputs = elu1(outputs)
         return outputs, images, image_grids
@@ -99,6 +107,29 @@ class Model(nn.Module):
                 shifter.init_weights(generator)
         for readout in self.readouts.values():
             readout.init_weights(generator)
+
+
+def model_regularizer(config: Config, model: Model, mouse_id: str,
+                      core_frozen: bool = False) -> torch.Tensor:
+    """Sum of the module regularizers for one mouse (reference
+    model.py:141-149): L1 over the core (unless frozen), the readout's
+    features, the mouse's image shifter and core shifter."""
+    reg = model.readouts[mouse_id].regularizer(config.readout_reg_scale)
+    if not core_frozen:
+        reg = reg + model.core.regularizer(config.core_reg_scale)
+    reg = reg + model.image_cropper.regularizer(mouse_id, config.cropper_reg_scale)
+    if model.core_shifter is not None:
+        reg = reg + model.core_shifter.regularizer(mouse_id, config.shifter_reg_scale)
+    return reg
+
+
+def param_labels(model: nn.Module) -> t.Dict[str, str]:
+    """Each parameter's learning-rate group: the core trains at ``core_lr``,
+    everything else at ``lr`` (reference model.py:112-139)."""
+    return {
+        name: "core" if name.split(".")[0] == "core" else "rest"
+        for name, _ in model.named_parameters()
+    }
 
 
 def compute_dtype(config: Config) -> t.Optional[torch.dtype]:

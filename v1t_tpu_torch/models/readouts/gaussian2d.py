@@ -1,15 +1,18 @@
 """Gaussian2d readout — per-neuron Gaussian grid locations over the core
-feature map, sampled bilinearly (the flagship readout), forward (eval).
+feature map, sampled bilinearly (the flagship readout), forward (eval and
+training) and regularizer.
 
 Mirrors ``v1t_tpu/models/readouts/gaussian2d.py`` and the reference
 src/v1t/models/readout/gaussian2d.py, with its state_dict keys:
 - mu predicted from the neurons' anatomical coordinates through
   Linear(2or3 -> 30) -> ELU -> Linear(30 -> 2) -> Tanh, or a free ``_mu``
   parameter (straight-through clamp to [-1, 1]);
-- a full 2x2 sigma per neuron (the only Gaussian type the model builds;
-  unused at eval) and a bias initialised from the response statistics;
-- at eval the grid is clamp(mu, -1, 1) (no sampling noise), shifted by the
-  core shifter's output;
+- a full 2x2 sigma per neuron (the only Gaussian type the model builds)
+  and a bias initialised from the response statistics;
+- in training (``sample``) each (batch, neuron) grid point is
+  clamp(sigma . N(0, 1) + mu, -1, 1), the noise drawn from the step's
+  ``torch.Generator`` on the device; at eval clamp(mu, -1, 1); then shifted
+  by the core shifter's output;
 - bilinear align_corners=True sampling of the channel-major core map
   (``ops/interp_matmul.py``), the per-neuron feature product over channels
   and the bias.
@@ -31,7 +34,7 @@ from torch import nn
 from v1t_tpu_torch.data.cards import NeuronCard
 from v1t_tpu_torch.models.layers import torch_default_init_
 from v1t_tpu_torch.models.registry import register_readout
-from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_plain
+from v1t_tpu_torch.ops.interp_matmul import sample_cm
 
 
 def straight_through_clamp(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -82,18 +85,39 @@ class Gaussian2DReadout(nn.Module):
             return self.mu_transform(self.source_grid).reshape(1, self.num_neurons, 1, 2)
         return straight_through_clamp(self._mu, -1.0, 1.0)
 
-    def forward(self, inputs: torch.Tensor, shifts: t.Optional[torch.Tensor] = None) -> torch.Tensor:
-        """inputs (B, C, h, w) core map -> (B, N) responses (before ELU+1)."""
+    def sample_grid(self, batch_size: int, sample: bool,
+                    generator: t.Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, N, 1, 2) grid points: N(mu, sigma sigma^T) per (batch,
+        neuron) when ``sample``, mu otherwise; clamped to [-1, 1]
+        (reference gaussian2d.py:195-235)."""
+        mu = self.mu()
+        if not sample:
+            return mu.clamp(-1.0, 1.0).expand(batch_size, -1, -1, -1)
+        norm = torch.randn((batch_size, self.num_neurons, 1, 2), generator=generator,
+                           device=mu.device)
+        # grid[b, n, i, c] = sum_d sigma[0, n, c, d] * norm[b, n, i, d]
+        return (torch.einsum("ancd,bnid->bnic", self.sigma, norm) + mu).clamp(-1.0, 1.0)
+
+    def forward(self, inputs: torch.Tensor, shifts: t.Optional[torch.Tensor] = None,
+                sample: t.Optional[bool] = None,
+                generator: t.Optional[torch.Generator] = None) -> torch.Tensor:
+        """inputs (B, C, h, w) core map -> (B, N) responses (before ELU+1).
+        ``sample`` (default: in training) draws the grid noise from
+        ``generator``."""
         b, c, h, w = inputs.shape
-        grid = self.mu().clamp(-1.0, 1.0).expand(b, -1, -1, -1)
+        sample = self.training if sample is None else sample
+        grid = self.sample_grid(b, sample, generator)
         if shifts is not None:
             grid = grid + shifts.float()[:, None, None, :]
         grid = grid.reshape(b, self.num_neurons, 2).contiguous()
         flat = inputs.reshape(b, c, h * w).contiguous()
-        sample = bilinear_sample_cm_plain if self.impl == "xla" else bilinear_sample_cm
-        sampled = sample(flat, grid, h, w)  # (B, C, N)
+        sampled = sample_cm(flat, grid, h, w, plain=self.impl == "xla")  # (B, C, N)
         out = torch.einsum("bcn,cn->bn", sampled.float(), self.features.reshape(c, -1))
         return out + self.bias
+
+    def regularizer(self, reg_scale: float) -> torch.Tensor:
+        """L1 on the feature weights only (reference gaussian2d.py:83-100)."""
+        return reg_scale * self.features.abs().sum()
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():

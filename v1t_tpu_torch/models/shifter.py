@@ -49,3 +49,7 @@ class CoreShifters(nn.ModuleDict):
 
     def forward(self, pupil_centers: torch.Tensor, mouse_id: str) -> torch.Tensor:
         return self[mouse_id](pupil_centers)
+
+    def regularizer(self, mouse_id: str, reg_scale: float) -> torch.Tensor:
+        """L1 over the mouse's shifter (reference core_shifter.py)."""
+        return reg_scale * sum(p.abs().sum() for p in self[mouse_id].parameters())

@@ -7,9 +7,17 @@ interp_matmul.py``) samples a (B, C, H*W) table at (B, P) grid points with
 the TPU has no gather. Hopper gathers, so the kernel here is one thread per
 (b, p) that reads the 4 corners of every channel; the matmul form and its
 table-size cap are not carried over.
+
+The backward (``bilinear_sample_cm_bwd``, the JAX ``_interp_bwd`` ->
+``_bwd_kernel``) scatters d(table) with fp32 atomics and computes torch's
+piecewise-linear d(grid) in the same pass; ``sample_cm`` puts the pair
+behind a ``torch.autograd.Function`` with the JAX ``custom_vjp``'s
+cotangents (d(table) in the table's dtype, d(grid) float32).
 """
 
 from __future__ import annotations
+
+import typing as t
 
 import torch
 
@@ -64,3 +72,92 @@ def bilinear_sample_cm(table: Tensor, grid: Tensor, height: int, width: int) -> 
 
 
 bilinear_sample_cm.launches = 0
+
+
+def bilinear_sample_cm_bwd_plain(table: Tensor, grid: Tensor, dout: Tensor, height: int,
+                                 width: int) -> t.Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the backward: float32 scatter-adds into
+    d(table) (cast to the table's dtype at the end) and the cell-wise grid
+    gradient, zero padding outside the map (any device)."""
+    b, c, hw = table.shape
+    x = (grid[..., 0].float() + 1.0) * 0.5 * (width - 1)
+    y = (grid[..., 1].float() + 1.0) * 0.5 * (height - 1)
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    ix0, iy0 = x0f.long(), y0f.long()
+    wx1, wy1 = x - x0f, y - y0f
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    g = dout.float()  # (B, C, P)
+    table32 = table.float()
+    dtable = torch.zeros((b, c, hw), dtype=torch.float32, device=table.device)
+    vals = []
+    for dx_, dy_, weight in ((0, 0, wx0 * wy0), (1, 0, wx1 * wy0), (0, 1, wx0 * wy1),
+                             (1, 1, wx1 * wy1)):
+        ix, iy = ix0 + dx_, iy0 + dy_
+        valid = (ix >= 0) & (ix < width) & (iy >= 0) & (iy < height)
+        idx = (iy.clamp(0, height - 1) * width + ix.clamp(0, width - 1))[:, None, :]
+        idx = idx.expand(-1, c, -1)
+        v = torch.gather(table32, 2, idx) * valid[:, None, :]
+        vals.append(v)
+        dtable.scatter_add_(2, idx, g * (weight * valid)[:, None, :])
+    v00, v10, v01, v11 = vals
+    dgx = (g * ((v10 - v00) * wy0[:, None] + (v11 - v01) * wy1[:, None])).sum(1)
+    dgy = (g * ((v01 - v00) * wx0[:, None] + (v11 - v10) * wx1[:, None])).sum(1)
+    dgrid = torch.stack([dgx * 0.5 * (width - 1), dgy * 0.5 * (height - 1)], dim=-1)
+    return dtable.to(table.dtype), dgrid
+
+
+def bilinear_sample_cm_bwd(table: Tensor, grid: Tensor, dout: Tensor, height: int,
+                           width: int) -> t.Tuple[Tensor, Tensor]:
+    """The backward of ``bilinear_sample_cm``: table (B, C, H*W), grid
+    (B, P, 2), dout (B, C, P) in the table's dtype -> (d(table) in the
+    table's dtype, d(grid) (B, P, 2) float32)."""
+    _check(table, grid, height, width)
+    if tuple(dout.shape) != (table.shape[0], table.shape[1], grid.shape[1]):
+        raise ValueError(f"bilinear_sample_cm_bwd: dout {tuple(dout.shape)} does not match")
+    if table.device.type == "cpu":
+        return bilinear_sample_cm_bwd_plain(table, grid, dout, height, width)
+    bf, f32 = torch.bfloat16, torch.float32
+    _build.require_cuda("bilinear_sample_cm_bwd", (bf, f32, bf), table, grid, dout)
+    b, c, hw = table.shape
+    p = grid.shape[1]
+    if b > 65535:
+        raise ValueError("bilinear_sample_cm_bwd: batch exceeds the launch grid")
+    dtable = torch.zeros((b, c, hw), dtype=f32, device=table.device)
+    dgrid = torch.empty((b, p, 2), dtype=f32, device=table.device)
+    rc = _build.library().v1t_bilinear_sample_cm_bwd(
+        table.data_ptr(), grid.data_ptr(), dout.data_ptr(), dtable.data_ptr(),
+        dgrid.data_ptr(), b, c, height, width, p, _build.stream_of(table),
+    )
+    _build.check_launch("bilinear_sample_cm_bwd", rc)
+    bilinear_sample_cm_bwd.launches += 1
+    return dtable.to(table.dtype), dgrid
+
+
+bilinear_sample_cm_bwd.launches = 0
+
+
+class _SampleCM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, grid, height: int, width: int, plain: bool):
+        ctx.shape, ctx.plain = (height, width), plain
+        ctx.save_for_backward(table, grid)
+        fwd = bilinear_sample_cm_plain if plain else bilinear_sample_cm
+        return fwd(table, grid, height, width)
+
+    @staticmethod
+    def backward(ctx, dout):
+        table, grid = ctx.saved_tensors
+        bwd = bilinear_sample_cm_bwd_plain if ctx.plain else bilinear_sample_cm_bwd
+        dtable, dgrid = bwd(table, grid, dout.to(table.dtype).contiguous(), *ctx.shape)
+        return dtable, dgrid, None, None, None
+
+
+def sample_cm(table: Tensor, grid: Tensor, height: int, width: int,
+              plain: bool = False) -> Tensor:
+    """``bilinear_sample_cm`` (``plain``: its plain version on any device),
+    differentiable in the table and the grid through the backward kernel
+    (or its plain version)."""
+    if torch.is_grad_enabled() and (table.requires_grad or grid.requires_grad):
+        return _SampleCM.apply(table, grid, height, width, plain)
+    fwd = bilinear_sample_cm_plain if plain else bilinear_sample_cm
+    return fwd(table, grid, height, width)
