@@ -20,13 +20,26 @@ Phases, one line each as they go:
    the kernel launch counters set to 0 just before and read just after; the
    outputs, and the core map of one batch, are held against the same
    model's plain path on the card;
-5. training, the main path of this slice: ``Trainer.train_step`` on the
-   flagship model (dropout on, readout noise on), two mice of 7000 neurons,
-   batch 64, two cycles with cross-mouse accumulation and one AdamW update
-   each, with the counters set to 0 just before and read just after; the
-   per-step losses and the first step's gradient of every parameter are
-   held against the same weights and seeds through the plain path on the
-   card;
+   3c. the flash-attention kernels of the composed path against their
+   chunked plain versions: the full-resolution shape (batch 2 x 4 heads,
+   34,114 tokens, head 155, bf16, dropout on, the keep masks bit-identical),
+   the fp32 flagship shape (64 x 4 heads, 1654 tokens), a rectangular case
+   with padded keys and an LSE cotangent, an LSA case and head widths 192
+   and 256; and the fused MLP's and the readout's kernels at the shapes
+   the composed paths give them (68,228 rows; a 137x249 and a float32 map);
+5. training: ``Trainer.train_step`` on the flagship model (dropout on,
+   readout noise on), two mice of 7000 neurons, batch 64, two cycles with
+   cross-mouse accumulation and one AdamW update each, with the counters set
+   to 0 just before and read just after; the per-step losses and the first
+   step's gradient of every parameter are held against the same weights and
+   seeds through the plain path on the card;
+   5b. the full-resolution flagship (1x144x256 images, 34,114 tokens, a
+   155x137x249 core map, batch 2, two mice): 2 serving batches and one cycle
+   of 2 train steps on the composed path (flash kernels, fused MLP), the
+   main path of this slice, held against the plain path;
+   5c. the flagship at ``precision="fp32"`` (batch 64, two mice): 1 serving
+   batch and 2 train steps on the composed path (flash kernels in float32,
+   the readout kernel on a float32 map), held against the plain path;
 6. where the time goes: one serving batch and one training step under
    ``torch.profiler``;
 7. a ``kernels`` JSON line, then the result line
@@ -39,6 +52,7 @@ the port is not beside it, or if any phase fails. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -65,6 +79,18 @@ CORE_TOL = 2.5e-2
 # shifter's and the QKV weight's: bf16 rounding flips through 4 blocks)
 LOSS_TOL = 5e-5
 GRAD_TOL = 2e-2
+# the float32 kernels against their plain versions (and the LSE in both
+# types): summation order only; ~10x the largest reading on an H100 (1.8e-6,
+# the fp32 flash backward's dk)
+F32_KERNEL_TOL = 2e-5
+# the composed paths against their plain paths on the card (phases 5b, 5c):
+# responses, core map, per-step losses and first-step gradients. Full
+# resolution keeps the flagship's bf16 bounds (readings 1.3e-3, 1.2e-2,
+# 6.7e-6, 7.4e-3: bf16 rounding flips through 4 blocks, as at 1654 tokens);
+# fp32 ~5x the largest readings (1.7e-7, 1.8e-7, 0 and 6.9e-7: float32
+# summation order only)
+FULLRES_TOL = dict(model=MODEL_TOL, core=CORE_TOL, loss=LOSS_TOL, grad=GRAD_TOL)
+F32_TOL = dict(model=1e-6, core=1e-6, loss=1e-6, grad=5e-6)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
 
@@ -73,6 +99,10 @@ MAP_H, MAP_W = 29, 57
 T_DROP = 0.2544  # the flagship's transformer dropout (configs.py t_dropout)
 DEVICE = "cuda"
 MICE, CYCLES = ("A", "B"), 2
+# the full-resolution run (misc/train_fullres_sp.py): 1x144x256 stimuli, no
+# resize, patch 8 stride 1 -> 137 x 249 patches + CLS
+FR_B, FR_IMAGE, FR_N = 2, (1, 144, 256), 137 * 249 + 1
+FR_MAP_H, FR_MAP_W = 137, 249
 # kernel launches per train step (one micro-batch of 64, one mouse), written
 # down before the first run: 4 blocks x (QKV, out-proj, fc1, fc2) forward
 # projections, 4 attention cores, one readout sampling; backward per block
@@ -80,6 +110,20 @@ MICE, CYCLES = ("A", "B"), 2
 TRAIN_LAUNCHES_PER_STEP = {
     "ln_linear": 16, "attention": 4, "bilinear_sample_cm": 1, "ln_linear_bwd": 16,
     "ln_linear_wgrad": 16, "attention_bwd": 4, "bilinear_sample_cm_bwd": 1,
+    "flash_attention": 0, "flash_attention_bwd": 0,
+}
+# the composed paths, written down before their first run: per block one
+# flash forward and backward; full resolution keeps the fused MLP (fc1, fc2
+# forward, their dX and dW backward); fp32 runs no fused sublayer
+FULLRES_LAUNCHES_PER_STEP = {
+    "ln_linear": 8, "attention": 0, "bilinear_sample_cm": 1, "ln_linear_bwd": 8,
+    "ln_linear_wgrad": 8, "attention_bwd": 0, "bilinear_sample_cm_bwd": 1,
+    "flash_attention": 4, "flash_attention_bwd": 4,
+}
+F32_LAUNCHES_PER_STEP = {
+    "ln_linear": 0, "attention": 0, "bilinear_sample_cm": 1, "ln_linear_bwd": 0,
+    "ln_linear_wgrad": 0, "attention_bwd": 0, "bilinear_sample_cm_bwd": 1,
+    "flash_attention": 4, "flash_attention_bwd": 4,
 }
 
 
@@ -128,6 +172,29 @@ def head_bytes(qkv: torch.Tensor, head_dim: int) -> float:
     """Bytes of a head-major (3, B, H, N, DP) q/k/v at the head width the
     function needs, D, not the padded DP the layout stores."""
     return nbytes(qkv) * head_dim / qkv.shape[-1]
+
+
+def kernel_counters() -> dict:
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from v1t_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from v1t_tpu_torch.ops.fused_mha import attention, attention_bwd
+    from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_bwd
+    from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_bwd, ln_linear_wgrad
+
+    return {"ln_linear": ln_linear, "attention": attention,
+            "bilinear_sample_cm": bilinear_sample_cm, "ln_linear_bwd": ln_linear_bwd,
+            "ln_linear_wgrad": ln_linear_wgrad, "attention_bwd": attention_bwd,
+            "bilinear_sample_cm_bwd": bilinear_sample_cm_bwd, "flash_attention": flash_fwd,
+            "flash_attention_bwd": flash_bwd}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> tuple:
@@ -540,6 +607,201 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
     return rows
 
 
+def check_flash_kernels(gen: torch.Generator) -> list:
+    """The flash kernels of the composed path (rows 7-8) against their
+    chunked plain versions: forward (o, LSE) and backward (dq, dk, dv), with
+    times at the full-resolution and fp32 flagship shapes."""
+    import torch.nn.functional as F
+
+    from v1t_tpu_torch.ops.dropout import Dropout
+    from v1t_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+    )
+
+    log("phase 3c: flash kernels against their chunked plain versions")
+    bf, f32 = torch.bfloat16, torch.float32
+    drop = Dropout(T_DROP, 20261017, 0)
+
+    def operands(bh, nq, nk, d, dtype):
+        dp = -(-d // 32) * 32
+        out = []
+        for n in (nq, nk, nk):
+            x = torch.zeros(bh, n, dp, dtype=dtype, device=DEVICE)
+            x[..., :d] = (torch.randn(bh, n, d, generator=gen) * d ** -0.25).to(DEVICE, dtype)
+            out.append(x)
+        return out
+
+    def check(label, bh, heads, nq, nk, d, dtype, *, n_real=None, lsa=False, drp=None,
+              dlse=False, timed=False):
+        q, k, v = operands(bh, nq, nk, d, dtype)
+        kw = dict(n_real_k=n_real, use_lsa=lsa, drop=drp)
+        tol = KERNEL_TOL if dtype == bf else F32_KERNEL_TOL
+        (o, lse), (o_ref, lse_ref) = (fn(q, k, v, d, heads, with_lse=True, **kw)
+                                      for fn in (flash_fwd, flash_fwd_plain))
+        err_f = compare(f"flash_attention[{label}] o", o, o_ref, tol)
+        compare(f"flash_attention[{label}] lse", lse, lse_ref, F32_KERNEL_TOL)
+        do = (torch.randn(o.shape, generator=gen)).to(DEVICE, dtype)
+        g_lse = (torch.randn(bh, nq, generator=gen) * 0.5).to(DEVICE) if dlse else None
+        got = flash_bwd(q, k, v, o_ref, do, lse_ref, d, heads, dlse=g_lse, **kw)
+        ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, d, heads, dlse=g_lse, **kw)
+        err_b = max(compare(f"flash_attention_bwd[{label}] {part}", g_, r_, tol)
+                    for part, g_, r_ in zip(("dq", "dk", "dv"), got, ref))
+        del got, ref, o_ref
+        case = dict(max_abs_err=err_f[0], rel_err=err_f[1], bwd_max_abs_err=err_b[0],
+                    bwd_rel_err=err_b[1])
+        if timed:
+            kind = "bf16" if dtype == bf else "fp32"
+            d_bytes = d / q.shape[-1]  # the function reads D of the DP columns
+            b_ms, b_by = bound(nbytes(q, k, v) * d_bytes + nbytes(o, lse),
+                               4.0 * bh * nq * nk * d, kind)
+            bb_ms, bb_by = bound(2 * nbytes(q, k, v) * d_bytes + nbytes(o, do, lse),
+                                 10.0 * bh * nq * nk * d, kind)
+            iters = 3 if nq > 10000 else 10
+            ms = cuda_ms(lambda: flash_fwd(q, k, v, d, heads, with_lse=True, **kw), iters)
+            serve_ms = cuda_ms(lambda: flash_fwd(q, k, v, d, heads), iters)
+            bwd_ms = cuda_ms(lambda: flash_bwd(q, k, v, o, do, lse, d, heads, **kw), iters)
+            plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, d, heads, with_lse=True, **kw),
+                               iters=1)
+            plain_bwd_ms = cuda_ms(lambda: flash_bwd_plain(q, k, v, o, do, lse, d, heads, **kw),
+                                   iters=1)
+            # one library call: SDPA on (B, H, N, DP) (the zero columns past D
+            # change no score), forward and its autograd backward, no dropout
+            b4 = lambda x: x.view(bh // heads, heads, x.shape[1], x.shape[2])  # noqa: E731
+            with torch.enable_grad():
+                qs, ks, vs = (b4(x).detach().clone().requires_grad_() for x in (q, k, v))
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0),
+                                 iters)
+                y = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
+                gy = torch.randn(y.shape, generator=gen).to(DEVICE, dtype)
+                lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), gy,
+                                                                 retain_graph=True), iters)
+            del qs, ks, vs, y, gy
+            case.update(ms=ms, serving_ms=serve_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, bwd_ms=bwd_ms,
+                        bwd_plain_ms=plain_bwd_ms, bwd_bound_ms=bb_ms, bwd_bound_by=bb_by,
+                        bwd_library_ms=lib_bwd_ms)
+            log(f"  flash_attention[{label}] (BH {bh}, N {nq}, D {d}, {kind}): kernel_ms "
+                f"{ms:.4f} (serving {serve_ms:.4f}) plain_ms {plain_ms:.4f} sdpa_ms "
+                f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            log(f"  flash_attention_bwd[{label}]: kernel_ms {bwd_ms:.4f} plain_ms "
+                f"{plain_bwd_ms:.4f} sdpa_backward_ms {lib_bwd_ms:.4f} bound_ms {bb_ms:.4f} "
+                f"({bb_by})")
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+        return case
+
+    def masks_bit_identical(label, bh, n, d, dtype):
+        """q = 0 makes every probability 1/N and v[k] = e_(k mod D) makes o
+        count the kept keys of each residue class: exact small integers
+        times one scale, equal only if the masks are."""
+        dp = -(-d // 32) * 32
+        q = torch.zeros(bh, n, dp, dtype=dtype, device=DEVICE)
+        v = torch.zeros_like(q)
+        keys = torch.arange(n, device=DEVICE)
+        v[:, keys, keys % d] = 1.0
+        o_k = flash_fwd(q, q, v, d, 1, drop=drop)
+        o_p = flash_fwd_plain(q, q, v, d, 1, drop=drop)
+        torch.cuda.synchronize()
+        if not torch.equal(o_k, o_p):
+            raise AssertionError(f"flash_attention[{label}]: the kernel's keep mask differs")
+        log(f"  flash_attention[{label}] keep mask: bit-identical to the plain version's "
+            f"({bh} planes x {n} rows x {n} keys)")
+
+    cases = {}
+    cases["full_res"] = check("full-res, dropout", FR_B * H, H, FR_N, FR_N, E, bf, drp=drop,
+                              timed=True)
+    masks_bit_identical("full-res", FR_B * H, FR_N, E, bf)
+    cases["fp32_flagship"] = check("fp32 flagship, dropout", B * H, H, N, N, E, f32, drp=drop,
+                                   timed=True)
+    masks_bit_identical("fp32 flagship", B * H, N, E, f32)
+    cases["rectangular"] = check("rectangular, n_real_k 1300, dlse", 8, 4, 1000, 1500, 64, bf,
+                                 n_real=1300, dlse=True)
+    cases["lsa"] = check("lsa", 8, 4, N, N, E, bf, lsa=True, drp=drop)
+    for d in (192, 256):
+        cases[f"head_{d}"] = check(f"head width {d}", 8, 8, N, N, d, bf, drp=drop)
+    full = cases["full_res"]
+    rows = []
+    for name, src, replaces, pre in (
+            ("flash_attention", "flash_attention.cu",
+             "v1t_tpu/ops/flash_attention.py:435 (_flash_forward -> _fwd_kernel_fullk :279, "
+             "_fwd_kernel :225); :603 (_flash_forward_dt -> _fwd_kernel_dt :545)", ""),
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "v1t_tpu/ops/flash_attention.py:1088 (_flash_backward); :1040 "
+             "(_merged_bwd_kernel :954); :769 (_flash_backward_dt)", "bwd_")):
+        rows.append(dict(
+            name=name, route="cuda", source=f"v1t_tpu_torch/csrc/{src}", replaces=replaces,
+            max_abs_err=full[f"{pre}max_abs_err"], rel_err=full[f"{pre}rel_err"],
+            ms=full[f"{pre}ms"], plain_ms=full[f"{pre}plain_ms"],
+            bound_ms=full[f"{pre}bound_ms"], bound_by=full[f"{pre}bound_by"],
+            library_ms=full[f"{pre}library_ms"],
+            library="F.scaled_dot_product_attention" + (" (autograd backward)" if pre else ""),
+            note="times at the full-resolution shape (BH 8, N 34114, D 155, bf16, dropout "
+                 "on); per_case holds the fp32 flagship's", per_case=cases))
+    return rows
+
+
+def check_path_shapes(gen: torch.Generator) -> None:
+    """The kernels of rows 3-6 at the shapes the composed paths give them:
+    the full-resolution MLP (fc1, and fc2 without the folded residual,
+    68,228 rows, dropout on) forward and backward, the sampling of its
+    137x249 map, and the fp32 flagship's float32 map."""
+    from v1t_tpu_torch.ops.dropout import Dropout
+    from v1t_tpu_torch.ops.interp_matmul import (
+        bilinear_sample_cm, bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain,
+        bilinear_sample_cm_plain,
+    )
+    from v1t_tpu_torch.ops.ln_linear import (
+        ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_plain, ln_linear_wgrad,
+        ln_linear_wgrad_plain,
+    )
+
+    log("phase 3c: rows 3-6 at the composed paths' shapes")
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen) * scale).to(DEVICE, dtype)
+
+    x = randn(FR_B, FR_N, E)
+    gamma, beta = 1.0 + randn(E, scale=0.1, dtype=f32), randn(E, scale=0.1, dtype=f32)
+    w1, b1 = randn(F_HID, E, scale=0.08), randn(F_HID, scale=0.1, dtype=f32)
+    w2, b2 = randn(E, F_HID, scale=0.05), randn(E, scale=0.1, dtype=f32)
+    drop1, drop2 = Dropout(T_DROP, 20261017, 2), Dropout(T_DROP, 20261017, 3)
+    fc1 = dict(gamma=gamma, beta=beta, bias=b1, gelu=True, drop=drop1, save_pre=True)
+    (h, pre), (h_ref, pre_ref) = ln_linear(x, w1, **fc1), ln_linear_plain(x, w1, **fc1)
+    compare("ln_linear[full-res fc1, train]", h, h_ref, KERNEL_TOL)
+    compare("ln_linear[full-res fc1, train] pre-GELU", pre, pre_ref, KERNEL_TOL)
+    fc2 = dict(bias=b2, drop=drop2)
+    compare("ln_linear[full-res fc2, train]", ln_linear(h_ref, w2, **fc2),
+            ln_linear_plain(h_ref, w2, **fc2), KERNEL_TOL)
+    dout = randn(FR_B, FR_N, E)
+    bwd2 = dict(drop=drop2, pre=pre_ref, pre_drop=drop1)
+    dh, dh_ref = ln_linear_bwd(dout, w2, **bwd2), ln_linear_bwd_plain(dout, w2, **bwd2)
+    compare("ln_linear_bwd[full-res fc2]", dh, dh_ref, KERNEL_TOL)
+    bwd1 = dict(x=x, gamma=gamma, beta=beta)
+    for name, g_, r_ in zip(("dz", "ln_out", "dgamma", "dbeta"), ln_linear_bwd(dh_ref, w1, **bwd1),
+                            ln_linear_bwd_plain(dh_ref, w1, **bwd1)):
+        compare(f"ln_linear_bwd[full-res fc1] {name}", g_, r_, KERNEL_TOL)
+    for name, dy, a, kw in (("fc2", dout, h_ref, dict(drop=drop2, bias=True)),
+                            ("fc1", dh_ref, x, dict(bias=True))):
+        for part, g_, r_ in zip(("dW", "db"), ln_linear_wgrad(dy, a, **kw),
+                                ln_linear_wgrad_plain(dy, a, **kw)):
+            compare(f"ln_linear_wgrad[full-res {name}] {part}", g_, r_, KERNEL_TOL)
+    del x, h, pre, h_ref, pre_ref, dout, dh, dh_ref
+    for label, b, hh, ww, dtype, tol in (
+            ("full-res 137x249", FR_B, FR_MAP_H, FR_MAP_W, bf, KERNEL_TOL),
+            ("fp32 29x57", B, MAP_H, MAP_W, f32, F32_KERNEL_TOL)):
+        table = randn(b, E, hh * ww, dtype=dtype)
+        grid = (torch.rand(b, NEURONS, 2, generator=gen) * 2.4 - 1.2).to(DEVICE)
+        compare(f"bilinear_sample_cm[{label}]", bilinear_sample_cm(table, grid, hh, ww),
+                bilinear_sample_cm_plain(table, grid, hh, ww), tol)
+        ds = randn(b, E, NEURONS, dtype=dtype)
+        for part, g_, r_ in zip(("d(table)", "d(grid)"),
+                                bilinear_sample_cm_bwd(table, grid, ds, hh, ww),
+                                bilinear_sample_cm_bwd_plain(table, grid, ds, hh, ww)):
+            compare(f"bilinear_sample_cm_bwd[{label}] {part}", g_, r_, tol)
+    torch.cuda.empty_cache()
+
+
 def sublayer_yardsticks(gen: torch.Generator) -> None:
     """Whole sublayers, kernel path against library-built ones (SDPA-based
     attention sublayer, nn.Sequential MLP) on the same inputs."""
@@ -608,62 +870,61 @@ def flagship_model(config, card):
 def flagship_config(**kwargs):
     from v1t_tpu_torch.configs import Config
 
-    return Config(core="vit", readout="gaussian2d", behavior_mode=3, shift_mode=2,
-                  precision="bf16", resize_image=0, batch_size=B, **kwargs)
+    return Config(**{**dict(core="vit", readout="gaussian2d", behavior_mode=3, shift_mode=2,
+                            precision="bf16", resize_image=0, batch_size=B), **kwargs})
 
 
-def serving_path(card_text: str) -> tuple:
+def host_batch(rng, n: int, image_shape, neurons: int, ids: int = 0) -> dict:
+    return {
+        "image": rng.normal(size=(n, *image_shape)).astype(np.float32),
+        "behavior": rng.normal(size=(n, 3)).astype(np.float32),
+        "pupil_center": rng.normal(size=(n, 2)).astype(np.float32),
+        "response": rng.poisson(2.0, size=(n, neurons)).astype(np.float32),
+        "image_id": np.arange(ids, ids + n),
+        "trial_id": np.arange(ids, ids + n),
+    }
+
+
+def plain_config(config):
+    return config.replace(attention_impl="xla", readout_impl="xla")
+
+
+def serve(label: str, config, image_shape, n_batches: int, expected: dict, tol: dict,
+          card_text: str) -> tuple:
+    """``n_batches`` batches through ``training.inference`` (Trainer.predict)
+    with the counters set to 0 just before and read just after; responses
+    and one batch's core map against the same model's plain path."""
     from v1t_tpu_torch.data.cards import synthetic_data_card
     from v1t_tpu_torch.models import build_model
-    from v1t_tpu_torch.ops.fused_mha import attention
-    from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm
-    from v1t_tpu_torch.ops.ln_linear import ln_linear
     from v1t_tpu_torch.training import Trainer, inference
 
-    log("phase 4: serving, flagship V1T (Trainer.predict) on the card")
-    config = flagship_config()
-    card = synthetic_data_card(mouse_ids=("A",), num_neurons=NEURONS, input_shape=(1, 36, 64))
+    b = config.batch_size
+    card = synthetic_data_card(mouse_ids=("A",), num_neurons=NEURONS, input_shape=image_shape)
     model = flagship_model(config, card)
     trainer = Trainer(config, model, card, device=DEVICE)
     rng = np.random.default_rng(0)
-    batches = [
-        {
-            "image": rng.normal(size=(B, 1, 36, 64)).astype(np.float32),
-            "behavior": rng.normal(size=(B, 3)).astype(np.float32),
-            "pupil_center": rng.normal(size=(B, 2)).astype(np.float32),
-            "response": rng.poisson(2.0, size=(B, NEURONS)).astype(np.float32),
-            "image_id": np.arange(i * B, (i + 1) * B),
-            "trial_id": np.arange(i * B, (i + 1) * B),
-        }
-        for i in range(3)
-    ]
+    batches = [host_batch(rng, b, image_shape, NEURONS, i * b) for i in range(n_batches)]
     trainer.predict("A", batches[0])  # warm-up, not counted
     torch.cuda.synchronize()
-
-    counters = (ln_linear, attention, bilinear_sample_cm)
-    for fn in counters:
-        fn.launches = 0
+    zero_counts()
     start = time.perf_counter()
     result = inference(trainer, batches, "A")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = {fn.__name__: fn.launches for fn in counters}
-    images = len(batches) * B
-    log(f"  launches over {len(batches)} micro-batches: {launches}")
-    blocks = config.num_blocks
-    expected = {"ln_linear": 4 * blocks * 3, "attention": blocks * 3, "bilinear_sample_cm": 3}
+    launches = read_counts()
+    images = n_batches * b
+    log(f"  launches over {n_batches} micro-batches: {launches}")
     if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+        raise AssertionError(f"{label}: launch counts {launches} != {expected}")
     preds = result["predictions"]
     if preds.shape != (images, NEURONS) or not np.isfinite(preds).all() or not (preds > 0).all():
         raise AssertionError(f"predictions: shape {preds.shape}, finite/positive check failed")
     log(f"  kernel path: {images} images in {seconds:.4f} s = {images / seconds:.1f} images/s "
         f"({card_text})")
 
-    plain_cfg = config.replace(attention_impl="xla", readout_impl="xla")
-    plain_model = build_model(plain_cfg, card, seed=None, device=DEVICE)
+    plain_model = build_model(plain_config(config), card, seed=None, device=DEVICE)
     plain_model.load_state_dict(model.state_dict())
-    plain_trainer = Trainer(plain_cfg, plain_model, card, device=DEVICE)
+    plain_trainer = Trainer(plain_config(config), plain_model, card, device=DEVICE)
     plain_trainer.predict("A", batches[0])
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -673,59 +934,48 @@ def serving_path(card_text: str) -> tuple:
         f"{images / plain_seconds:.1f} images/s")
     err = float(np.abs(preds - ref).max())
     rel = err / float(np.abs(ref).max())
-    status = "ok" if rel <= MODEL_TOL else "FAIL"
+    status = "ok" if rel <= tol["model"] else "FAIL"
     log(f"  responses vs plain path: max|d| {err:.3e}, max|d|/max|ref| {rel:.3e} "
-        f"(tol {MODEL_TOL:g}), mean|d| {float(np.abs(preds - ref).mean()):.3e} {status}")
-    if rel > MODEL_TOL:
-        raise AssertionError(f"model responses differ from the plain path: {rel:.3e}")
+        f"(tol {tol['model']:g}), mean|d| {float(np.abs(preds - ref).mean()):.3e} {status}")
+    if rel > tol["model"]:
+        raise AssertionError(f"{label}: responses differ from the plain path: {rel:.3e}")
     got_map, ref_map = core_map(model, batches[0]), core_map(plain_model, batches[0])
-    compare(f"core map {tuple(ref_map.shape)} vs plain path", got_map, ref_map, CORE_TOL)
-    return launches, lambda: trainer.predict("A", batches[0])
+    compare(f"core map {tuple(ref_map.shape)} vs plain path", got_map, ref_map, tol["core"])
+    return launches, lambda: trainer.predict("A", batches[0]), images / seconds
 
 
-def train_batch(rng, neurons: int) -> dict:
-    return {
-        "image": rng.normal(size=(B, 1, 36, 64)).astype(np.float32),
-        "behavior": rng.normal(size=(B, 3)).astype(np.float32),
-        "pupil_center": rng.normal(size=(B, 2)).astype(np.float32),
-        "response": rng.poisson(2.0, size=(B, neurons)).astype(np.float32),
-    }
-
-
-def training_path(card_text: str) -> tuple:
-    """Trainer.train_step at the flagship widths, dropout and readout noise
-    on: two cycles over two mice (gradients accumulated across the cycle,
-    one AdamW update at its end), through the kernels with the counters set
-    to 0 just before and read just after, then the same weights, seeds and
-    batches through the plain path."""
+def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dict,
+          card_text: str, warm: bool = True) -> tuple:
+    """Trainer.train_step, dropout and readout noise on: ``cycles`` cycles
+    over two mice (gradients accumulated across the cycle, one AdamW update
+    at its end), through the kernels with the counters set to 0 just before
+    and read just after, then the same weights, seeds and batches through the
+    plain path: per-step losses and every parameter's first-step gradient."""
     from v1t_tpu_torch.data.cards import synthetic_data_card
     from v1t_tpu_torch.models import build_model
     from v1t_tpu_torch.training import Trainer
 
-    counters = kernel_counters()
-    log("phase 5: training, flagship V1T Trainer.train_step on the card (the main path)")
-    config = flagship_config()
-    card = synthetic_data_card(mouse_ids=MICE, num_neurons=NEURONS, input_shape=(1, 36, 64))
+    b = config.batch_size
+    card = synthetic_data_card(mouse_ids=MICE, num_neurons=NEURONS, input_shape=image_shape)
     state = flagship_model(config, card).state_dict()
     rng = np.random.default_rng(2)
-    warm = train_batch(rng, NEURONS)
-    batches = [[train_batch(rng, NEURONS) for _ in MICE] for _ in range(CYCLES)]
-    steps = CYCLES * len(MICE)
+    warm_batch = host_batch(rng, b, image_shape, NEURONS)
+    batches = [[host_batch(rng, b, image_shape, NEURONS) for _ in MICE] for _ in range(cycles)]
+    steps = cycles * len(MICE)
     runs = {}
-    for path, cfg in (("kernel", config),
-                      ("plain", config.replace(attention_impl="xla", readout_impl="xla"))):
+    for path, cfg in (("kernel", config), ("plain", plain_config(config))):
         model = build_model(cfg, card, seed=None, device=DEVICE)
         model.load_state_dict(state)
         trainer = Trainer(cfg, model, card, device=DEVICE)
-        # warm-up step without an update (the run below starts from zero
-        # gradients); both paths take it, so their seeds stay in step
-        trainer.train_step(MICE[0], warm, None, update=False)
+        if warm:
+            # a warm-up step without an update (the run below starts from zero
+            # gradients); both paths take it, so their seeds stay in step
+            trainer.train_step(MICE[0], warm_batch, None, update=False)
         torch.cuda.synchronize()
-        for fn in counters:
-            fn.launches = 0
+        zero_counts()
         losses, first_grads = [], None
         start = time.perf_counter()
-        for cycle in range(CYCLES):
+        for cycle in range(cycles):
             acc = None
             for i, mouse in enumerate(MICE):
                 acc, metrics = trainer.train_step(mouse, batches[cycle][i], acc,
@@ -736,53 +986,84 @@ def training_path(card_text: str) -> tuple:
                                    for name, p in model.named_parameters() if p.grad is not None}
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = read_counts()
         losses = [float(v) for v in losses]
-        log(f"  {path} path: {steps} train steps of {B} images in {seconds:.4f} s = "
-            f"{steps * B / seconds:.1f} train images/s ({card_text}); losses "
+        log(f"  {path} path: {steps} train steps of {b} images in {seconds:.4f} s = "
+            f"{steps * b / seconds:.1f} train images/s ({card_text}); losses "
             + " ".join(f"{v:.4f}" for v in losses))
         log(f"  {path} path launches over {steps} steps: {launches}")
         if not all(np.isfinite(losses)):
-            raise AssertionError(f"{path} path: non-finite loss")
+            raise AssertionError(f"{label}, {path} path: non-finite loss")
         runs[path] = dict(losses=losses, grads=first_grads, launches=launches,
-                          images_per_s=steps * B / seconds, trainer=trainer)
-    expected = {name: n * steps for name, n in TRAIN_LAUNCHES_PER_STEP.items()}
+                          images_per_s=steps * b / seconds, trainer=trainer)
+        del model
+    expected = {name: n * steps for name, n in per_step.items()}
     if runs["kernel"]["launches"] != expected:
-        raise AssertionError(f"training launch counts {runs['kernel']['launches']} != {expected}")
+        raise AssertionError(f"{label}: launch counts {runs['kernel']['launches']} != {expected}")
     if any(runs["plain"]["launches"].values()):
-        raise AssertionError(f"the plain path launched kernels: {runs['plain']['launches']}")
+        raise AssertionError(f"{label}: the plain path launched kernels: "
+                             f"{runs['plain']['launches']}")
     for step, (got, ref) in enumerate(zip(runs["kernel"]["losses"], runs["plain"]["losses"])):
         rel = abs(got - ref) / abs(ref)
-        log(f"  step {step} loss: kernel {got:.4f} plain {ref:.4f} |d|/|ref| {rel:.3e} "
-            f"(tol {LOSS_TOL:g}) {'ok' if rel <= LOSS_TOL else 'FAIL'}")
-        if rel > LOSS_TOL:
-            raise AssertionError(f"step {step}: loss differs from the plain path by {rel:.3e}")
+        log(f"  step {step} loss: kernel {got:.6f} plain {ref:.6f} |d|/|ref| {rel:.3e} "
+            f"(tol {tol['loss']:g}) {'ok' if rel <= tol['loss'] else 'FAIL'}")
+        if rel > tol["loss"]:
+            raise AssertionError(f"{label}, step {step}: loss differs from the plain path "
+                                 f"by {rel:.3e}")
     grads, refs = runs["kernel"]["grads"], runs["plain"]["grads"]
     if grads.keys() != refs.keys():
-        raise AssertionError("the two paths gave gradients for different parameters")
+        raise AssertionError(f"{label}: the two paths gave gradients for different parameters")
     rels = {}
     for name, ref in refs.items():
         got = grads[name].float()
         if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: non-finite gradient")
+            raise AssertionError(f"{label}, {name}: non-finite gradient")
         rels[name] = (got - ref.float()).abs().max().item() / max(ref.abs().max().item(), 1e-30)
     worst = sorted(rels.items(), key=lambda kv: kv[1], reverse=True)
     log(f"  first step's gradients of {len(rels)} parameters, max|d|/max|ref|, largest: "
-        + ", ".join(f"{n} {r:.3e}" for n, r in worst[:4]) + f" (tol {GRAD_TOL:g})")
-    if worst[0][1] > GRAD_TOL:
-        raise AssertionError(f"gradient {worst[0][0]} differs from the plain path: {worst[0][1]:.3e}")
+        + ", ".join(f"{n} {r:.3e}" for n, r in worst[:4]) + f" (tol {tol['grad']:g})")
+    if worst[0][1] > tol["grad"]:
+        raise AssertionError(f"{label}: gradient {worst[0][0]} differs from the plain path: "
+                             f"{worst[0][1]:.3e}")
     trainer = runs["kernel"]["trainer"]
+    one = batches[0][0]
     return runs["kernel"]["launches"], lambda: trainer.train_step(
-        MICE[0], batches[0][0], None, update=True), runs
+        MICE[0], one, None, update=True), runs
 
 
-def kernel_counters() -> tuple:
-    from v1t_tpu_torch.ops.fused_mha import attention, attention_bwd
-    from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_bwd
-    from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_bwd, ln_linear_wgrad
+def serving_path(card_text: str) -> tuple:
+    log("phase 4: serving, flagship V1T (Trainer.predict) on the card")
+    blocks = flagship_config().num_blocks
+    expected = dict.fromkeys(kernel_counters(), 0)
+    expected.update(ln_linear=4 * blocks * 3, attention=blocks * 3, bilinear_sample_cm=3)
+    launches, serve_one, _ = serve("serving", flagship_config(), (1, 36, 64), 3, expected,
+                                   dict(model=MODEL_TOL, core=CORE_TOL), card_text)
+    return launches, serve_one
 
-    return (ln_linear, attention, bilinear_sample_cm, ln_linear_bwd, ln_linear_wgrad,
-            attention_bwd, bilinear_sample_cm_bwd)
+
+def training_path(card_text: str) -> tuple:
+    log("phase 5: training, flagship V1T Trainer.train_step on the card")
+    return train("training", flagship_config(), (1, 36, 64), CYCLES, TRAIN_LAUNCHES_PER_STEP,
+                 dict(loss=LOSS_TOL, grad=GRAD_TOL), card_text)
+
+
+def composed_path(label: str, config, image_shape, serve_batches: int, cycles: int,
+                  per_step: dict, tol: dict, card_text: str) -> dict:
+    """A composed path's serving and training (phases 5b, 5c)."""
+    per_batch = {name: 0 if "bwd" in name or "wgrad" in name else n
+                 for name, n in per_step.items()}
+    serving, _, images_per_s = serve(f"{label} serving", config, image_shape, serve_batches,
+                                     {k: v * serve_batches for k, v in per_batch.items()},
+                                     tol, card_text)
+    torch.cuda.empty_cache()
+    launches, train_one, runs = train(f"{label} training", config, image_shape, cycles,
+                                      per_step, tol, card_text, warm=False)
+    log(f"  {label}: serving {images_per_s:.1f} images/s, training "
+        f"{runs['kernel']['images_per_s']:.3f} train images/s (plain "
+        f"{runs['plain']['images_per_s']:.3f}) ({card_text})")
+    return dict(serving_launches=serving, launches=launches, train_one=train_one,
+                images_per_s=images_per_s, train_images_per_s=runs["kernel"]["images_per_s"],
+                plain_train_images_per_s=runs["plain"]["images_per_s"])
 
 
 def core_map(model, batch) -> torch.Tensor:
@@ -840,11 +1121,20 @@ def main() -> int:
     so_path = _build.build()
     _build.library()
     log(f"  kernels ready in {time.perf_counter() - start:.1f} s ({so_path})")
-    try:
+    try:  # each kernel's registers and spills (ptxas -v), one line each
         with open(so_path + ".log") as f:
+            entry, spills = "", ""
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  " + line.strip())
+                if "Compiling entry function" in line:
+                    mangled = line.split("'")[1] if "'" in line else line.strip()
+                    # _ZN..._cu_<8 hex><length><name>I<template args>...
+                    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+                    entry = (mangled[m.end():m.end() + int(m.group(1)) + 16] if m
+                             else mangled[:60])
+                elif "spill" in line:
+                    spills = line.split(":", 1)[-1].strip()
+                elif "registers" in line:
+                    log(f"  {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
     except FileNotFoundError:
         pass
 
@@ -854,7 +1144,10 @@ def main() -> int:
     with torch.no_grad():
         rows, tensors = check_kernels(gen)
         rows += check_backward_kernels(gen, tensors)
-    del tensors
+        del tensors
+        torch.cuda.empty_cache()
+        rows += check_flash_kernels(gen)
+        check_path_shapes(gen)
     torch.cuda.empty_cache()
     sublayer_yardsticks(gen)
     torch.cuda.empty_cache()
@@ -862,14 +1155,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_one, runs = training_path(text)
     torch.cuda.empty_cache()
+    log("phase 5b: the full-resolution flagship (34,114 tokens) on the composed path, "
+        "the main path of this slice")
+    full = composed_path("full-res", flagship_config(batch_size=FR_B), FR_IMAGE, 2, 1,
+                         FULLRES_LAUNCHES_PER_STEP, FULLRES_TOL, text)
+    torch.cuda.empty_cache()
+    log("phase 5c: the flagship at precision fp32 on the composed path")
+    fp32 = composed_path("fp32", flagship_config(precision="fp32"), (1, 36, 64), 1, 1,
+                         F32_LAUNCHES_PER_STEP, F32_TOL, text)
+    torch.cuda.empty_cache()
     where_the_time_goes("one serving batch of 64", serve_one)
     where_the_time_goes(f"one training step of {B} (forward, backward, AdamW update)", train_one)
+    where_the_time_goes(f"one full-resolution training step of {FR_B}", full["train_one"])
+    where_the_time_goes(f"one fp32 training step of {B}", fp32["train_one"])
+    paths = {"training": train_launches, "full_res_training": full["launches"],
+             "fp32_training": fp32["launches"], "serving": serving_launches,
+             "full_res_serving": full["serving_launches"],
+             "fp32_serving": fp32["serving_launches"]}
     for row in rows:
-        row["launches"] = train_launches[row["name"]]
-        row["serving_launches"] = serving_launches.get(row["name"])
+        # launches: the path each kernel serves first (the flash kernels: the
+        # full-resolution training run); every path's count beside it
+        main_path = "full_res_training" if row["name"].startswith("flash") else "training"
+        row["launches"] = paths[main_path][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     log(f"training throughput: kernel path {runs['kernel']['images_per_s']:.1f}, plain path "
         f"{runs['plain']['images_per_s']:.1f} train images/s; launches are those of the "
         f"training phase ({CYCLES * len(MICE)} steps)")
+    log(f"full resolution: {full['images_per_s']:.2f} images/s serving, "
+        f"{full['train_images_per_s']:.3f} train images/s (plain "
+        f"{full['plain_train_images_per_s']:.3f}); fp32: {fp32['images_per_s']:.1f} images/s "
+        f"serving, {fp32['train_images_per_s']:.2f} train images/s (plain "
+        f"{fp32['plain_train_images_per_s']:.2f}) ({text})")
     log(text)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

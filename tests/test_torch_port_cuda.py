@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain versions at edge shapes, on
 the card: rows, outputs and K that are no multiple of a tile, one row, one
 key tile, every padded head width, batch 1, dropout rates 0 and 0.5 (the
-kernels and the plain versions draw the same masks), and the small model
-end to end, forward and training step.
+kernels and the plain versions draw the same masks), the widths of the sweep
+space (head widths 192 and 256, projection K up to 2048, LayerNorms up to
+640), the flash kernels of the composed path (bf16 and float32, N > 4096,
+rectangular with padded keys and an LSE cotangent), and the small model end
+to end in bf16 and float32, forward and training step.
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
@@ -13,7 +16,10 @@ Tolerance: max|kernel - plain| <= 2e-2 * max|plain| on bf16 outputs, as in
 ``chip_smoke.py`` (one bf16 rounding is 2^-8; the two sum in other orders),
 and on float32 sums of bf16 products (weight, bias and LayerNorm gradients,
 dscale, d(grid)): the two take the same bf16 operands, but a rounding flip in
-an intermediate (dS, P) moves a sum by up to a bf16 step of one term.
+an intermediate (dS, P) moves a sum by up to a bf16 step of one term. On
+float32 kernels (flash attention, the readout's fp32 table) 1e-4: summation
+order only; the fp32 model end to end, kernel path against plain path, 1e-4
+on responses, losses and gradients.
 """
 
 import numpy as np
@@ -21,6 +27,10 @@ import pytest
 import torch
 
 from v1t_tpu_torch.ops.dropout import Dropout
+from v1t_tpu_torch.ops.flash_attention import (
+    flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+)
+from v1t_tpu_torch.ops.fused_mha import fused_mha
 from v1t_tpu_torch.ops.fused_mha import (
     attention, attention_bwd, attention_bwd_plain, attention_plain,
 )
@@ -35,6 +45,7 @@ from v1t_tpu_torch.ops.ln_linear import (
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+F32_TOL = 1e-4
 # the small model's training step, kernel path against the plain path:
 # max|d| / max|ref| of every parameter's gradient, ~3x the reading on an
 # H100 (2.1e-3: bf16 rounding flips carried through 2 blocks of a bf16
@@ -53,12 +64,12 @@ def _randn(gen, *shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
 
 
-def _close(got, ref):
+def _close(got, ref, tol=TOL):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
-    assert (got - ref).abs().max().item() <= TOL * ref.abs().max().item() + 1e-6
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item() + 1e-6
 
 
 def _drop(rate, site=3):
@@ -74,6 +85,13 @@ LN_CASES = [
     (2, 129, 33, 200, "ln+bias+gelu"),
     (2, 129, 155, 3 * 4 * 155, "ln+row+heads"),
     (1, 17, 48, 3 * 2 * 17, "ln+heads"),
+    # the sweep's widths: out-projections of 8 heads of 155 and of 256, fc2
+    # of a 768-wide MLP (panels of 640 columns), LayerNorms of 320 and 640
+    (2, 70, 1240, 155, "bias+residual"),
+    (1, 65, 2048, 256, "bias+residual+row"),
+    (2, 50, 768, 200, "bias+residual"),
+    (2, 40, 320, 100, "ln+bias+gelu"),
+    (1, 33, 640, 64, "ln+row"),
 ]
 
 
@@ -104,6 +122,7 @@ def test_ln_linear_matches_plain(gen, b, n, k, nout, opts):
 @pytest.mark.parametrize("b,n,h,d,lsa", [
     (1, 2, 1, 32, False), (2, 65, 3, 155, True), (1, 129, 2, 17, False),
     (2, 300, 1, 160, True), (1, 64, 2, 96, False), (3, 200, 2, 128, True),
+    (2, 150, 2, 192, True), (1, 130, 3, 256, False),  # on the flash kernels
 ], ids=lambda v: str(v))
 def test_attention_matches_plain(gen, b, n, h, d, lsa):
     x = _randn(gen, b, n, 48)
@@ -160,20 +179,117 @@ def test_small_model_kernel_path_matches_plain_path(gen):
     assert np.abs(preds - ref).max() <= TOL * np.abs(ref).max()
 
 
-def test_float32_model_on_the_card_raises(gen):
-    """The kernels take bf16 only: a float32 model on the card raises
-    instead of running the plain versions."""
+def test_float32_model_runs_on_the_card(gen):
+    """The fp32 model takes the composed path on the card: flash kernels for
+    the attention core and the readout kernel on a float32 map, no fused
+    sublayer; serving and a training step agree with the plain path."""
+    from v1t_tpu_torch.models import build_model
     from v1t_tpu_torch.training import Trainer
 
     config, card, batch, model = _small_model("fp32")
-    counts = (ln_linear.launches, attention.launches, bilinear_sample_cm.launches)
-    with pytest.raises(ValueError, match="expected torch.bfloat16"):
-        Trainer(config, model, card).predict("A", batch)
-    readout = model.readouts["A"]
-    core_map = _randn(gen, 2, 32, 29, 57, dtype=torch.float32)
-    with pytest.raises(ValueError, match="expected torch.bfloat16"):
-        readout(core_map)
-    assert counts == (ln_linear.launches, attention.launches, bilinear_sample_cm.launches)
+    counters = (ln_linear, attention, flash_fwd, bilinear_sample_cm, ln_linear_bwd,
+                ln_linear_wgrad, attention_bwd, flash_bwd, bilinear_sample_cm_bwd)
+    before = [fn.launches for fn in counters]
+    preds = Trainer(config, model, card).predict("A", batch)
+    launched = [fn.launches - n for fn, n in zip(counters, before)]
+    assert launched == [0, 0, 2 * 2, 2, 0, 0, 0, 0, 0]  # 2 micro-batches of 2 blocks
+    plain_cfg = config.replace(attention_impl="xla", readout_impl="xla")
+    plain = build_model(plain_cfg, card, seed=None, device="cuda")
+    plain.load_state_dict(model.state_dict())
+    ref = Trainer(plain_cfg, plain, card).predict("A", batch)
+    assert np.isfinite(preds).all() and (preds > 0).all()
+    assert np.abs(preds - ref).max() <= F32_TOL * np.abs(ref).max()
+    batch["response"] = np.random.default_rng(1).poisson(2.0, (3, 24)).astype(np.float32)
+    runs = []
+    for cfg, m in ((config, model), (plain_cfg, plain)):
+        before = [fn.launches for fn in counters]
+        _, metrics = Trainer(cfg, m, card).train_step("A", batch, None, update=False)
+        launched = [fn.launches - n for fn, n in zip(counters, before)]
+        grads = {name: p.grad.clone() for name, p in m.named_parameters() if p.grad is not None}
+        runs.append((float(metrics["loss/loss"]), grads, launched))
+    # per micro-batch: 2 flash forwards and backwards, one sampling each way
+    assert runs[0][2] == [0, 0, 2 * 2, 2, 0, 0, 0, 2 * 2, 2]
+    assert not any(runs[1][2])
+    assert abs(runs[0][0] - runs[1][0]) <= F32_TOL * abs(runs[1][0])
+    for name, g_ in runs[0][1].items():
+        r_ = runs[1][1][name]
+        assert (g_ - r_).abs().max().item() <= F32_TOL * r_.abs().max().item() + 1e-9, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("bh,heads,nq,nk,n_real,d,lsa,rate", [
+    (2, 2, 4500, 4500, 4500, 155, False, 0.25),  # above the fused path's 4096 tokens
+    (3, 3, 300, 300, 300, 24, True, 0.0),
+    (2, 1, 200, 333, 250, 40, False, 0.5),  # rectangular, padded keys
+    (2, 2, 129, 129, 129, 192, True, 0.25),
+    (1, 1, 100, 100, 100, 256, False, 0.0),
+], ids=lambda v: str(v))
+def test_flash_attention_matches_plain(gen, dtype, bh, heads, nq, nk, n_real, d, lsa, rate):
+    """Forward (o, LSE) and backward (dq, dk, dv, with an LSE cotangent)."""
+    dp = -(-d // 32) * 32
+
+    def operand(n):
+        x = torch.zeros(bh, n, dp, dtype=dtype, device="cuda")
+        x[..., :d] = _randn(gen, bh, n, d, dtype=dtype) * (d ** -0.25)
+        return x
+
+    q, k, v = operand(nq), operand(nk), operand(nk)
+    drop = _drop(rate, site=6)
+    kw = dict(n_real_k=n_real, use_lsa=lsa, drop=drop)
+    tol = TOL if dtype == torch.bfloat16 else F32_TOL
+    o, lse = flash_fwd(q, k, v, d, heads, with_lse=True, **kw)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, d, heads, with_lse=True, **kw)
+    _close(o, o_ref, tol)
+    _close(lse, lse_ref, F32_TOL)
+    do = _randn(gen, *o.shape, dtype=dtype)
+    dlse = _randn(gen, bh, nq, scale=0.5, dtype=torch.float32)
+    got = flash_bwd(q, k, v, o_ref, do, lse_ref, d, heads, dlse=dlse, **kw)
+    ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, d, heads, dlse=dlse, **kw)
+    for g_, r_ in zip(got, ref):  # dq, dk, dv
+        _close(g_, r_, tol)
+        assert torch.all(g_[..., d:] == 0)
+    assert torch.all(got[1][:, n_real:] == 0) and torch.all(got[2][:, n_real:] == 0)
+
+
+@pytest.mark.parametrize("e,h", [(192, 2), (256, 8)], ids=str)
+def test_fused_mha_wide_heads_match_plain(gen, e, h):
+    """The sublayer at the sweep's widest heads (192 and 256; 8 of 256 is an
+    out-projection K of 2048), forward and backward, dropout on."""
+    b, n = 2, 150
+    x = _randn(gen, b, n, e).requires_grad_()
+    gamma = 1.0 + _randn(gen, e, scale=0.1, dtype=torch.float32)
+    beta = _randn(gen, e, scale=0.1, dtype=torch.float32)
+    wqkv = _randn(gen, 3 * h * e, e, scale=e ** -0.5)
+    wp = _randn(gen, e, h * e, scale=(h * e) ** -0.5)
+    bp = _randn(gen, e, scale=0.1, dtype=torch.float32)
+    row = _randn(gen, b, e, scale=0.5)
+    dout = _randn(gen, b, n, e)
+    leaves = [gamma, beta, wqkv, wp, bp]
+    results = []
+    for plain in (False, True):
+        xs = x.detach().clone().requires_grad_()
+        ws = [w.detach().clone().requires_grad_() for w in leaves]
+        out = fused_mha(xs, *ws, e ** -0.5, num_heads=h, fold_residual=True, bias_row=row,
+                        drop_p=_drop(0.25, 1), drop_o=_drop(0.25, 2), plain=plain)
+        out.backward(dout)
+        results.append([out, xs.grad] + [w.grad for w in ws])
+    for got, ref in zip(*results):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("b,c,height,width,p", [(2, 155, 137, 249, 300), (1, 3, 4, 1, 50)],
+                         ids=lambda v: str(v))
+def test_bilinear_sample_cm_float32_matches_plain(gen, b, c, height, width, p):
+    """A float32 table (the fp32 model's map; 137 x 249 the full-resolution
+    one, past the TPU kernel's 4096-row cap), forward and backward."""
+    table = _randn(gen, b, c, height * width, dtype=torch.float32)
+    grid = (torch.rand(b, p, 2, generator=gen) * 3.0 - 1.5).to("cuda")
+    _close(bilinear_sample_cm(table, grid, height, width),
+           bilinear_sample_cm_plain(table, grid, height, width), F32_TOL)
+    dout = _randn(gen, b, c, p, dtype=torch.float32)
+    for got, ref in zip(bilinear_sample_cm_bwd(table, grid, dout, height, width),
+                        bilinear_sample_cm_bwd_plain(table, grid, dout, height, width)):
+        _close(got, ref, F32_TOL)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
@@ -211,6 +327,7 @@ def test_ln_linear_training_matches_plain(gen, rate, b, n, k, nout, opts):
 @pytest.mark.parametrize("b,n,h,d,lsa", [
     (1, 2, 1, 32, False), (2, 65, 3, 155, True), (1, 129, 2, 17, False),
     (2, 300, 1, 160, True), (1, 64, 2, 96, False), (3, 200, 2, 128, True),
+    (2, 150, 2, 192, True), (1, 130, 3, 256, False),  # on the flash kernels
 ], ids=lambda v: str(v))
 def test_attention_training_and_backward_match_plain(gen, rate, b, n, h, d, lsa):
     x = _randn(gen, b, n, 48)
@@ -238,6 +355,10 @@ def test_attention_training_and_backward_match_plain(gen, rate, b, n, h, d, lsa)
     (1, 1, 5, 7, "plain"), (2, 65, 620, 155, "plain"), (3, 100, 640, 33, "plain"),
     (2, 129, 488, 155, "gelu"), (1, 70, 155, 488, "ln+res"),
     (2, 65, 155, 3 * 4 * 155, "ln+heads+row+res"), (1, 17, 48, 3 * 2 * 17, "ln+heads"),
+    # the sweep's widths: the out-projection's dX at K = 2048, fc2's at a
+    # 768-wide MLP, the LayerNorm backward at K = 320 and 640
+    (2, 65, 2048, 155, "plain"), (2, 40, 768, 155, "gelu"), (1, 70, 320, 640, "ln+res"),
+    (1, 33, 640, 96, "ln+row+res"),
 ], ids=lambda v: str(v))
 def test_ln_linear_backward_matches_plain(gen, rate, b, n, k, nout, opts):
     w = _randn(gen, nout, k, scale=nout ** -0.5)

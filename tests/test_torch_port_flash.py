@@ -1,0 +1,164 @@
+"""The port's flash attention (``v1t_tpu_torch.ops.flash_attention``) against
+the JAX package's (``v1t_tpu.ops.flash_attention``, Pallas under the Mosaic
+interpreter, ``V1T_PALLAS_INTERPRET=1``), on the CPU, where the port runs
+the kernels' plain versions. Inputs come from numpy seeds at small sizes
+(B*H <= 4, N 256-400, D 16-40); dropout is off in every comparison with JAX
+(the two draw different masks) and checked against the port's own mask.
+
+Tolerances: max|port - jax| <= tol * max|jax| with
+- float32: 1e-5 (summation order, and exp2 of log2-scaled scores against
+  exp: a few float32 ulps);
+- bf16: 2e-2 (the probabilities round to bf16 before P.V on both sides, at
+  values that differ by float32 ulps, so a rounding flips now and then: one
+  bf16 step is 2^-8 = 3.9e-3 relative; gradients also round dS). The bf16
+  scale's cotangent, a sum of B*N*D products, is held against the JAX
+  package run in float32 on the same bf16-valued inputs, at the same 2e-2:
+  JAX's own bf16 sum lands ~9 bf16 steps from it (reading: -92 against
+  -96.5, the port -97.5), too far to be the reference.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from v1t_tpu.ops.flash_attention import flash_attention as jax_flash
+from v1t_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash_lse
+
+from v1t_tpu_torch.ops import flash_attention as fa
+from v1t_tpu_torch.ops.dropout import Dropout, keep_mask
+
+torch.set_num_threads(2)
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setenv("V1T_PALLAS_INTERPRET", "1")
+
+
+def _close(port, ref, tol):
+    port = np.asarray(port.detach().float().numpy(), np.float64)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32), np.float64)
+    assert port.shape == ref.shape
+    assert np.isfinite(port).all()
+    err = np.abs(port - ref).max()
+    assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+def _inputs(seed, b, h, nq, nk, d, dtype):
+    """q, k, v, the output cotangent and a per-head scale, rounded once to
+    the dtype so that both frameworks get identical values."""
+    rng = np.random.default_rng(seed)
+    arr = lambda *s: np.asarray(  # noqa: E731
+        jnp.asarray(rng.normal(size=s), JNP[dtype]).astype(jnp.float32))
+    scale = (d ** -0.5 * (1.0 + 0.2 * rng.normal(size=h))).astype(np.float32)
+    return arr(b, h, nq, d), arr(b, h, nk, d), arr(b, h, nk, d), arr(b, h, nq, d), scale
+
+
+def _leaf(a, dtype):
+    return torch.from_numpy(np.array(a)).to(TORCH[dtype]).requires_grad_()
+
+
+@pytest.mark.parametrize("dtype,use_lsa,shape", [
+    ("float32", False, (1, 2, 300, 40)),
+    ("float32", True, (2, 2, 256, 16)),
+    ("bfloat16", False, (2, 2, 300, 24)),
+    ("bfloat16", True, (1, 3, 400, 40)),
+], ids=str)
+def test_flash_attention_forward_and_vjp_match_jax(interpret, dtype, use_lsa, shape):
+    b, h, n, d = shape
+    q, k, v, do, scale = _inputs(0, b, h, n, n, d, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(x, JNP[dtype]) for x in (q, k, v, do))
+    fn = lambda q_, k_, v_, s_: jax_flash(q_, k_, v_, s_, use_lsa=use_lsa)  # noqa: E731
+    ref, vjp = jax.vjp(fn, jq, jk, jv, jnp.asarray(scale))
+    ref_grads = vjp(jdo)
+    if dtype == "bfloat16":
+        f32_args = [jnp.asarray(x) for x in (q, k, v, scale)]
+        ref_grads = ref_grads[:3] + jax.vjp(fn, *f32_args)[1](jnp.asarray(do))[3:]
+    tq, tk, tv = (_leaf(x, dtype) for x in (q, k, v))
+    ts = torch.from_numpy(scale).requires_grad_()
+    out = fa.flash_attention(tq, tk, tv, ts, use_lsa=use_lsa)
+    assert out.shape == (b, h, n, d) and out.dtype == TORCH[dtype]
+    _close(out, ref, TOL[dtype])
+    out.backward(torch.from_numpy(do.copy()).to(TORCH[dtype]))
+    for got, want in zip((tq.grad, tk.grad, tv.grad, ts.grad), ref_grads):
+        _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_with_lse_rectangular_matches_jax(interpret, dtype):
+    """Nq != Nk, keys past n_real_k masked, a nonzero LSE cotangent."""
+    b, h, nq, nk, d, n_real = 1, 2, 256, 384, 32, 300
+    q, k, v, do, _ = _inputs(1, b, h, nq, nk, d, dtype)
+    dlse = np.random.default_rng(2).normal(size=(b, h, nq)).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, JNP[dtype]) for x in (q, k, v, do))
+    (ref_o, ref_lse), vjp = jax.vjp(
+        lambda q_, k_, v_: jax_flash_lse(q_, k_, v_, n_real_k=n_real), jq, jk, jv)
+    ref_grads = vjp((jdo, jnp.asarray(dlse)))
+    tq, tk, tv = (_leaf(x, dtype) for x in (q, k, v))
+    out, lse = fa.flash_attention_with_lse(tq, tk, tv, n_real_k=n_real)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, nq)
+    _close(out, ref_o, TOL[dtype])
+    _close(lse, ref_lse, 1e-5)  # float32 on both sides
+    torch.autograd.backward((out, lse), (torch.from_numpy(do.copy()).to(TORCH[dtype]),
+                                         torch.from_numpy(dlse)))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref_grads):
+        _close(got, want, TOL[dtype])
+    assert float(tk.grad[:, :, n_real:].abs().max()) == 0.0  # masked keys get nothing
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_lsa", [False, True])
+def test_chunked_plain_equals_unchunked(monkeypatch, dtype, use_lsa):
+    """The plain versions in chunks of 16 query rows, dropout on (each chunk
+    draws its own rows of the keep mask), against one chunk of all rows."""
+    bh, n, d = 3, 70, 20
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, n, 32)).astype(np.float32))
+               .to(TORCH[dtype]) for _ in range(3))
+    for x in (q, k, v):
+        x[..., d:] = 0.0
+    drop = Dropout(0.3, 77, 5)
+    args = dict(use_lsa=use_lsa, drop=drop, n_real_k=None if use_lsa else 61)
+    do = torch.from_numpy(rng.normal(size=(bh, n, 1, d)).astype(np.float32)).to(TORCH[dtype])
+    dlse = torch.from_numpy(rng.normal(size=(bh, n)).astype(np.float32))
+
+    def run():
+        o, lse = fa.flash_fwd_plain(q, k, v, d, 1, with_lse=True, **args)
+        return (o, lse) + tuple(fa.flash_bwd_plain(q, k, v, o, do, lse, d, 1, dlse=dlse, **args))
+
+    monkeypatch.setattr(fa, "PLAIN_CHUNK_ELEMENTS", 1 << 30)
+    whole = run()
+    monkeypatch.setattr(fa, "PLAIN_CHUNK_ELEMENTS", 16 * bh * n)  # 16-row chunks
+    assert fa._chunk_rows(bh, n) == 16
+    for got, want in zip(run(), whole):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_keep_mask_row_offset_is_a_slice_of_the_whole_mask():
+    drop = Dropout(0.25, 123456, 7)
+    whole = keep_mask(drop, 3, 50, 37)
+    for r0, rows in ((0, 50), (13, 20), (49, 1)):
+        assert torch.equal(keep_mask(drop, 3, rows, 37, row0=r0), whole[:, r0:r0 + rows])
+
+
+def test_flash_dropout_keeps_the_rate_and_scales_kept_probabilities():
+    """With q = 0 every probability is 1/N: o counts the kept keys of each
+    residue class (v[k] = e_(k mod D)) times 1 / (N (1 - rate)), exactly as
+    the keep mask says; the mean keep fraction is 1 - rate."""
+    bh, n, d, rate = 2, 64, 32, 0.25
+    q = torch.zeros(bh, n, d)
+    k = torch.zeros(bh, n, d)
+    v = torch.zeros(bh, n, d)
+    v[:, torch.arange(n), torch.arange(n) % d] = 1.0
+    drop = Dropout(rate, 99, 2)
+    o = fa.flash_fwd_plain(q, k, v, d, 1, drop=drop)[:, :, 0]  # (BH, N, D)
+    keep = keep_mask(drop, bh, n, n).float()
+    counts = keep.view(bh, n, n // d, d).sum(2)
+    torch.testing.assert_close(o, counts / (n * (1.0 - rate)), rtol=1e-6, atol=0.0)
+    assert abs(float(keep.mean()) - (1.0 - rate)) < 0.02

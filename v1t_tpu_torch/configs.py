@@ -5,13 +5,14 @@ reference CLI flags, so an ``args.yaml`` written by either package replays in
 the other). The port reads these fields:
 
 - ``attention_impl``: "auto" runs the core's attention and MLP sublayers
-  through the hand-written CUDA kernels on a CUDA device, which take bf16
-  activations only (``precision="bf16"``) and raise on another dtype, and
-  through their plain PyTorch versions on a CPU tensor; "xla" selects the
-  plain PyTorch version on any device (the composed path, named as in the
-  JAX package), the reference the kernel path is held against on the card.
+  through the hand-written CUDA kernels on a CUDA device and through their
+  plain PyTorch versions on a CPU tensor: the fused sublayers in bf16 up to
+  4096 tokens, the composed path with the flash kernels in float32
+  (``precision="fp32"``) or above 4096 tokens (``models/cores/vit.py``);
+  "xla" selects the plain PyTorch versions of the same path on any device,
+  the reference the kernel path is held against on the card.
 - ``readout_impl``: the same switch for the Gaussian2d readout's bilinear
-  sampling.
+  sampling (bf16 or float32 maps).
 
 PyYAML is imported only inside ``save_args`` / ``load_args``: the serving
 path never touches ``args.yaml`` and runs where PyYAML is not installed.

@@ -57,11 +57,6 @@ constexpr int CK = 64, CQ = 64;    // dkdv: keys per block, query tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// the two warps of dkdv pair p (warps p and p + 4) meet at barrier 1 + p
-__device__ __forceinline__ void pair_barrier(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
-}
-
 __global__ void __launch_bounds__(THREADS) attention_bwd_prep_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ scale, const bf16* __restrict__ o,
     const bf16* __restrict__ dout, bf16* __restrict__ qs, bf16* __restrict__ dohm,

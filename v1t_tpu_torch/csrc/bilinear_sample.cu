@@ -12,8 +12,11 @@
 // Bound on the H100: 64 x 155 x 7000 bf16 outputs (139 MB) plus the 33 MB
 // table; 8 FLOP per output. Bound by memory bytes.
 //
-// Layout: table (B, C, H*W) bf16, grid (B, P, 2) fp32 (x, y) in [-1, 1],
-// out (B, C, P) bf16. One thread per (b, p): it computes the 4 corner
+// Layout: table (B, C, H*W) bf16 or float32 (the fp32 model's map; a
+// template on the element type), grid (B, P, 2) fp32 (x, y) in [-1, 1],
+// out (B, C, P) in the table's type. No cap on the table: the TPU kernel's
+// MAX_TABLE_ROWS (VMEM) sent larger maps to XLA gathers, a full-resolution
+// 137 x 249 map goes through this kernel as it is. One thread per (b, p): it computes the 4 corner
 // indices and weights once, then walks the C channels, so that neighbouring
 // threads write neighbouring p (coalesced stores); the table of one image
 // (512 KB) is read through L1/L2.
@@ -35,9 +38,10 @@ namespace {
 
 constexpr int THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) bilinear_sample_cm_kernel(
-    const bf16* __restrict__ table, const float* __restrict__ grid,
-    bf16* __restrict__ out, int C, int height, int width, int P) {
+    const T* __restrict__ table, const float* __restrict__ grid,
+    T* __restrict__ out, int C, int height, int width, int P) {
   const int p = blockIdx.x * THREADS + threadIdx.x, b = blockIdx.y;
   if (p >= P) return;
   const float gx = grid[((size_t)b * P + p) * 2];
@@ -59,20 +63,21 @@ __global__ void __launch_bounds__(THREADS) bilinear_sample_cm_kernel(
     idx[i] = valid ? iy * width + ix : 0;
     wt[i] = valid ? ((i & 1) ? wx1 : wx0) * ((i >> 1) ? wy1 : wy0) : 0.f;
   }
-  const int T = height * width;
-  const bf16* tb = table + (size_t)b * C * T;
-  bf16* ob = out + (size_t)b * C * P + p;
+  const int HW = height * width;
+  const T* tb = table + (size_t)b * C * HW;
+  T* ob = out + (size_t)b * C * P + p;
   for (int c = 0; c < C; ++c) {
-    const bf16* row = tb + (size_t)c * T;
+    const T* row = tb + (size_t)c * HW;
     const float v = wt[0] * to_f(row[idx[0]]) + wt[1] * to_f(row[idx[1]]) +
                     wt[2] * to_f(row[idx[2]]) + wt[3] * to_f(row[idx[3]]);
-    ob[(size_t)c * P] = __float2bfloat16_rn(v);
+    store_f(ob + (size_t)c * P, v);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) bilinear_sample_cm_bwd_kernel(
-    const bf16* __restrict__ table, const float* __restrict__ grid,
-    const bf16* __restrict__ dout, float* __restrict__ dtable, float* __restrict__ dgrid,
+    const T* __restrict__ table, const float* __restrict__ grid,
+    const T* __restrict__ dout, float* __restrict__ dtable, float* __restrict__ dgrid,
     int C, int height, int width, int P) {
   const int p = blockIdx.x * THREADS + threadIdx.x, b = blockIdx.y;
   if (p >= P) return;
@@ -93,19 +98,19 @@ __global__ void __launch_bounds__(THREADS) bilinear_sample_cm_bwd_kernel(
     idx[i] = valid[i] ? iy * width + ix : 0;
     wt[i] = ((i & 1) ? wx1 : wx0) * ((i >> 1) ? wy1 : wy0);
   }
-  const int T = height * width;
-  const bf16* tb = table + (size_t)b * C * T;
-  float* db = dtable + (size_t)b * C * T;
-  const bf16* go = dout + (size_t)b * C * P + p;
+  const int HW = height * width;
+  const T* tb = table + (size_t)b * C * HW;
+  float* db = dtable + (size_t)b * C * HW;
+  const T* go = dout + (size_t)b * C * P + p;
   float dx = 0.f, dy = 0.f;
   for (int c = 0; c < C; ++c) {
     const float g = to_f(go[(size_t)c * P]);
-    const bf16* row = tb + (size_t)c * T;
+    const T* row = tb + (size_t)c * HW;
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       v[i] = valid[i] ? to_f(row[idx[i]]) : 0.f;
-      if (valid[i]) atomicAdd(db + (size_t)c * T + idx[i], wt[i] * g);
+      if (valid[i]) atomicAdd(db + (size_t)c * HW + idx[i], wt[i] * g);
     }
     dx += g * ((v[1] - v[0]) * wy0 + (v[3] - v[2]) * wy1);
     dy += g * ((v[2] - v[0]) * wx0 + (v[3] - v[1]) * wx1);
@@ -117,26 +122,37 @@ __global__ void __launch_bounds__(THREADS) bilinear_sample_cm_bwd_kernel(
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch. dtable (B, C, H*W) float32,
-// which the caller zeroes, receives d(table); dgrid (B, P, 2) float32
-// d(grid) in the grid's units.
+// Returns cudaGetLastError() after the launch. table and dout bf16 (f32 ==
+// 0) or float32 (f32 == 1); dtable (B, C, H*W) float32, which the caller
+// zeroes, receives d(table); dgrid (B, P, 2) float32 d(grid) in the grid's
+// units.
 extern "C" int v1t_bilinear_sample_cm_bwd(const void* table, const void* grid,
                                           const void* dout, void* dtable, void* dgrid,
-                                          int B, int C, int height, int width, int P,
+                                          int B, int C, int height, int width, int P, int f32,
                                           void* stream) {
   dim3 blocks((P + THREADS - 1) / THREADS, B);
-  bilinear_sample_cm_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)table, (const float*)grid, (const bf16*)dout, (float*)dtable,
-      (float*)dgrid, C, height, width, P);
+  if (f32)
+    bilinear_sample_cm_bwd_kernel<float><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)table, (const float*)grid, (const float*)dout, (float*)dtable,
+        (float*)dgrid, C, height, width, P);
+  else
+    bilinear_sample_cm_bwd_kernel<bf16><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)table, (const float*)grid, (const bf16*)dout, (float*)dtable,
+        (float*)dgrid, C, height, width, P);
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch. table and out bf16 (f32 == 0)
+// or float32 (f32 == 1).
 extern "C" int v1t_bilinear_sample_cm(const void* table, const void* grid,
                                       void* out, int B, int C, int height,
-                                      int width, int P, void* stream) {
+                                      int width, int P, int f32, void* stream) {
   dim3 blocks((P + THREADS - 1) / THREADS, B);
-  bilinear_sample_cm_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)table, (const float*)grid, (bf16*)out, C, height, width, P);
+  if (f32)
+    bilinear_sample_cm_kernel<float><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)table, (const float*)grid, (float*)out, C, height, width, P);
+  else
+    bilinear_sample_cm_kernel<bf16><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)table, (const float*)grid, (bf16*)out, C, height, width, P);
   return (int)cudaGetLastError();
 }

@@ -92,6 +92,25 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// the two warps of a dk/dv pair p (warps p and p + 4) meet at barrier 1 + p
+__device__ __forceinline__ void pair_barrier(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+
+// Where row `row` of plane bh = b * H + h of a (B, H, N, D) tensor starts
+// when it is stored with arbitrary strides (a (B, N, H, D) buffer: batch
+// N * H * D, head D, row H * D).
+struct RowLayout {
+  int H, batch, head, row;
+  __device__ __forceinline__ size_t at(int bh, int r) const {
+    return (size_t)(bh / H) * batch + (size_t)(bh % H) * head + (size_t)r * row;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Dropout keep masks (ops/dropout.py is the same function in PyTorch).
 // Element (plane, row, col) of site `site` under seed `seed` is word col % 4

@@ -24,7 +24,10 @@
 // of 155 bf16 are not aligned), adds the row bias, computes the LayerNorm of
 // each row from registers (one warp per row, fp32, two passes over the
 // registers) and keeps the normalised panel, rounded to bf16 where the TPU
-// kernel rounded it, in shared memory. It then walks the output in 64-column
+// kernel rounded it, in shared memory. A K wider than one panel (KC = 640
+// columns: the output projection of 8 heads, fc2 of a wide MLP; calls that
+// carry no LayerNorm) is walked in panels of KC columns, each reloaded for
+// every output tile (from L2). It then walks the output in 64-column
 // tiles, streaming w through a double-buffered ring of 64 x 32 chunks with
 // 16-byte cp.async copies; 4 warps (2 x 2, 32 x 32 each) run mma.sync
 // m16n8k16 with fp32 accumulators. The epilogue adds the bias and applies the
@@ -46,7 +49,9 @@
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 32, WLD = BK + 8, YLD = BN + 8, THREADS = 128;
-constexpr int MAX_K = 640, KREGS = MAX_K / 32;
+// KC: the widest panel of x a block holds (64 x KC bf16 in shared memory);
+// the LayerNorm needs whole rows, so it takes K <= KC
+constexpr int KC = 640, KREGS = KC / 32, MAX_LN_K = KC;
 static_assert(BM * YLD <= 2 * BN * WLD, "the output tile must fit in the w ring");
 
 __host__ __device__ constexpr int smem_bytes(int KP) {
@@ -61,7 +66,9 @@ __device__ __forceinline__ float load_z(const bf16* xr, const bf16* br, int k) {
   return z;
 }
 
-template <bool TRAIN>
+// MULTI: K spans several panels (KP > KC); a single panel compiles as
+// without the panel walk
+template <bool TRAIN, bool MULTI>
 __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -70,7 +77,7 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
     bf16* __restrict__ y, bf16* __restrict__ pre, int M, int N, int K, int KP,
     int rows_per_batch, int gelu, int heads, int head_dim, int head_pad, Drop drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ALD = KP + 8;
+  const int PW = MULTI ? KC : KP, ALD = PW + 8, npc = PW / BK;  // panel width, chunks per panel
   bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [BM][ALD]
   bf16* Ws = As + BM * ALD;                      // [2][BN][WLD]
   bf16* Ys = Ws;                                 // [BM][YLD], over the w ring
@@ -97,45 +104,49 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
   };
   load_w(0, 0);  // in flight while the panel is built
 
-  // the block's 64 rows: (+ row bias), LayerNorm, bf16, into shared memory
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int row = m0 + r;
-    float v[KREGS];
-    if (row < M) {
-      const bf16* xr = x + (size_t)row * K;
-      const bf16* br = pro_row ? pro_row + (size_t)(row / rows_per_batch) * K : nullptr;
-      float s = 0.f;
+  // the block's 64 rows, columns k0 .. k0 + PW - 1: (+ row bias), LayerNorm
+  // (a single panel), bf16, into shared memory
+  auto build_panel = [&](int k0) {
+    for (int r = warp; r < BM; r += THREADS / 32) {
+      const int row = m0 + r;
+      float v[KREGS];
+      if (row < M) {
+        const bf16* xr = x + (size_t)row * K;
+        const bf16* br = pro_row ? pro_row + (size_t)(row / rows_per_batch) * K : nullptr;
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < KREGS; ++i) {
+          const int k = k0 + lane + 32 * i;
+          v[i] = k < K ? load_z(xr, br, k) : 0.f;
+          s += v[i];
+        }
+        if (gamma != nullptr) {
+          const float mean = warp_sum(s) / K;
+          float var = 0.f;
+#pragma unroll
+          for (int i = 0; i < KREGS; ++i) {
+            const float d = lane + 32 * i < K ? v[i] - mean : 0.f;
+            var += d * d;
+          }
+          const float rstd = rsqrtf(warp_sum(var) / K + 1e-5f);
+#pragma unroll
+          for (int i = 0; i < KREGS; ++i) {
+            const int k = lane + 32 * i;
+            if (k < K) v[i] = (v[i] - mean) * rstd * gamma[k] + beta[k];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < KREGS; ++i) v[i] = 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < KREGS; ++i) {
-        const int k = lane + 32 * i;
-        v[i] = k < K ? load_z(xr, br, k) : 0.f;
-        s += v[i];
+        const int kl = lane + 32 * i;
+        if (kl < PW) As[r * ALD + kl] = __float2bfloat16_rn(v[i]);
       }
-      if (gamma != nullptr) {
-        const float mean = warp_sum(s) / K;
-        float var = 0.f;
-#pragma unroll
-        for (int i = 0; i < KREGS; ++i) {
-          const float d = lane + 32 * i < K ? v[i] - mean : 0.f;
-          var += d * d;
-        }
-        const float rstd = rsqrtf(warp_sum(var) / K + 1e-5f);
-#pragma unroll
-        for (int i = 0; i < KREGS; ++i) {
-          const int k = lane + 32 * i;
-          if (k < K) v[i] = (v[i] - mean) * rstd * gamma[k] + beta[k];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < KREGS; ++i) v[i] = 0.f;
     }
-#pragma unroll
-    for (int i = 0; i < KREGS; ++i) {
-      const int k = lane + 32 * i;
-      if (k < KP) As[r * ALD + k] = __float2bfloat16_rn(v[i]);
-    }
-  }
+  };
+  build_panel(0);
 
   // per-row output offsets (row-major, or head-major (S, B, H, rows, DP):
   // a row part fixed for the block plus a column part per tile)
@@ -163,6 +174,9 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
       load_w(step, stage);
       ++issued;
     }
+    // a K of several panels: the next panel (every warp is past the last
+    // step's products, which read the previous one)
+    if (MULTI && kc % npc == 0 && step != 0) build_panel(kc / npc * KC);
     if (kc + 1 < nk) {  // prefetch within the tile
       load_w(step + 1, stage ^ 1);
       ++issued;
@@ -177,7 +191,8 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
       uint32_t a[2][4], bfr[4][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        const bf16* p = As + (warp_m * 32 + mi * 16 + g) * ALD + kc * BK + kk + 2 * t;
+        const int kcol = (MULTI ? kc % npc : kc) * BK;
+        const bf16* p = As + (warp_m * 32 + mi * 16 + g) * ALD + kcol + kk + 2 * t;
         a[mi][0] = ld_pair(p);
         a[mi][1] = ld_pair(p + 8 * ALD);
         a[mi][2] = ld_pair(p + 8);
@@ -261,17 +276,17 @@ __global__ void __launch_bounds__(THREADS) ln_linear_kernel(
   }
 }
 
-template <bool TRAIN>
+template <bool TRAIN, bool MULTI>
 int launch(const void* x, const void* w, const void* gamma, const void* beta,
            const void* pro_row, const void* bias, const void* residual,
            const void* res_row, void* y, void* pre, int M, int N, int K, int KP,
            int rows_per_batch, int gelu, int heads, int head_dim, int head_pad,
            Drop drop, cudaStream_t stream) {
-  const int bytes = smem_bytes(KP);
+  const int bytes = smem_bytes(MULTI ? KC : KP);
   cudaError_t err = cudaFuncSetAttribute(
-      ln_linear_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ln_linear_kernel<TRAIN, MULTI>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  ln_linear_kernel<TRAIN><<<(M + BM - 1) / BM, THREADS, bytes, stream>>>(
+  ln_linear_kernel<TRAIN, MULTI><<<(M + BM - 1) / BM, THREADS, bytes, stream>>>(
       (const bf16*)x, (const bf16*)w, (const float*)gamma, (const float*)beta,
       (const bf16*)pro_row, (const float*)bias, (const bf16*)residual,
       (const bf16*)res_row, (bf16*)y, (bf16*)pre, M, N, K, KP, rows_per_batch, gelu,
@@ -279,11 +294,16 @@ int launch(const void* x, const void* w, const void* gamma, const void* beta,
   return (int)cudaGetLastError();
 }
 
+typedef int (*LaunchFn)(const void*, const void*, const void*, const void*, const void*,
+                        const void*, const void*, const void*, void*, void*, int, int, int,
+                        int, int, int, int, int, int, Drop, cudaStream_t);
+
 }  // namespace
 
 // Returns a CUDA error code (0 on success). w is (N, KP), zero-padded from K
-// to KP = a multiple of 32, K <= 640. Null pointers switch off the LayerNorm
-// (gamma/beta), the row bias before it (pro_row), the output bias, the
+// to KP = a multiple of 32; K <= 640 with the LayerNorm. Null pointers
+// switch off the LayerNorm (gamma/beta), the row bias before it (pro_row),
+// the output bias, the
 // residual and the row bias added to the residual (res_row). heads > 0
 // writes y head-major for attention.cu: (N / (heads*head_dim), B, heads,
 // rows_per_batch, head_pad), zero-padded past head_dim. Training: pre, when
@@ -297,12 +317,13 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
                              int K, int KP, int rows_per_batch, int gelu, int heads,
                              int head_dim, int head_pad, unsigned seed, unsigned site,
                              unsigned threshold, float drop_scale, void* stream) {
-  if (K > MAX_K || KP % BK != 0 || KP < K) return (int)cudaErrorInvalidValue;
+  if (KP % BK != 0 || KP < K || (gamma != nullptr && K > MAX_LN_K))
+    return (int)cudaErrorInvalidValue;
   const Drop drop{seed, site, threshold, drop_scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (pre != nullptr || threshold != 0u)
-    return launch<true>(x, w, gamma, beta, pro_row, bias, residual, res_row, y, pre, M, N,
-                        K, KP, rows_per_batch, gelu, heads, head_dim, head_pad, drop, s);
-  return launch<false>(x, w, gamma, beta, pro_row, bias, residual, res_row, y, pre, M, N, K,
-                       KP, rows_per_batch, gelu, heads, head_dim, head_pad, drop, s);
+  const bool train = pre != nullptr || threshold != 0u, multi = KP > KC;
+  const LaunchFn fn = train ? (multi ? launch<true, true> : launch<true, false>)
+                            : (multi ? launch<false, true> : launch<false, false>);
+  return fn(x, w, gamma, beta, pro_row, bias, residual, res_row, y, pre, M, N, K, KP,
+            rows_per_batch, gelu, heads, head_dim, head_pad, drop, s);
 }

@@ -22,14 +22,17 @@
 //    - plain: dX in bf16; optionally fc1's keep mask and GELU'(pre) on the
 //      way (the fc2 backward emits fc1's dY' directly, from the saved
 //      pre-GELU activation);
-//    - LayerNorm (K <= 256): the block keeps its 64 x K fp32 d(ln) rows in
-//      shared memory; one warp per row recomputes z = x (+ row), its mean and
-//      rstd as ln_linear.cu did, and writes dz = rstd (d(ln) gamma - mean(.) -
-//      xhat mean(. xhat)) (+ the residual's cotangent), the recomputed bf16
-//      LayerNorm output for the weight gradient, and adds d(gamma), d(beta)
-//      and the per-batch d(bias_row) row sums with fp32 atomics (one per
-//      column per warp; their order varies from run to run by one fp32
-//      rounding of partial sums, far below the bf16 results).
+//    - LayerNorm (K <= 640, ln_linear.cu's limit): the block keeps its
+//      64 x K fp32 d(ln) rows in shared memory; one warp per row first
+//      recomputes z = x (+ row), its mean and rstd as ln_linear.cu did, and
+//      the row sums mean(d(ln) gamma) and mean(d(ln) gamma xhat), into shared
+//      memory; then, 256 columns at a time, it writes dz = rstd (d(ln) gamma
+//      - mean(.) - xhat mean(. xhat)) (+ the residual's cotangent), the
+//      recomputed bf16 LayerNorm output for the weight gradient, and adds
+//      d(gamma), d(beta) and the per-batch d(bias_row) row sums with fp32
+//      atomics (one per column per warp and chunk; their order varies from
+//      run to run by one fp32 rounding of partial sums, far below the bf16
+//      results).
 // 2. ln_linear_wgrad: dW = dY'^T A and db = colsum(dY') over the M =
 //    B x N rows, A the layer's input (the saved activation, or the LayerNorm
 //    output from 1). Split over the batch: a block computes a 64 x 64 tile of
@@ -48,7 +51,9 @@
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 32, WLD = BK + 8, ALD = BK + 8, YLD = BN + 8;
-constexpr int THREADS = 128, MAX_LN_K = 256, LN_REGS = MAX_LN_K / 32;
+// the LayerNorm backward takes K <= MAX_LN_K (its 64 x K fp32 d(ln) rows in
+// shared memory) and walks the columns LN_REGS * 32 at a time
+constexpr int THREADS = 128, MAX_LN_K = 640, LN_REGS = 8;
 static_assert(BM * YLD <= 2 * BN * WLD, "the output tile must fit in the w ring");
 
 // Where logical element (row, col) of an (M, N) operand lives: row-major, or
@@ -111,8 +116,9 @@ __device__ __forceinline__ float gelu_grad(float x) {
 }
 
 __host__ __device__ constexpr int dx_smem_bytes(int ln_cols) {
+  // the w ring, the dY' chunk; LayerNorm: d(ln) rows and 4 statistics a row
   return (2 * BN * WLD + BM * ALD) * (int)sizeof(bf16) +
-         (ln_cols ? BM * (ln_cols + 4) * (int)sizeof(float) : 0);
+         (ln_cols ? (BM * (ln_cols + 4) + 4 * BM) * (int)sizeof(float) : 0);
 }
 
 template <bool LN>
@@ -267,85 +273,96 @@ __global__ void __launch_bounds__(THREADS) ln_linear_dx_kernel(
   if (!LN) return;
 
   __syncthreads();
-  // LayerNorm backward, one warp per row; per-lane column sums for the atomics
-  float dg[LN_REGS], db[LN_REGS], dr[LN_REGS];
-#pragma unroll
-  for (int i = 0; i < LN_REGS; ++i) dg[i] = db[i] = dr[i] = 0.f;
-  int cur_b = -1;
-  auto flush_row_sums = [&]() {
-    if (cur_b < 0 || dbrow == nullptr) return;
-#pragma unroll
-    for (int i = 0; i < LN_REGS; ++i) {
-      const int k = lane + 32 * i;
-      if (k < K) atomicAdd(dbrow + (size_t)cur_b * K + k, dr[i]);
-      dr[i] = 0.f;
-    }
+  // LayerNorm backward, one warp per row. 1) each row's statistics; the
+  // per-lane sums run in the order of ln_linear.cu's registers
+  float* stats = Ds + BM * DLD;  // [BM][4]: mean, rstd, mean(dxh), mean(dxh xhat)
+  auto z_at = [&](const bf16* xr, const bf16* br, int k) {
+    float z = to_f(xr[k]);
+    if (br != nullptr) z = round_bf16(z + to_f(br[k]));
+    return z;
   };
   for (int r = warp; r < BM; r += THREADS / 32) {
     const int row = m0 + r;
     if (row >= M) break;
-    const int b = row / L.rows_per_batch;
-    if (b != cur_b) {
-      flush_row_sums();
-      cur_b = b;
-    }
     const bf16* xr = x + (size_t)row * K;
-    const bf16* br = pro_row ? pro_row + (size_t)b * K : nullptr;
-    float v[LN_REGS], s = 0.f;
-#pragma unroll
-    for (int i = 0; i < LN_REGS; ++i) {
-      const int k = lane + 32 * i;
-      float z = 0.f;
-      if (k < K) {
-        z = to_f(xr[k]);
-        if (br != nullptr) z = round_bf16(z + to_f(br[k]));
-      }
-      v[i] = z;
-      s += z;
-    }
+    const bf16* br = pro_row ? pro_row + (size_t)(row / L.rows_per_batch) * K : nullptr;
+    float s = 0.f;
+    for (int k = lane; k < K; k += 32) s += z_at(xr, br, k);
     const float mean = warp_sum(s) / K;
     float var = 0.f;
-#pragma unroll
-    for (int i = 0; i < LN_REGS; ++i) {
-      const float d = lane + 32 * i < K ? v[i] - mean : 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float d = z_at(xr, br, k) - mean;
       var += d * d;
     }
     const float rstd = rsqrtf(warp_sum(var) / K + 1e-5f);
-    float s1 = 0.f, s2 = 0.f, dxh[LN_REGS];
-#pragma unroll
-    for (int i = 0; i < LN_REGS; ++i) {
-      const int k = lane + 32 * i;
-      v[i] = (v[i] - mean) * rstd;  // xhat
-      dxh[i] = 0.f;
-      if (k < K) {
-        const float dl = Ds[r * DLD + k];
-        dg[i] += dl * v[i];
-        db[i] += dl;
-        dxh[i] = dl * gamma[k];
-        s1 += dxh[i];
-        s2 += dxh[i] * v[i];
-        if (ln_out != nullptr) ln_out[(size_t)row * K + k] = __float2bfloat16_rn(v[i] * gamma[k] + beta[k]);
-      }
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float dxh = Ds[r * DLD + k] * gamma[k];
+      s1 += dxh;
+      s2 += dxh * ((z_at(xr, br, k) - mean) * rstd);
     }
     s1 = warp_sum(s1) / K;
     s2 = warp_sum(s2) / K;
-#pragma unroll
-    for (int i = 0; i < LN_REGS; ++i) {
-      const int k = lane + 32 * i;
-      if (k >= K) continue;
-      float dz = rstd * (dxh[i] - s1 - v[i] * s2);
-      if (dres != nullptr) dz += to_f(dres[(size_t)row * K + k]);
-      dr[i] += dz;
-      dx[(size_t)row * K + k] = __float2bfloat16_rn(dz);
+    if (lane == 0) {
+      stats[r * 4 + 0] = mean;
+      stats[r * 4 + 1] = rstd;
+      stats[r * 4 + 2] = s1;
+      stats[r * 4 + 3] = s2;
     }
   }
-  flush_row_sums();
+  __syncwarp();
+  // 2) dz, the LayerNorm output and the column sums, LN_REGS * 32 columns at
+  // a time; per-lane column sums for the atomics
+  for (int c0 = 0; c0 < K; c0 += LN_REGS * 32) {
+    float dg[LN_REGS], db[LN_REGS], dr[LN_REGS];
 #pragma unroll
-  for (int i = 0; i < LN_REGS; ++i) {
-    const int k = lane + 32 * i;
-    if (k < K) {
-      atomicAdd(dgamma + k, dg[i]);
-      atomicAdd(dbeta + k, db[i]);
+    for (int i = 0; i < LN_REGS; ++i) dg[i] = db[i] = dr[i] = 0.f;
+    int cur_b = -1;
+    auto flush_row_sums = [&]() {
+      if (cur_b < 0 || dbrow == nullptr) return;
+#pragma unroll
+      for (int i = 0; i < LN_REGS; ++i) {
+        const int k = c0 + lane + 32 * i;
+        if (k < K) atomicAdd(dbrow + (size_t)cur_b * K + k, dr[i]);
+        dr[i] = 0.f;
+      }
+    };
+    for (int r = warp; r < BM; r += THREADS / 32) {
+      const int row = m0 + r;
+      if (row >= M) break;
+      const int b = row / L.rows_per_batch;
+      if (b != cur_b) {
+        flush_row_sums();
+        cur_b = b;
+      }
+      const bf16* xr = x + (size_t)row * K;
+      const bf16* br = pro_row ? pro_row + (size_t)b * K : nullptr;
+      const float mean = stats[r * 4 + 0], rstd = stats[r * 4 + 1];
+      const float s1 = stats[r * 4 + 2], s2 = stats[r * 4 + 3];
+#pragma unroll
+      for (int i = 0; i < LN_REGS; ++i) {
+        const int k = c0 + lane + 32 * i;
+        if (k >= K) continue;
+        const float xhat = (z_at(xr, br, k) - mean) * rstd;
+        const float dl = Ds[r * DLD + k];
+        dg[i] += dl * xhat;
+        db[i] += dl;
+        if (ln_out != nullptr)
+          ln_out[(size_t)row * K + k] = __float2bfloat16_rn(xhat * gamma[k] + beta[k]);
+        float dz = rstd * (dl * gamma[k] - s1 - xhat * s2);
+        if (dres != nullptr) dz += to_f(dres[(size_t)row * K + k]);
+        dr[i] += dz;
+        dx[(size_t)row * K + k] = __float2bfloat16_rn(dz);
+      }
+    }
+    flush_row_sums();
+#pragma unroll
+    for (int i = 0; i < LN_REGS; ++i) {
+      const int k = c0 + lane + 32 * i;
+      if (k < K) {
+        atomicAdd(dgamma + k, dg[i]);
+        atomicAdd(dbeta + k, db[i]);
+      }
     }
   }
 }
@@ -450,7 +467,7 @@ __global__ void __launch_bounds__(THREADS) ln_linear_wgrad_kernel(
 // threshold_in > 0 applies the keep mask (seed, site_in) to dy. Plain
 // epilogue (x == null): dx (M, K) bf16, with pre (M, K) set also fc1's keep
 // mask (seed, site_out, threshold_out) and GELU'(pre). LayerNorm epilogue
-// (x != null, K <= 256): dx receives dz = the LayerNorm backward of dX at
+// (x != null, K <= 640): dx receives dz = the LayerNorm backward of dX at
 // z = x (+ pro_row), plus dres when not null; ln_out, when not null, the
 // bf16 LayerNorm output; dgamma, dbeta (K) and dbrow (B, K), which the
 // caller zeroes, get fp32 sums added.

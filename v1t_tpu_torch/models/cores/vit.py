@@ -11,13 +11,22 @@ src/v1t/models/core/vit.py, with the reference's torch ``state_dict`` keys:
 - output: drop CLS and reshape the tokens to a (C, h, w) map (the largest
   factor pair of the patch count; 1653 -> 29 x 57).
 
-Dispatch: with ``attention_impl`` "auto" the sublayers launch the CUDA
-kernels on a CUDA tensor, which take bf16 only and raise on another dtype,
-and run their plain versions on a CPU tensor. "xla" selects the plain
-composed path on any device: the reference the kernel path is held against
-on the card. The behavior latent enters the attention sublayer as its
-``bias_row`` and the residual it emits is x + latent, the JAX package's
-fold_residual form.
+Dispatch, as the JAX package's (``_fused_attention_eligible``,
+``FUSED_MAX_N``): a block runs the fused sublayers (``ops/fused_mha.py``,
+``ops/fused_mlp.py``) when the compute type is bf16, ``attention_impl`` is
+"auto" or "pallas" and N <= 4096. The behavior latent then enters the
+attention sublayer as its ``bias_row`` and the residual it emits is
+x + latent, the JAX package's fold_residual form. Otherwise (float32, or the
+34,114 tokens of a full-resolution image) the block takes the composed path
+(``v1t_tpu/models/cores/vit.py:383-413, 468-481``): x + latent, then
+x + attention(x) with LayerNorm in float32, QKV and the output projection as
+plain products, ``multi_head_attention`` (``ops/attention.py``: the flash
+kernels) and the output dropout; then x + MLP(x), through ``fused_mlp`` in
+bf16 (JAX keeps its fused MLP there) and through PyTorch ops in float32.
+A CUDA tensor launches the kernels; a CPU tensor runs their plain versions,
+the port's counterpart of the Pallas interpreter. "xla" takes the same
+paths through the plain versions on any device: the reference the kernel
+path is held against on the card.
 
 Training (``module.train()``): the patch embedding's dropout (``p_dropout``)
 draws from the step's ``torch.Generator``; the transformer's dropout
@@ -33,14 +42,35 @@ from __future__ import annotations
 import typing as t
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from v1t_tpu_torch.models.layers import linear, run_mlp, torch_default_init_, trunc_normal_init_
 from v1t_tpu_torch.models.registry import register_core
+from v1t_tpu_torch.ops.attention import multi_head_attention
 from v1t_tpu_torch.ops.common import find_shape, unfold_output_size, unfold_patches
-from v1t_tpu_torch.ops.dropout import Dropout
+from v1t_tpu_torch.ops.dropout import Dropout, apply_dropout
 from v1t_tpu_torch.ops.fused_mha import fused_mha
 from v1t_tpu_torch.ops.fused_mlp import fused_mlp
+
+# beyond this the JAX package's fused attention kernel outgrows VMEM and
+# full-resolution runs (34,114 tokens) take the composed flash path; the port
+# keeps the same gate, so that both packages run the same path
+FUSED_MAX_N = 4096
+
+
+def _fused_attention_eligible(dtype, attention_impl: str, n: int,
+                              device: t.Union[str, torch.device]) -> bool:
+    """Whether a block runs the fused attention sublayer (``v1t_tpu/models/
+    cores/vit.py`` ``_fused_attention_eligible``, the device in place of the
+    backend: a CUDA device runs the kernels, a CPU tensor their plain
+    versions, as a TPU or the Pallas interpreter does)."""
+    return (
+        attention_impl in ("auto", "pallas")
+        and dtype == torch.bfloat16
+        and torch.device(device).type in ("cuda", "cpu")
+        and n <= FUSED_MAX_N
+    )
 
 
 class _Unfold(nn.Module):
@@ -142,10 +172,21 @@ class Attention(nn.Module):
         if use_lsa:
             self.scale = nn.Parameter(torch.full((num_heads,), self.base_scale))
 
+    def fused(self, x: torch.Tensor) -> bool:
+        # the port's "xla" runs the plain versions of the path "auto" takes
+        impl = "auto" if self.impl == "xla" else self.impl
+        return _fused_attention_eligible(x.dtype, impl, x.shape[1], x.device)
+
     def forward(self, x: torch.Tensor, bias_row: t.Optional[torch.Tensor],
                 seed: t.Optional[int] = None, site: int = 0) -> torch.Tensor:
         """``seed`` (training): dropout of the probabilities (site ``site``)
-        and of the output (``site + 1``)."""
+        and of the output (``site + 1``). The fused sublayer returns
+        (x + bias_row) + attention(x + bias_row); the composed one (no
+        ``bias_row``) attention(x) alone."""
+        if not self.fused(x):
+            if bias_row is not None:
+                raise ValueError("bias_row needs the fused attention sublayer")
+            return self._composed(x, seed, site)
         dt = x.dtype
         proj = self.projection[0]
         bp = proj.bias if proj.bias is not None else torch.zeros_like(self.layer_norm.bias)
@@ -157,6 +198,26 @@ class Attention(nn.Module):
             bias_row=bias_row, plain=self.impl == "xla",
             drop_p=_drop(self.dropout, seed, site), drop_o=_drop(self.dropout, seed, site + 1),
         )
+
+    def _composed(self, x: torch.Tensor, seed: t.Optional[int], site: int) -> torch.Tensor:
+        """LayerNorm in float32, QKV, ``multi_head_attention``, the output
+        projection and its dropout (``v1t_tpu/models/cores/vit.py:383-413``
+        and the ``nn.Dropout`` after it)."""
+        b, n, e = x.shape
+        dt, h = x.dtype, self.num_heads
+        ln = self.layer_norm
+        z = F.layer_norm(x.float(), (e,), ln.weight, ln.bias, eps=1e-5).to(dt)
+        qkv = torch.matmul(z, self.to_qkv.weight.to(dt).t())
+        q, k, v = qkv.reshape(b, n, 3, h, e).permute(2, 0, 3, 1, 4)
+        o = multi_head_attention(q, k, v, self.scale if self.use_lsa else self.base_scale,
+                                 use_lsa=self.use_lsa, drop=_drop(self.dropout, seed, site),
+                                 impl=self.impl)
+        proj = self.projection[0]
+        out = torch.matmul(o.transpose(1, 2).reshape(b, n, h * e), proj.weight.to(dt).t())
+        if proj.bias is not None:
+            out = out + proj.bias.to(dt)
+        drop = _drop(self.dropout, seed, site + 1)
+        return apply_dropout(out.reshape(b * n, e), drop).reshape(b, n, e)
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_init_(self.to_qkv, generator)
@@ -180,19 +241,41 @@ class MLP(nn.Module):
             nn.Dropout(), nn.Linear(hidden_dim, emb_dim, bias=use_bias), nn.Dropout(),
         )
 
-    def forward(self, x: torch.Tensor, seed: t.Optional[int] = None,
-                site: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: t.Optional[int] = None, site: int = 0,
+                fold_residual: bool = True) -> torch.Tensor:
         """``seed`` (training): dropout of the hidden layer (site ``site``)
-        and of the output (``site + 1``)."""
+        and of the output (``site + 1``); ``fold_residual``: return
+        x + MLP(x). bf16 runs the fused sublayer (``v1t_tpu/models/cores/
+        vit.py:452-461``), float32 the composed one (:468-481)."""
         dt = x.dtype
         ln, fc1, fc2 = self.model[0], self.model[1], self.model[4]
+        drop1, drop2 = _drop(self.dropout, seed, site), _drop(self.dropout, seed, site + 1)
+        if dt != torch.bfloat16:
+            out = self._composed(x, drop1, drop2)
+            return out + x if fold_residual else out
         b1 = fc1.bias if fc1.bias is not None else x.new_zeros(fc1.out_features, dtype=torch.float32)
         b2 = fc2.bias if fc2.bias is not None else x.new_zeros(fc2.out_features, dtype=torch.float32)
         return fused_mlp(
             x, ln.weight, ln.bias, fc1.weight.to(dt), b1, fc2.weight.to(dt), b2,
-            fold_residual=True, plain=self.impl == "xla",
-            drop1=_drop(self.dropout, seed, site), drop2=_drop(self.dropout, seed, site + 1),
+            fold_residual=fold_residual, plain=self.impl == "xla", drop1=drop1, drop2=drop2,
         )
+
+    def _composed(self, x: torch.Tensor, drop1: t.Optional[Dropout],
+                  drop2: t.Optional[Dropout]) -> torch.Tensor:
+        """LayerNorm (float32) -> Linear -> exact GELU -> dropout -> Linear ->
+        dropout, in PyTorch ops."""
+        b, n, e = x.shape
+        dt = x.dtype
+        ln, fc1, fc2 = self.model[0], self.model[1], self.model[4]
+        z = F.layer_norm(x.float(), (e,), ln.weight, ln.bias, eps=1e-5).to(dt)
+        hid = torch.matmul(z, fc1.weight.to(dt).t())
+        if fc1.bias is not None:
+            hid = hid + fc1.bias.to(dt)
+        hid = apply_dropout(F.gelu(hid).reshape(b * n, -1), drop1)
+        out = torch.matmul(hid, fc2.weight.to(dt).t())
+        if fc2.bias is not None:
+            out = out + fc2.bias.to(dt)
+        return apply_dropout(out, drop2).reshape(b, n, e)
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_init_(self.model[1], generator)
@@ -222,8 +305,14 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
                 seed: t.Optional[int] = None, site: int = 0) -> torch.Tensor:
         latent = None if self.b_mlp is None else self.b_mlp(behaviors, mouse_id)
-        x = self.mha(x, latent, seed, site)  # (x + latent) + attention sublayer
-        return self.mlp(x, seed, site + 2)  # x + MLP sublayer
+        if self.mha.fused(x):
+            x = self.mha(x, latent, seed, site)  # (x + latent) + attention sublayer
+            return self.mlp(x, seed, site + 2)  # x + MLP sublayer
+        # the composed path: the residual adds as the JAX package's unfused form
+        if latent is not None:
+            x = x + latent[:, None, :].to(x.dtype)
+        x = self.mha(x, None, seed, site) + x
+        return self.mlp(x, seed, site + 2, fold_residual=False) + x
 
 
 class Transformer(nn.Module):

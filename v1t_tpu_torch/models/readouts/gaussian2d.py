@@ -18,8 +18,10 @@ src/v1t/models/readout/gaussian2d.py, with its state_dict keys:
   and the bias.
 
 Dispatch: with ``readout_impl`` "auto" the sampling launches the CUDA kernel
-on a CUDA tensor, which takes a bf16 core map only and raises on another
-dtype, and runs the plain version on a CPU tensor. "xla" selects the plain
+on a CUDA tensor, for a bf16 or a float32 core map of any size (the JAX
+package samples float32 maps and maps past 4096 rows with XLA gathers
+instead; the port keeps one kernel path), and runs the plain version on a
+CPU tensor. "xla" selects the plain
 version on any device: the reference the kernel is held against on the card.
 """
 

@@ -90,11 +90,13 @@ def philox4x32(counter: t.Sequence[torch.Tensor], key: t.Tuple[int, int]) -> t.L
 
 
 def keep_mask(drop: Dropout, planes: int, rows: int, cols: int,
-              device: t.Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """(planes, rows, cols) bool keep mask of one site."""
+              device: t.Union[str, torch.device] = "cpu", row0: int = 0) -> torch.Tensor:
+    """(planes, rows, cols) bool keep mask of one site: rows row0 .. row0 +
+    rows - 1 of every plane, so that a caller working in row chunks draws
+    only its own rows."""
     groups = -(-cols // 4)
     col4 = torch.arange(groups, dtype=torch.int64, device=device).view(1, 1, -1)
-    row = torch.arange(rows, dtype=torch.int64, device=device).view(1, -1, 1)
+    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device).view(1, -1, 1)
     out = torch.empty((planes, rows, groups * 4), dtype=torch.bool, device=device)
     thr = drop.threshold
     # planes in chunks of ~4M counters bound the int64 temporaries

@@ -26,7 +26,13 @@ recomputes P from it; both dropout masks are regenerated from (seed, site)
 (``ops/dropout.py``), never stored. ``attention`` and ``attention_bwd``
 (``csrc/attention.cu``, ``csrc/attention_bwd.cu``) are defined below with
 their plain versions; ``ln_linear`` and its backward live in
-``ops/ln_linear.py``.
+``ops/ln_linear.py``. ``attention.cu`` keeps q in registers and is built for
+padded head widths up to 160; wider heads (192-256: the sweep's emb_dim
+reaches 256) run on the flash kernels of ``ops/flash_attention.py``, which
+read q from shared memory: q is scaled and rounded before them (as the JAX
+flash path does), the LSE converts between natural log and log2, dq =
+scale dq_s and dscale = sum q . dq_s; the plain versions compose the flash
+plain versions the same way.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ import torch
 
 from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, keep_mask
+from v1t_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_PAD, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+)
 from v1t_tpu_torch.ops.ln_linear import (
     drop_args, ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_plain,
     ln_linear_wgrad, ln_linear_wgrad_plain, padded_head_dim,
@@ -78,6 +87,45 @@ def _scaled_scores(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool):
     return s, q, q_s, k, v
 
 
+def _head_width_check(name: str, dp: int, head_dim: int) -> None:
+    if dp != padded_head_dim(head_dim) or dp > MAX_HEAD_PAD:
+        raise ValueError(f"{name}: head width {head_dim} padded to {dp} is not supported "
+                         f"(padded widths up to {MAX_HEAD_PAD}; ROADMAP queue 3 item 1)")
+
+
+def _flash_operands(qkv: Tensor, scale: Tensor):
+    """(B*H, N, DP) planes of q scaled (natural units) and rounded to qkv's
+    dtype, and of k and v, for the flash kernels."""
+    _, b, h, n, dp = qkv.shape
+    q_s = (qkv[0] * scale.to(qkv.dtype).view(1, h, 1, 1)).reshape(b * h, n, dp)
+    return q_s, qkv[1].reshape(b * h, n, dp), qkv[2].reshape(b * h, n, dp)
+
+
+def _attention_flash(fwd, qkv, scale, head_dim, use_lsa, drop, with_lse):
+    """``attention`` for padded head widths past attention.cu's, on the flash
+    forward ``fwd`` (the kernel or its plain version); the LSE in log2."""
+    _, b, h, n, _ = qkv.shape
+    out = fwd(*_flash_operands(qkv, scale), head_dim, h, use_lsa=use_lsa, drop=drop,
+              with_lse=with_lse)
+    if not with_lse:
+        return out.view(b, n, h * head_dim)
+    return out[0].view(b, n, h * head_dim), out[1].view(b, h, n) * LOG2E
+
+
+def _attention_bwd_flash(bwd, qkv, o, do, lse, scale, head_dim, use_lsa, drop):
+    """``attention_bwd`` on the flash backward ``bwd`` (the kernel or its
+    plain version): dq = scale dq_s, dscale = sum q . dq_s."""
+    _, b, h, n, dp = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    q_s, k, v = _flash_operands(qkv, scale)
+    bwd(q_s, k, v, o.view(b, n, h, head_dim), do.view(b, n, h, head_dim),
+        (lse * LN2).view(b * h, n), head_dim, h, use_lsa=use_lsa, drop=drop,
+        out=tuple(dqkv[i].view(b * h, n, dp) for i in range(3)))
+    dscale = (qkv[0].float() * dqkv[0].float()).sum((0, 2, 3))
+    dqkv[0].mul_(scale.to(qkv.dtype).view(1, h, 1, 1))
+    return dqkv, dscale
+
+
 def _keep(drop: Dropout, b: int, h: int, n: int, device) -> Tensor:
     """The probabilities' keep mask, (B, H, N queries, N keys)."""
     return keep_mask(drop, b * h, n, n, device).view(b, h, n, n)
@@ -91,7 +139,11 @@ def attention_plain(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = F
     round to the input dtype for P.V and rows are divided by their sum
     (taken before the mask) and by the keep rate at the end, as in the
     kernel and in the TPU kernel it replaces. ``with_lse`` also returns the
-    (B, H, N) float32 log2-domain log-sum-exp."""
+    (B, H, N) float32 log2-domain log-sum-exp. Past attention.cu's head
+    widths, the flash plain version, as the kernel path takes the flash
+    kernels there."""
+    if qkv.shape[-1] not in KERNEL_HEAD_PADS:
+        return _attention_flash(flash_fwd_plain, qkv, scale, head_dim, use_lsa, drop, with_lse)
     dt = qkv.dtype
     _, b, h, n, _ = qkv.shape
     s, _, _, _, v = _scaled_scores(qkv, scale, head_dim, use_lsa)
@@ -122,8 +174,9 @@ def attention(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = False,
         return attention_plain(qkv, scale, head_dim, use_lsa, drop, with_lse)
     _build.require_cuda("attention", (torch.bfloat16, torch.float32), qkv, scale)
     _, b, h, n, dp = qkv.shape
-    if dp != padded_head_dim(head_dim) or dp not in KERNEL_HEAD_PADS:
-        raise ValueError(f"attention: head width {head_dim} padded to {dp} is not supported")
+    _head_width_check("attention", dp, head_dim)
+    if dp not in KERNEL_HEAD_PADS:  # wider heads: the flash kernels
+        return _attention_flash(flash_fwd, qkv, scale, head_dim, use_lsa, drop, with_lse)
     if b > 65535 or h > 65535:
         raise ValueError("attention: batch or heads exceed the launch grid")
     out = torch.empty((b, n, h * head_dim), dtype=qkv.dtype, device=qkv.device)
@@ -146,7 +199,11 @@ def attention_bwd_plain(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: 
                         drop: t.Optional[Dropout] = None) -> t.Tuple[Tensor, Tensor]:
     """Plain PyTorch version of ``attention_bwd``, with the kernels' rounding
     points: dS and the masked P round to the input dtype before their
-    products; dq, dk, dv round at the end."""
+    products; dq, dk, dv round at the end. Past attention.cu's head widths,
+    the flash plain version."""
+    if qkv.shape[-1] not in KERNEL_HEAD_PADS:
+        return _attention_bwd_flash(flash_bwd_plain, qkv, o, do, lse, scale, head_dim,
+                                    use_lsa, drop)
     dt = qkv.dtype
     _, b, h, n, dp = qkv.shape
     s, q, q_s, k, v = _scaled_scores(qkv, scale, head_dim, use_lsa)
@@ -191,8 +248,9 @@ def attention_bwd(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor
         return attention_bwd_plain(qkv, o, do, lse, scale, head_dim, use_lsa, drop)
     bf, f32 = torch.bfloat16, torch.float32
     _build.require_cuda("attention_bwd", (bf, bf, bf, f32, f32), qkv, o, do, lse, scale)
-    if dp != padded_head_dim(head_dim) or dp not in KERNEL_HEAD_PADS:
-        raise ValueError(f"attention_bwd: head width {head_dim} padded to {dp} is not supported")
+    _head_width_check("attention_bwd", dp, head_dim)
+    if dp not in KERNEL_HEAD_PADS:  # wider heads: the flash kernels
+        return _attention_bwd_flash(flash_bwd, qkv, o, do, lse, scale, head_dim, use_lsa, drop)
     if b > 65535 or h > 65535:
         raise ValueError("attention_bwd: batch or heads exceed the launch grid")
     dqkv = torch.empty_like(qkv)

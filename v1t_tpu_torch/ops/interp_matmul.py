@@ -4,9 +4,12 @@
 The JAX package's ``interp_matmul_sample_cm`` (``v1t_tpu/ops/
 interp_matmul.py``) samples a (B, C, H*W) table at (B, P) grid points with
 ``align_corners=True`` and zero padding through hat-weight matmuls, because
-the TPU has no gather. Hopper gathers, so the kernel here is one thread per
-(b, p) that reads the 4 corners of every channel; the matmul form and its
-table-size cap are not carried over.
+the TPU has no gather; it sends a float32 table, or one of more than
+``MAX_TABLE_ROWS`` = 4096 rows (its VMEM), to XLA gathers instead. Hopper
+gathers, so the kernel here is one thread per (b, p) that reads the 4
+corners of every channel, for a bf16 or a float32 table of any size (the
+fp32 model's map, the full-resolution 137 x 249 one): one kernel path with
+no gate.
 
 The backward (``bilinear_sample_cm_bwd``, the JAX ``_interp_bwd`` ->
 ``_bwd_kernel``) scatters d(table) with fp32 atomics and computes torch's
@@ -54,9 +57,7 @@ def bilinear_sample_cm(table: Tensor, grid: Tensor, height: int, width: int) -> 
     _check(table, grid, height, width)
     if table.device.type == "cpu":
         return bilinear_sample_cm_plain(table, grid, height, width)
-    _build.require_cuda(
-        "bilinear_sample_cm", (torch.bfloat16, torch.float32), table, grid
-    )
+    _build.require_cuda("bilinear_sample_cm", (table.dtype, torch.float32), table, grid)
     b, c, _ = table.shape
     p = grid.shape[1]
     if b > 65535:
@@ -64,7 +65,7 @@ def bilinear_sample_cm(table: Tensor, grid: Tensor, height: int, width: int) -> 
     out = torch.empty((b, c, p), dtype=table.dtype, device=table.device)
     rc = _build.library().v1t_bilinear_sample_cm(
         table.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        b, c, height, width, p, _build.stream_of(table),
+        b, c, height, width, p, int(table.dtype == torch.float32), _build.stream_of(table),
     )
     _build.check_launch("bilinear_sample_cm", rc)
     bilinear_sample_cm.launches += 1
@@ -116,8 +117,9 @@ def bilinear_sample_cm_bwd(table: Tensor, grid: Tensor, dout: Tensor, height: in
         raise ValueError(f"bilinear_sample_cm_bwd: dout {tuple(dout.shape)} does not match")
     if table.device.type == "cpu":
         return bilinear_sample_cm_bwd_plain(table, grid, dout, height, width)
-    bf, f32 = torch.bfloat16, torch.float32
-    _build.require_cuda("bilinear_sample_cm_bwd", (bf, f32, bf), table, grid, dout)
+    f32 = torch.float32
+    _build.require_cuda("bilinear_sample_cm_bwd", (table.dtype, f32, table.dtype),
+                        table, grid, dout)
     b, c, hw = table.shape
     p = grid.shape[1]
     if b > 65535:
@@ -126,7 +128,8 @@ def bilinear_sample_cm_bwd(table: Tensor, grid: Tensor, dout: Tensor, height: in
     dgrid = torch.empty((b, p, 2), dtype=f32, device=table.device)
     rc = _build.library().v1t_bilinear_sample_cm_bwd(
         table.data_ptr(), grid.data_ptr(), dout.data_ptr(), dtable.data_ptr(),
-        dgrid.data_ptr(), b, c, height, width, p, _build.stream_of(table),
+        dgrid.data_ptr(), b, c, height, width, p, int(table.dtype == f32),
+        _build.stream_of(table),
     )
     _build.check_launch("bilinear_sample_cm_bwd", rc)
     bilinear_sample_cm_bwd.launches += 1

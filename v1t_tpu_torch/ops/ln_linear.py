@@ -25,8 +25,11 @@ Activations round to the input dtype where the JAX package's fused TPU
 kernels round them: the (x + row) sum, the normalised input, the projection
 before a residual add and the output.
 
-A CUDA tensor launches the kernel (bf16 only); a CPU tensor takes the plain
-version (bf16 or float32). ``ln_linear.launches`` (and ``ln_linear_bwd``'s,
+A CUDA tensor launches the kernel (bf16 only: the fp32 model takes the
+composed path, ``models/cores/vit.py``); a CPU tensor takes the plain
+version (bf16 or float32). Any K runs on the card, the LayerNorm's up to
+``MAX_LN_K`` (the kernels hold whole rows: 64 x K bf16 forward, fp32
+backward). ``ln_linear.launches`` (and ``ln_linear_bwd``'s,
 ``ln_linear_wgrad``'s) counts kernel launches.
 """
 
@@ -41,8 +44,7 @@ from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, apply_dropout
 
 Tensor = torch.Tensor
-MAX_K = 640  # the kernel keeps a 64 x K panel of x in shared memory
-MAX_LN_BWD_K = 256  # the LayerNorm backward keeps 64 x K fp32 d(ln) rows
+MAX_LN_K = 640  # a LayerNorm's width on the card: whole rows in shared memory
 
 
 def padded_head_dim(head_dim: int) -> int:
@@ -171,8 +173,9 @@ def ln_linear(
     _build.require_cuda("ln_linear", (bf, bf, f32, f32, bf, f32, bf, bf), *args)
     b, n, k = x.shape
     nout = w.shape[0]
-    if k > MAX_K:
-        raise ValueError(f"ln_linear: K = {k} > {MAX_K}")
+    if gamma is not None and k > MAX_LN_K:
+        raise ValueError(f"ln_linear: a LayerNorm of K = {k} > {MAX_LN_K} "
+                         "(ROADMAP queue 3 item 1)")
     # w's rows zero-padded to a multiple of 32 (16-byte aligned copies)
     kp = -(-k // 32) * 32
     w_pad = w if kp == k else F.pad(w, (0, kp - k))
@@ -296,8 +299,9 @@ def ln_linear_bwd(
     bf, f32 = torch.bfloat16, torch.float32
     _build.require_cuda("ln_linear_bwd", (bf, bf, bf, bf, bf, f32, f32, bf),
                         dy, w, pre, x, pro_row, gamma, beta, dres)
-    if x is not None and k > MAX_LN_BWD_K:
-        raise ValueError(f"ln_linear_bwd: K = {k} > {MAX_LN_BWD_K} with the LayerNorm")
+    if x is not None and k > MAX_LN_K:
+        raise ValueError(f"ln_linear_bwd: a LayerNorm of K = {k} > {MAX_LN_K} "
+                         "(ROADMAP queue 3 item 1)")
     if drop is not None and pre_drop is not None and drop.active and pre_drop.active and (
             drop.rate != pre_drop.rate or drop.seed != pre_drop.seed):
         raise ValueError("ln_linear_bwd: the two masks share one rate and seed")
