@@ -660,6 +660,13 @@ def check_flash_kernels(gen: torch.Generator) -> list:
             ms = cuda_ms(lambda: flash_fwd(q, k, v, d, heads, with_lse=True, **kw), iters)
             serve_ms = cuda_ms(lambda: flash_fwd(q, k, v, d, heads), iters)
             bwd_ms = cuda_ms(lambda: flash_bwd(q, k, v, o, do, lse, d, heads, **kw), iters)
+            # like against like: SDPA runs without dropout, so the kernels are
+            # timed without it too (the backward on the no-dropout forward's o
+            # and LSE)
+            kw0 = dict(kw, drop=None)
+            o0, lse0 = flash_fwd(q, k, v, d, heads, with_lse=True, **kw0)
+            bwd0_ms = cuda_ms(lambda: flash_bwd(q, k, v, o0, do, lse0, d, heads, **kw0), iters)
+            del o0, lse0
             plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, d, heads, with_lse=True, **kw),
                                iters=1)
             plain_bwd_ms = cuda_ms(lambda: flash_bwd_plain(q, k, v, o, do, lse, d, heads, **kw),
@@ -678,14 +685,16 @@ def check_flash_kernels(gen: torch.Generator) -> list:
             del qs, ks, vs, y, gy
             case.update(ms=ms, serving_ms=serve_ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms, bwd_ms=bwd_ms,
-                        bwd_plain_ms=plain_bwd_ms, bwd_bound_ms=bb_ms, bwd_bound_by=bb_by,
-                        bwd_library_ms=lib_bwd_ms)
+                        bwd_no_dropout_ms=bwd0_ms, bwd_plain_ms=plain_bwd_ms,
+                        bwd_bound_ms=bb_ms, bwd_bound_by=bb_by, bwd_library_ms=lib_bwd_ms)
             log(f"  flash_attention[{label}] (BH {bh}, N {nq}, D {d}, {kind}): kernel_ms "
                 f"{ms:.4f} (serving {serve_ms:.4f}) plain_ms {plain_ms:.4f} sdpa_ms "
-                f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
-            log(f"  flash_attention_bwd[{label}]: kernel_ms {bwd_ms:.4f} plain_ms "
-                f"{plain_bwd_ms:.4f} sdpa_backward_ms {lib_bwd_ms:.4f} bound_ms {bb_ms:.4f} "
-                f"({bb_by})")
+                f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); serving / sdpa "
+                f"{serve_ms / lib_ms:.3f}, bound share {b_ms / serve_ms:.3f}")
+            log(f"  flash_attention_bwd[{label}]: kernel_ms {bwd_ms:.4f} (no dropout "
+                f"{bwd0_ms:.4f}) plain_ms {plain_bwd_ms:.4f} sdpa_backward_ms {lib_bwd_ms:.4f} "
+                f"bound_ms {bb_ms:.4f} ({bb_by}); no dropout / sdpa {bwd0_ms / lib_bwd_ms:.3f}, "
+                f"bound share {bb_ms / bwd0_ms:.3f}")
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
         return case
@@ -707,6 +716,12 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         log(f"  flash_attention[{label}] keep mask: bit-identical to the plain version's "
             f"({bh} planes x {n} rows x {n} keys)")
 
+    from v1t_tpu_torch import _build
+
+    lib = _build.library()
+    log("  bf16 flash kernels' dynamic shared memory a block (bytes), by padded head width: "
+        + ", ".join(f"DP {dp}: forward {lib.v1t_flash_attention_smem(dp)}, backward "
+                    f"{lib.v1t_flash_attention_bwd_smem(dp)}" for dp in range(32, 257, 32)))
     cases = {}
     cases["full_res"] = check("full-res, dropout", FR_B * H, H, FR_N, FR_N, E, bf, drp=drop,
                               timed=True)
@@ -735,8 +750,11 @@ def check_flash_kernels(gen: torch.Generator) -> list:
             bound_ms=full[f"{pre}bound_ms"], bound_by=full[f"{pre}bound_by"],
             library_ms=full[f"{pre}library_ms"],
             library="F.scaled_dot_product_attention" + (" (autograd backward)" if pre else ""),
+            ms_like_for_like=full["bwd_no_dropout_ms" if pre else "serving_ms"],
+            like_for_like="no dropout" + ("" if pre else ", no LSE (serving)"),
             note="times at the full-resolution shape (BH 8, N 34114, D 155, bf16, dropout "
-                 "on); per_case holds the fp32 flagship's", per_case=cases))
+                 "on; ms_like_for_like without dropout, as the library call runs); per_case "
+                 "holds the fp32 flagship's", per_case=cases))
     return rows
 
 

@@ -223,6 +223,15 @@ def test_float32_model_runs_on_the_card(gen):
     (2, 1, 200, 333, 250, 40, False, 0.5),  # rectangular, padded keys
     (2, 2, 129, 129, 129, 192, True, 0.25),
     (1, 1, 100, 100, 100, 256, False, 0.0),
+    # every padded head width of the bf16 one-pass backward and the wgmma
+    # forward, at lengths no multiple of 64 or 128, queries and keys apart
+    (2, 2, 77, 77, 77, 32, True, 0.25),
+    (2, 1, 190, 130, 100, 64, False, 0.0),
+    (2, 2, 131, 259, 259, 96, False, 0.25),
+    (1, 1, 333, 201, 180, 128, False, 0.5),
+    (2, 2, 65, 65, 65, 160, True, 0.0),
+    (2, 2, 257, 385, 300, 155, False, 0.25),
+    (1, 1, 140, 140, 140, 224, False, 0.25),
 ], ids=lambda v: str(v))
 def test_flash_attention_matches_plain(gen, dtype, bh, heads, nq, nk, n_real, d, lsa, rate):
     """Forward (o, LSE) and backward (dq, dk, dv, with an LSE cotangent)."""
@@ -249,6 +258,23 @@ def test_flash_attention_matches_plain(gen, dtype, bh, heads, nq, nk, n_real, d,
         _close(g_, r_, tol)
         assert torch.all(g_[..., d:] == 0)
     assert torch.all(got[1][:, n_real:] == 0) and torch.all(got[2][:, n_real:] == 0)
+
+
+def test_flash_backward_reruns_agree(gen):
+    """The bf16 backward adds dq's partial sums from its key blocks with
+    atomics in no fixed order: two runs on the same inputs agree within the
+    kernel tolerance on dq, and exactly on dk and dv (one block each)."""
+    bh, heads, n, d = 2, 2, 1000, 155
+    q, k, v = (torch.zeros(bh, n, 160, dtype=torch.bfloat16, device="cuda") for _ in range(3))
+    for x in (q, k, v):
+        x[..., :d] = _randn(gen, bh, n, d) * (d ** -0.25)
+    drop = _drop(0.25, site=7)
+    o, lse = flash_fwd(q, k, v, d, heads, with_lse=True, drop=drop)
+    do = _randn(gen, *o.shape)
+    first = flash_bwd(q, k, v, o, do, lse, d, heads, drop=drop)
+    second = flash_bwd(q, k, v, o, do, lse, d, heads, drop=drop)
+    _close(second[0], first[0], TOL)
+    assert torch.equal(second[1], first[1]) and torch.equal(second[2], first[2])
 
 
 @pytest.mark.parametrize("e,h", [(192, 2), (256, 8)], ids=str)

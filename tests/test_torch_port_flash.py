@@ -162,3 +162,51 @@ def test_flash_dropout_keeps_the_rate_and_scales_kept_probabilities():
     counts = keep.view(bh, n, n // d, d).sum(2)
     torch.testing.assert_close(o, counts / (n * (1.0 - rate)), rtol=1e-6, atol=0.0)
     assert abs(float(keep.mean()) - (1.0 - rate)) < 0.02
+
+
+@pytest.mark.parametrize("dp", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nq", [1, 63, 257, 34114])
+def test_backward_launch_plan(dtype, dp, nq):
+    """bf16 at DP <= 160 takes the one-pass kernel and a float32 (BH, Nq, DP)
+    dq accumulator, whatever the ragged length; wider bf16 and float32 take
+    the dq and dkdv passes and no accumulator."""
+    plan = fa.bwd_plan(TORCH[dtype], 8, nq, dp)
+    one_pass = dtype == "bfloat16" and dp <= fa.ONE_PASS_MAX_DP
+    assert plan.kernels == (("prep", "one_pass", "dq_convert") if one_pass
+                            else ("prep", "dq", "dkdv"))
+    assert plan.dq_acc == ((8, nq, dp) if one_pass else None)
+
+
+@pytest.mark.parametrize("dp", [0, 16, 100, 288])
+def test_backward_launch_plan_rejects_unbuilt_widths(dp):
+    with pytest.raises(ValueError):
+        fa.bwd_plan(torch.bfloat16, 1, 64, dp)
+
+
+def test_backward_dispatch_width_matches_the_kernel_source():
+    """The wrapper's rule and the one compiled into the backward kernel
+    agree on where the one pass stops."""
+    import re
+
+    from v1t_tpu_torch import _build
+
+    src = open(f"{_build.CSRC_DIR}/flash_attention_bwd.cu").read()
+    assert int(re.search(r"constexpr int ONE_PASS_MAX_DP = (\d+);", src).group(1)) \
+        == fa.ONE_PASS_MAX_DP
+
+
+def test_generated_wgmma_header_is_current():
+    """csrc/wgmma.cuh is exactly what csrc/gen_wgmma.py writes, and names
+    every width the flash kernels issue."""
+    import importlib.util
+
+    from v1t_tpu_torch import _build
+
+    spec = importlib.util.spec_from_file_location("gen_wgmma",
+                                                  f"{_build.CSRC_DIR}/gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert open(f"{_build.CSRC_DIR}/wgmma.cuh").read() == gen.render()
+    assert set(range(32, 161, 32)) <= set(gen.SS_WIDTHS)
+    assert set(range(32, 257, 32)) <= set(gen.RS_WIDTHS)

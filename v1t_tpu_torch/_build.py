@@ -51,7 +51,9 @@ SIGNATURES = {
     "v1t_bilinear_sample_cm": [_P] * 3 + [_I] * 6 + [_P],
     "v1t_bilinear_sample_cm_bwd": [_P] * 5 + [_I] * 6 + [_P],
     "v1t_flash_attention": [_P] * 5 + [_I] * 12 + _DROP + [_P],
-    "v1t_flash_attention_bwd": [_P] * 12 + [_I] * 12 + _DROP + [_P],
+    "v1t_flash_attention_bwd": [_P] * 13 + [_I] * 12 + _DROP + [_P],
+    "v1t_flash_attention_smem": [_I],
+    "v1t_flash_attention_bwd_smem": [_I],
 }
 
 

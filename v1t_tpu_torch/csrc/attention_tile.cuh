@@ -1,6 +1,6 @@
-// The bf16 flash-attention forward tile loop, shared by attention.cu (the
-// fused sublayer's core, q in registers) and flash_attention.cu (the
-// composed path's flash kernel, q in shared memory).
+// The bf16 attention forward tile loop of attention.cu (the fused
+// sublayer's core, q in registers); the composed path's flash kernel
+// (flash_attention.cu) runs on wgmma instead.
 //
 // A block of 8 warps owns 128 query rows of one (batch, head); each warp owns
 // 16 of them and runs an online softmax over key tiles of 64. Key and value

@@ -18,10 +18,26 @@
 // (B, N, H, D) buffer: element (bh, row, d) at (bh / H) * o_batch +
 // (bh % H) * o_head + row * o_row + d.
 //
-// bf16: the tile loop of attention_tile.cuh (mma.sync m16n8k16, fp32
-// accumulation), shared with attention.cu; q comes from shared memory, so
-// that padded head widths up to 256 fit the registers (the 16 x DP fp32
-// output accumulator alone is DP / 2 registers a thread).
+// bf16: wgmma, warp-specialised (hopper.cuh), FlashAttention-3's design.
+// A block of three warpgroups owns 128 query rows. In warpgroup 0 one thread
+// starts TMA copies: the block's q panel once, then key and value tiles of
+// 64 (32 above DP 160) into a ring of 3 stages (2 above DP 192), each stage
+// an mbarrier that the copies complete and another that the consumers
+// release; the warpgroup gives up its registers (setmaxnreg 40 / 232).
+// Warpgroups 1 and 2 own 64 rows each: S = q k^T is wgmma m64n64k16 with q
+// and k from shared memory, o += P v is m64nDPk16 with P from registers.
+// The accumulator's layout is mma.sync m16n8's C fragment per warp, so the
+// online softmax's row shuffles and keep_frag_rows carry over. The pipeline
+// within a warpgroup: S of tile j + 1 and P_j v_j are issued together, and
+// tile j + 1's exp2 and Philox run while P_j v_j is on the tensor cores; o
+// is rescaled when no product is in flight. Only tiles that reach masked
+// keys (n_real_k, the LSA diagonal) mask element by element; elsewhere p =
+// 2^(s log2 e - m) is one FFMA and one ex2. TMA, not cp.async: 16-byte
+// cp.async copies from the loading warpgroup left the tensor cores waiting
+// on an H100; a TMA copy is one instruction a sub-tile. The tensor map's
+// encoder lives in libcuda and is reached through
+// cudaGetDriverEntryPointByVersion; the map travels as a __grid_constant__
+// parameter, its boxes one [rows][32] sub-tile in the 64-byte swizzle.
 // float32: FFMA on the CUDA cores, not TF32 (the fp32 model exists for
 // exact arithmetic). A block of 256 threads owns 64 query rows; key tiles of
 // 64. Thread (ty, tx) computes the scores of rows 4 ty .. 4 ty + 3 against
@@ -35,9 +51,14 @@
 // D 155, bf16) 5.77 TFLOP, ~5.8 ms of bf16 tensor-core time against 0.03 ms
 // of bytes; at the fp32 flagship (BH 256, N 1654) 0.434 TFLOP, 6.5 ms at
 // the 67 TFLOP/s fp32 rate. Bound by operations.
-// Not yet: wgmma, TMA, warp specialisation; the fp32 kernel's loads are not
-// double-buffered.
-#include "attention_tile.cuh"
+// The training kernel's keep mask (2.3e9 Philox draws at full resolution)
+// runs on the integer pipe of the consumer warps and hides only in part
+// behind the products; drawn in the loading warpgroup instead, it fell
+// behind the tensor cores (four warps of Philox against eight of softmax).
+// Taking turns between the two consumer warpgroups' products (named
+// barriers, FlashAttention-3's ping-pong) did not shorten it either. Not
+// yet: the fp32 kernel's loads are not double-buffered.
+#include "hopper.cuh"
 
 namespace {
 
@@ -46,55 +67,221 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED = -1e30f;
 
 // ---------------------------------------------------------------------------
-// bf16
+// bf16 (wgmma, warp-specialised)
+
+// A block of three warpgroups owns BQ = 128 query rows of one (batch, head):
+// warpgroup 0 loads, warpgroups 1 and 2 each own 64 of the rows.
+constexpr int BQ = 128, WG = 128, FWD_THREADS = 3 * WG;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 template <int DP>
+__host__ __device__ constexpr int fwd_bkv() { return DP <= 160 ? 64 : 32; }
+template <int DP>
+__host__ __device__ constexpr int fwd_stages() { return DP <= 192 ? 3 : 2; }
+
+// Q panel [BQ][DP], then per stage a K and a V panel [BKV][DP], then the
+// mbarriers; 1024 bytes of slack to align the base
+template <int DP>
 constexpr int bf16_smem_bytes() {
-  return attn_tile::BQ * (DP + 8) * (int)sizeof(bf16) + attn_tile::kv_smem_bytes<DP>();
+  return 1024 + (BQ + 2 * fwd_stages<DP>() * fwd_bkv<DP>()) * DP * (int)sizeof(bf16) +
+         (1 + 2 * fwd_stages<DP>()) * 8;
 }
 
 template <int DP, bool TRAIN>
-__global__ void __launch_bounds__(attn_tile::THREADS, 1) flash_fwd_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, int n_real, int D,
-    RowLayout ol, int lsa, Drop drop) {
-  using attn_tile::BQ;
-  using attn_tile::THREADS;
-  constexpr int LD = DP + 8, CHUNKS = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* Ks = Qs + BQ * LD;                       // [2][BKV][LD]
-  bf16* Vs = Ks + 2 * attn_tile::BKV * LD;       // [2][BKV][LD]
+__global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out, float* __restrict__ lse,
+    int Nq, int Nk, int n_real, int D, RowLayout ol, int lsa, Drop drop) {
+  using namespace hopper;
+  constexpr int BKV = fwd_bkv<DP>(), STAGES = fwd_stages<DP>();
+  constexpr int Q_BYTES = BQ * DP * 2, KV_BYTES = BKV * DP * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* Qs = base;
+  unsigned char* Ks = Qs + Q_BYTES;             // [STAGES] K panels
+  unsigned char* Vs = Ks + STAGES * KV_BYTES;   // [STAGES] V panels
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * KV_BYTES);
+  uint64_t* full = q_full + 1;                  // [STAGES] K and V landed
+  uint64_t* empty = full + STAGES;              // [STAGES] consumers done
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const bf16* qg = q + (size_t)bh * Nq * DP;
-  const bf16* kg = k + (size_t)bh * Nk * DP;
-  const bf16* vg = v + (size_t)bh * Nk * DP;
-
-  // the block's q rows (committed with the first key/value tile)
-  for (int i = tid; i < BQ * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = qt * BQ + r;
-    const bool valid = row < Nq;
-    cp_async16(Qs + r * LD + c, qg + (valid ? (size_t)row * DP + c : 0), valid);
+  const int wg = threadIdx.x / WG, qt = blockIdx.x, bh = blockIdx.y;
+  const int ntiles = (Nk + BKV - 1) / BKV;
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  attn_tile::load_kv_tile<DP>(kg, vg, Nk, 0, 0, Ks, Vs);
+  __syncthreads();
 
-  const int row0 = qt * BQ + warp * 16;
-  const bf16* qw = Qs + (warp * 16 + g) * LD + 2 * t;
-  float o[DP / 8][4], m0, m1, l0, l1;
-  attn_tile::softmax_pv<DP, TRAIN, true>(
-      [&](int kk, uint32_t a[4]) {
-        const bf16* p = qw + kk * 16;
-        a[0] = ld_pair(p);
-        a[1] = ld_pair(p + 8 * LD);
-        a[2] = ld_pair(p + 8);
-        a[3] = ld_pair(p + 8 * LD + 8);
-      },
-      kg, vg, Nk, n_real, row0, lsa, drop, (uint32_t)bh, Ks, Vs, o, m0, m1, l0, l1);
+  if (wg == 0) {  // producer: one thread starts the TMA copies of every tile
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      bar_expect(q_full, Q_BYTES);
+      tma_panel<DP>(Qs, &qmap, bh, qt * BQ, BQ, q_full);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) bar_wait(&empty[s], (uint32_t)((j / STAGES - 1) & 1));
+        bar_expect(&full[s], 2 * KV_BYTES);
+        tma_panel<DP>(Ks + s * KV_BYTES, &kmap, bh, j * BKV, BKV, &full[s]);
+        tma_panel<DP>(Vs + s * KV_BYTES, &vmap, bh, j * BKV, BKV, &full[s]);
+      }
+    }
+    return;
+  }
 
+  // consumers: warpgroup c owns rows 64 c .. 64 c + 63 of the block
+  regs_inc<CONSUMER_REGS>();
+  const int c = wg - 1, lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qt * BQ + 64 * c + 16 * warp;  // this warp's 16 rows
   const int r0 = row0 + g, r1 = r0 + 8;
+  const uint32_t q_s = smem_u32(Qs), k_s = smem_u32(Ks), v_s = smem_u32(Vs);
+
+  float o[DP / 2], s[BKV / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+
+  // S = q k^T of key tile j into s (asynchronous; one commit group)
+  auto issue_s = [&](int j) {
+    const int st = j % STAGES;
+    bar_wait(&full[st], (uint32_t)((j / STAGES) & 1));
+    fence_regs(s);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma::Mma<BKV>::template ss<0, 0>(s, desc_k(q_s, BQ, 64 * c, kk),
+                                         desc_k(k_s + st * KV_BYTES, BKV, 0, kk), kk > 0);
+    mma_commit();
+  };
+
+  // the online softmax of tile j's scores (complete in s): the new running
+  // max and sum, P into pf as bf16 A fragments; returns the rescale of o
+  auto softmax = [&](int j, uint32_t (&pf)[BKV / 16][4], float& a0, float& a1) {
+    fence_regs(s);
+    // only a tile that holds keys at or past n_real, or the block's
+    // diagonal under LSA, is masked element by element (a uniform branch);
+    // its scores go to log2 units first, as the plain version masks them
+    const bool edge = (j + 1) * BKV > n_real ||
+                      (lsa && j * BKV < qt * BQ + BQ && (j + 1) * BKV > qt * BQ);
+    float scale = LOG2E;  // p = 2^(s scale - m) in one FFMA
+    if (edge) {
+      scale = 1.f;
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * BKV + ni * 8 + 2 * t + (e & 1);
+          const bool masked = key >= n_real || (lsa && key == ((e >> 1) ? r1 : r0));
+          s[4 * ni + e] = masked ? MASKED : s[4 * ni + e] * LOG2E;
+        }
+    }
+    float mx0 = s[0], mx1 = s[2];
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * ni + 0], s[4 * ni + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * ni + 2], s[4 * ni + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0 * scale);
+    mx1 = fmaxf(m1, mx1 * scale);
+    a0 = ex2(m0 - mx0);
+    a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      float p00 = ex2(fmaf(s[4 * ni + 0], scale, -m0)), p01 = ex2(fmaf(s[4 * ni + 1], scale, -m0));
+      float p10 = ex2(fmaf(s[4 * ni + 2], scale, -m1)), p11 = ex2(fmaf(s[4 * ni + 3], scale, -m1));
+      l0 += p00 + p01;
+      l1 += p10 + p11;
+      if (TRAIN && drop.on()) {  // select only: 1/keep folds into 1/l
+        bool keep[4];
+        keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);
+        p00 = keep[0] ? p00 : 0.f;
+        p01 = keep[1] ? p01 : 0.f;
+        p10 = keep[2] ? p10 : 0.f;
+        p11 = keep[3] ? p11 : 0.f;
+      }
+      // two adjacent 8-key C tiles form one 16-key A fragment
+      pf[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(p00, p01);
+      pf[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(p10, p11);
+    }
+  };
+
+  // FlashAttention-3's intra-warpgroup pipeline: S of tile j + 1 and o +=
+  // P_j v_j are issued together, and tile j + 1's softmax (exp2, Philox)
+  // runs while P_j v_j is on the tensor cores; o is rescaled only when no
+  // product is in flight. The last tile has no successor and its own step,
+  // so that every wait retires a known commit group.
+  auto pv = [&](int j, uint32_t (&pf)[BKV / 16][4]) {
+    fence_regs(o);
+    mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks)
+      wgmma::Mma<DP>::template rs<1>(o, pf[ks],
+                                     desc_mn(v_s + (j % STAGES) * KV_BYTES, BKV, 0, ks), 1);
+    mma_commit();
+  };
+  auto step = [&](int j, uint32_t (&pf)[BKV / 16][4], uint32_t (&pf_next)[BKV / 16][4]) {
+    issue_s(j + 1);
+    pv(j, pf);
+    mma_wait<1>();
+    float a0, a1;
+    softmax(j + 1, pf_next, a0, a1);
+    mma_wait<0>();
+    fence_regs(o);
+    fence_frags(pf);
+    bar_arrive(&empty[j % STAGES]);
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      o[4 * i + 0] *= a0;
+      o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1;
+      o[4 * i + 3] *= a1;
+    }
+  };
+  auto last = [&](int j, uint32_t (&pf)[BKV / 16][4]) {
+    pv(j, pf);
+    mma_wait<0>();
+    fence_regs(o);
+    fence_frags(pf);
+  };
+
+  uint32_t pa[BKV / 16][4], pb[BKV / 16][4];
+  bar_wait(q_full, 0u);
+  issue_s(0);
+  mma_wait<0>();
+  {
+    float a0, a1;
+    softmax(0, pa, a0, a1);
+  }
+  int j = 0;
+  for (; j + 2 < ntiles; j += 2) {
+    step(j, pa, pb);
+    step(j + 1, pb, pa);
+  }
+  if (j + 1 < ntiles) {
+    step(j, pa, pb);
+    last(j + 1, pb);
+  } else {
+    last(j, pa);
+  }
+
+  // the four lanes of a quad hold partial sums of the same rows
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
   float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
   if (TRAIN && drop.on()) {
@@ -107,13 +294,13 @@ __global__ void __launch_bounds__(attn_tile::THREADS, 1) flash_fwd_bf16_kernel(
     if (r1 < Nq) lrow[r1] = (m1 + log2f(fmaxf(l1, 1e-37f))) * LN2;
   }
 #pragma unroll
-  for (int di = 0; di < DP / 8; ++di)
+  for (int i = 0; i < DP / 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = (j >> 1) ? r1 : r0;
-      const int col = di * 8 + 2 * t + (j & 1);
+    for (int e = 0; e < 4; ++e) {
+      const int row = (e >> 1) ? r1 : r0;
+      const int col = i * 8 + 2 * t + (e & 1);
       if (row < Nq && col < D)
-        out[ol.at(bh, row) + col] = __float2bfloat16_rn(o[di][j] * ((j >> 1) ? inv1 : inv0));
+        out[ol.at(bh, row) + col] = __float2bfloat16_rn(o[4 * i + e] * ((e >> 1) ? inv1 : inv0));
     }
 }
 
@@ -281,13 +468,18 @@ int launch_dp(bool f32, const void* q, const void* k, const void* v, void* out, 
         n_real, D, ol, lsa, drop);
   } else {
     constexpr int bytes = bf16_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP, TRAIN>,
+    CUtensorMap qmap, kmap, vmap;
+    int rc;
+    if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, BQ)) != 0 ||
+        (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, fwd_bkv<DP>())) != 0 ||
+        (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, fwd_bkv<DP>())) != 0)
+      return rc;
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP, TRAIN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_bf16_kernel<DP, TRAIN>
-        <<<dim3((Nq + attn_tile::BQ - 1) / attn_tile::BQ, BH), attn_tile::THREADS, bytes,
-           stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse,
-                     Nq, Nk, n_real, D, ol, lsa, drop);
+    flash_fwd_wgmma_kernel<DP, TRAIN><<<dim3((Nq + BQ - 1) / BQ, BH), FWD_THREADS, bytes,
+                                        stream>>>(qmap, kmap, vmap, (bf16*)out, (float*)lse, Nq,
+                                                  Nk, n_real, D, ol, lsa, drop);
   }
   return (int)cudaGetLastError();
 }
@@ -335,5 +527,21 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
     case 224: return launch<224>(f, train, q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     case 256: return launch<256>(f, train, q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of a block of the bf16 kernel at padded head width
+// dp (0 for a width it is not built for).
+extern "C" int v1t_flash_attention_smem(int dp) {
+  switch (dp) {
+    case 32: return bf16_smem_bytes<32>();
+    case 64: return bf16_smem_bytes<64>();
+    case 96: return bf16_smem_bytes<96>();
+    case 128: return bf16_smem_bytes<128>();
+    case 160: return bf16_smem_bytes<160>();
+    case 192: return bf16_smem_bytes<192>();
+    case 224: return bf16_smem_bytes<224>();
+    case 256: return bf16_smem_bytes<256>();
+    default: return 0;
   }
 }

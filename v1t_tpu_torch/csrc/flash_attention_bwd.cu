@@ -17,20 +17,38 @@
 // PyTorch's autograd of q * scale, as through XLA's in JAX). Keys at or past
 // n_real_k and, with lsa, the diagonal are masked; Nq != Nk is allowed.
 //
-// Three kernels, one launch each, as attention_bwd.cu:
+// bf16 at DP <= 160: one pass, the design of the TPU's _merged_bwd_kernel
+// and of FlashAttention-3, on wgmma (hopper.cuh), between two small kernels:
 // 1. prep: delta per (bh, row) and dO copied from o's strided layout into a
 //    head-major (BH, Nq, DP) one, zero-padded from D to DP, so that the main
-//    kernels stream it like q.
-// 2. dq: a block owns a tile of query rows and loops over key tiles.
-// 3. dkdv: a block owns a tile of keys and loops over query tiles.
-// bf16 (mma.sync m16n8k16, the design of attention_bwd.cu): dq by 8 warps of
-// 16 rows, q and dO rows in shared memory (not registers, so that padded
-// head widths up to 256 fit), key tiles of 64 (32 above DP 160);
-// dkdv by 4 pairs of warps over 16 keys each, the P warp computing S^T, P^T
-// and the keep mask and handing P^T over through shared memory (the keep
-// bit as its sign), the dS warp dP^T and dS^T; dv in the P warp, dk in the
-// dS warp; query tiles of 64 (32 above DP 160). 7 N^2 products where 5
-// suffice (S and dP are recomputed in dq).
+//    kernel streams it like q; the float32 dq accumulator is zeroed.
+// 2. one pass: a block of two warpgroups owns 128 keys and loops over query
+//    tiles of 64. One thread starts TMA copies of the block's K and V panels
+//    once and of the tiles' q and dO into a 2-stage ring (mbarriers), 64
+//    threads copy lse and delta with cp.async. Warpgroup c owns keys 64 c ..
+//    64 c + 63: S = q k^T and dP = dO v^T with the tile's queries as wgmma's
+//    M (m64nSKk16, both operands in shared memory, SK = 32 keys at a time
+//    from DP 128 on, else 64), so that the keep mask maps onto the accumulator as in
+//    the forward: one Philox draw per element per backward. Z P and dS = P
+//    (Z dP - delta) go to shared memory as bf16, the A operands (read
+//    transposed) of dV += (Z P)^T dO and dK += dS^T q (m64nDPk16,
+//    accumulators in registers: DP fp32 a thread); then dq = dS k over the
+//    block's 128 keys, the DP columns split between the two warpgroups at a
+//    32-column boundary, added to the float32 accumulator four columns an
+//    atomic. Five N^2 products. No producer warpgroup: its registers
+//    (setmaxnreg) would leave the consumers fewer than the 255 a thread of a
+//    256-thread block has, and dK, dV, S and dP need ~200.
+// 3. convert: the accumulator rounded to bf16 into dq. The key blocks add
+//    into it in no fixed order, so dq's float32 sums, and on rare ties its
+//    bf16 rounding, may differ from run to run.
+// bf16 at DP 192-256: dK and dV of 64 keys would take 192-256 fp32
+// registers a thread beside S and dP, so these widths keep two passes on
+// mma.sync m16n8k16 (the design of attention_bwd.cu): dq by 8
+// warps of 16 rows with q and dO in shared memory, key tiles of 32; dkdv by
+// 4 pairs of warps over 16 keys each, the P warp computing S^T, P^T and the
+// keep mask and handing P^T over through shared memory (the keep bit as its
+// sign), the dS warp dP^T and dS^T; query tiles of 32. 7 N^2 products.
+// The dispatch on DP is the wrapper's (ops/flash_attention.py bwd_plan).
 // float32 (FFMA, not TF32): dq by 256 threads over 64 rows, thread (ty, tx)
 // owning rows 4 ty .. 4 ty + 3 and keys 2 tx, 2 tx + 1 of a 32-key tile for
 // S and dP, then dq at columns tx + 16 j through dS^T in shared memory;
@@ -41,8 +59,12 @@
 // at the full-resolution shape (BH 8, N 34,114, D 155) = 14.6 ms of bf16
 // tensor-core time; 1.09 TFLOP at the fp32 flagship (BH 256, N 1654) = 16.2
 // ms at the fp32 rate. Bound by operations.
-// Not yet: wgmma, TMA, one pass for dq/dk/dv.
-#include "common.cuh"
+// Not yet: dq's partial sums go out as atomics, not as TMA's bulk
+// reduce-add (its staging tile does not fit beside the panels at DP 160);
+// the one pass's products and its P / dS arithmetic do not overlap within a
+// warpgroup.
+#include "hopper.cuh"
+
 
 namespace {
 
@@ -71,19 +93,254 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_prep_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16
+// bf16, DP <= 160: one pass on wgmma (hopper.cuh)
+
+constexpr int ONE_PASS_MAX_DP = 160;
+constexpr int KB = 128, QB = 64, BWG = 128, BWD_THREADS = 2 * BWG, BWD_STAGES = 2;
+
+// dq's columns per consumer warpgroup: the first half of the DP / 32
+// sub-tiles (rounded up) for the first, as many from there for the second;
+// the two issue one product shape (a warpgroup-dependent shape would
+// serialize the products), and columns at or past DP are computed from the
+// next panel's bytes and dropped
+template <int DP>
+__host__ __device__ constexpr int dq_cols() { return 32 * ((DP / 32 + 1) / 2); }
+
+// keys of one S / dP product: from DP 128 on, dK and dV take DP fp32
+// registers a thread, and S and dP of 64 keys (64 more) spill
+template <int DP>
+__host__ __device__ constexpr int sdp_keys() { return DP >= 128 ? 32 : 64; }
+
+// K and V panels [KB][DP]; per stage q and dO panels [QB][DP] and the
+// tile's lse and delta rows; P and dS panels [QB][KB]; the mbarriers
+template <int DP>
+constexpr int one_pass_smem_bytes() {
+  return 1024 + 2 * KB * DP * 2 + BWD_STAGES * (2 * QB * DP * 2 + 2 * QB * 4) +
+         2 * QB * KB * 2 + (1 + BWD_STAGES) * 8;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq_acc,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Nq, int Nk, int n_real, int D, int lsa,
+    Drop drop) {
+  using namespace hopper;
+  constexpr int KV_BYTES = KB * DP * 2, QP_BYTES = QB * DP * 2, PS_BYTES = QB * KB * 2;
+  constexpr int DQC = dq_cols<DP>(), SK = sdp_keys<DP>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* Ks = base;
+  unsigned char* Vs = Ks + KV_BYTES;
+  unsigned char* Qs = Vs + KV_BYTES;                  // [STAGES] q panels
+  unsigned char* dOs = Qs + BWD_STAGES * QP_BYTES;    // [STAGES] dO panels
+  unsigned char* Ps = dOs + BWD_STAGES * QP_BYTES;    // (Z P) [QB][KB]
+  unsigned char* dSs = Ps + PS_BYTES;                 // dS [QB][KB]
+  float* Ls = reinterpret_cast<float*>(dSs + PS_BYTES);  // [STAGES][QB] lse
+  float* Dl = Ls + BWD_STAGES * QB;                      // [STAGES][QB] delta
+
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Dl + BWD_STAGES * QB);
+  uint64_t* full = kv_full + 1;  // [STAGES] q and dO landed
+
+  const int tid = threadIdx.x, kb = blockIdx.x, bh = blockIdx.y;
+  const int ntiles = (Nq + QB - 1) / QB;
+  const float* lrow = lse + (size_t)bh * Nq;
+  const float* drow = delta + (size_t)bh * Nq;
+  // thread 0 starts the TMA copies of a query tile's q and dO panels, 64
+  // threads copy its lse and delta rows with cp.async; the copies of tile
+  // it + 1 run while tile it is computed
+  auto load_tile = [&](int it) {
+    const int s = it % BWD_STAGES;
+    if (tid == 0) {
+      bar_expect(&full[s], 2 * QP_BYTES);
+      tma_panel<DP>(Qs + s * QP_BYTES, &qmap, bh, it * QB, QB, &full[s]);
+      tma_panel<DP>(dOs + s * QP_BYTES, &dmap, bh, it * QB, QB, &full[s]);
+    }
+    if (tid < QB) {
+      const int row = it * QB + tid;
+      cp_async4(Ls + s * QB + tid, lrow + (row < Nq ? row : 0), row < Nq);
+      cp_async4(Dl + s * QB + tid, drow + (row < Nq ? row : 0), row < Nq);
+    }
+    cp_async_commit();
+  };
+  if (tid == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) bar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    bar_expect(kv_full, 2 * KV_BYTES);
+    tma_panel<DP>(Ks, &kmap, bh, kb * KB, KB, kv_full);
+    tma_panel<DP>(Vs, &vmap, bh, kb * KB, KB, kv_full);
+  }
+  load_tile(0);
+
+  // warpgroup c owns keys 64 c .. 64 c + 63 of the block for S, dP, dK and
+  // dV, and dq's columns DQC c .. DQC c + DQC - 1 (those below DP) of every
+  // query tile
+  const int c = tid / BWG, lane = tid & 31, warp = (tid / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int kcol0 = 64 * c;  // the warpgroup's keys within the block
+  const uint32_t k_s = smem_u32(Ks), v_s = smem_u32(Vs), q_s = smem_u32(Qs),
+                 do_s = smem_u32(dOs), p_s = smem_u32(Ps), ds_s = smem_u32(dSs);
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  bar_wait(kv_full, 0u);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % BWD_STAGES;
+    cp_async_wait<0>();
+    bar_wait(&full[st], (uint32_t)((it / BWD_STAGES) & 1));
+    // tile it has landed, and every thread is done with tile it - 1 (its
+    // stage, P and dS)
+    __syncthreads();
+    if (it + 1 < ntiles) load_tile(it + 1);
+    const uint32_t qt_s = q_s + st * QP_BYTES, dot_s = do_s + st * QP_BYTES;
+    const int lr0 = 16 * warp + g, lr1 = lr0 + 8;  // accumulator rows within the tile
+    const int r0 = it * QB + lr0, r1 = it * QB + lr1;
+    const float lse0 = Ls[st * QB + lr0] * LOG2E, lse1 = Ls[st * QB + lr1] * LOG2E;
+    const float del0 = Dl[st * QB + lr0], del1 = Dl[st * QB + lr1];
+
+    // S = q k^T and dP = dO v^T for the tile's 64 queries x SK of the
+    // group's keys at a time; P and dS from them, the keep mask drawn once
+    // per element (rows are queries, as in the forward)
+#pragma unroll 1
+    for (int h = 0; h < 64 / SK; ++h) {
+      const int key0 = kcol0 + h * SK;  // within the block
+      float s[SK / 2], dp[SK / 2];
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma::Mma<SK>::template ss<0, 0>(s, desc_k(qt_s, QB, 0, kk), desc_k(k_s, KB, key0, kk),
+                                          kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma::Mma<SK>::template ss<0, 0>(dp, desc_k(dot_s, QB, 0, kk),
+                                          desc_k(v_s, KB, key0, kk), kk > 0);
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // only a tile that reaches keys at or past n_real, queries at or past
+      // Nq, or the diagonal under LSA is masked element by element
+      const int kbase = kb * KB + key0, qbase = it * QB;
+      const bool edge = kbase + SK > n_real || qbase + QB > Nq ||
+                        (lsa && kbase < qbase + QB && kbase + SK > qbase);
+#pragma unroll
+      for (int ni = 0; ni < SK / 8; ++ni) {
+        bool keep[4] = {true, true, true, true};
+        if (drop.on())
+          keep_frag_rows(drop, (uint32_t)bh, qbase + 16 * warp, kbase + ni * 8, lane, keep);
+        float pk[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[4 * ni + e], LOG2E, -((e >> 1) ? lse1 : lse0)));
+          if (edge) {
+            const int key = kbase + ni * 8 + 2 * t + (e & 1), row = (e >> 1) ? r1 : r0;
+            if (key >= n_real || row >= Nq || (lsa && key == row)) p = 0.f;
+          }
+          const float z = drop.on() ? (keep[e] ? drop.scale : 0.f) : 1.f;
+          ds[e] = p * (z * dp[4 * ni + e] - ((e >> 1) ? del1 : del0));
+          pk[e] = keep[e] ? p : 0.f;  // the 1/keep scale is applied to dv at the end
+        }
+        const int col = key0 + ni * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(Ps + elem_at(QB, lr0, col)) = pack_bf16(pk[0], pk[1]);
+        *reinterpret_cast<uint32_t*>(Ps + elem_at(QB, lr1, col)) = pack_bf16(pk[2], pk[3]);
+        *reinterpret_cast<uint32_t*>(dSs + elem_at(QB, lr0, col)) = pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(dSs + elem_at(QB, lr1, col)) = pack_bf16(ds[2], ds[3]);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();  // the whole tile's P and dS are in shared memory
+
+    // dv += (Z P)^T dO, dk += dS^T q (M = the group's keys, K = the tile's
+    // queries), dq[:, cols] = dS k (M = queries, K = the block's 128 keys)
+    float dq[DQC / 2];
+    mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < QB / 16; ++ks)
+      wgmma::Mma<DP>::template ss<1, 1>(dv_acc, desc_mn(p_s, QB, kcol0 / 32, ks),
+                                        desc_mn(dot_s, QB, 0, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < QB / 16; ++ks)
+      wgmma::Mma<DP>::template ss<1, 1>(dk_acc, desc_mn(ds_s, QB, kcol0 / 32, ks),
+                                        desc_mn(qt_s, QB, 0, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < KB / 16; ++ks)
+      wgmma::Mma<DQC>::template ss<0, 1>(dq, desc_k(ds_s, QB, 0, ks),
+                                         desc_mn(k_s, KB, c * DQC / 32, ks), ks > 0);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+
+    // dq's partial sums into the float32 accumulator, four columns an
+    // atomic: lanes t and t ^ 1 swap halves so that an even lane holds
+    // (row g, columns 2t .. 2t + 3) and an odd one (row g + 8, columns
+    // 2t - 2 .. 2t + 1). The key blocks add in no fixed order. Columns D ..
+    // DP - 1 add zeros (k is zero there); columns past DP are dropped.
+    const int odd = t & 1, col0 = c * DQC + 2 * (t - odd);
+    const int row = odd ? r1 : r0;
+    float* acc_row = dq_acc + ((size_t)bh * Nq + row) * DP + col0;
+#pragma unroll
+    for (int i = 0; i < DQC / 8; ++i) {
+      const float send0 = odd ? dq[4 * i + 0] : dq[4 * i + 2];
+      const float send1 = odd ? dq[4 * i + 1] : dq[4 * i + 3];
+      const float got0 = __shfl_xor_sync(0xffffffffu, send0, 1);
+      const float got1 = __shfl_xor_sync(0xffffffffu, send1, 1);
+      const float4 add = odd ? make_float4(got0, got1, dq[4 * i + 2], dq[4 * i + 3])
+                             : make_float4(dq[4 * i + 0], dq[4 * i + 1], got0, got1);
+      if (row < Nq && col0 + 8 * i < DP)
+        atomicAdd(reinterpret_cast<float4*>(acc_row + 8 * i), add);
+    }
+  }
+
+  // dk and dv of the group's 64 keys: accumulator rows are keys
+  const float dv_scale = drop.on() ? drop.scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kb * KB + kcol0 + 16 * warp + g + 8 * (e >> 1);
+      const int col = 8 * i + 2 * t + (e & 1);
+      if (key < Nk) {
+        const size_t at = ((size_t)bh * Nk + key) * DP + col;
+        dk[at] = __float2bfloat16_rn(col < D ? dk_acc[4 * i + e] : 0.f);
+        dv[at] = __float2bfloat16_rn(col < D ? dv_acc[4 * i + e] * dv_scale : 0.f);
+      }
+    }
+}
+
+// dq = the float32 accumulator rounded to bf16 (zero past D: never added to)
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_convert_kernel(
+    const float4* __restrict__ acc, bf16* __restrict__ dq, long long n4) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n4) return;
+  const float4 x = acc[i];
+  uint2 packed;
+  packed.x = pack_bf16(x.x, x.y);
+  packed.y = pack_bf16(x.z, x.w);
+  reinterpret_cast<uint2*>(dq)[i] = packed;
+}
+
+// ---------------------------------------------------------------------------
+// bf16, DP 192-256: two passes on mma.sync (dq, then dk and dv), where the
+// one pass's dK and dV accumulators (DP fp32 registers a thread) do not fit
 
 constexpr int BQ = 128;  // dq: query rows per block
 constexpr int CK = 64;   // dkdv: keys per block
 
-template <int DP>
-__host__ __device__ constexpr int dq_bkv() { return DP <= 160 ? 64 : 32; }
-template <int DP>
-__host__ __device__ constexpr int kv_cq() { return DP <= 160 ? 64 : 32; }
+constexpr int DQ_BKV = 32;  // dq: keys per tile
+constexpr int KV_CQ = 32;   // dkdv: queries per tile
 
 template <int DP>
 constexpr int dq_smem_bytes() {
-  return (2 * BQ + 2 * 2 * dq_bkv<DP>()) * (DP + 8) * (int)sizeof(bf16);
+  return (2 * BQ + 2 * 2 * DQ_BKV) * (DP + 8) * (int)sizeof(bf16);
 }
 
 template <int DP>
@@ -92,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
     const bf16* __restrict__ dohm, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq, int Nq, int Nk, int n_real, int D,
     int lsa, Drop drop) {
-  constexpr int BKV = dq_bkv<DP>(), LD = DP + 8, CHUNKS = DP / 8;
+  constexpr int BKV = DQ_BKV, LD = DP + 8, CHUNKS = DP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
   bf16* dOs = Qs + BQ * LD;                      // [BQ][LD]
@@ -224,8 +481,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
 
 template <int DP>
 constexpr int dkdv_smem_bytes() {
-  return (2 * CK + 2 * 2 * kv_cq<DP>()) * (DP + 8) * (int)sizeof(bf16) +
-         (2 * 2 * kv_cq<DP>() + CK * (kv_cq<DP>() + 4)) * (int)sizeof(float);
+  return (2 * CK + 2 * 2 * KV_CQ) * (DP + 8) * (int)sizeof(bf16) +
+         (2 * 2 * KV_CQ + CK * (KV_CQ + 4)) * (int)sizeof(float);
 }
 
 template <int DP>
@@ -234,7 +491,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
     const bf16* __restrict__ dohm, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Nq,
     int Nk, int n_real, int D, int lsa, Drop drop) {
-  constexpr int CQ = kv_cq<DP>(), LD = DP + 8, CHUNKS = DP / 8, PLD = CQ + 4;
+  constexpr int CQ = KV_CQ, LD = DP + 8, CHUNKS = DP / 8, PLD = CQ + 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [CK][LD]
   bf16* Vs = Ks + CK * LD;                        // [CK][LD]
@@ -659,8 +916,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_f32_kernel(
 template <int DP>
 int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, const void* dlse, void* dq, void* dk, void* dv,
-           void* dohm, void* delta, int BH, int Nq, int Nk, int n_real, int D, RowLayout ol,
-           int lsa, Drop drop, cudaStream_t stream) {
+           void* dohm, void* delta, void* dq_acc, int BH, int Nq, int Nk, int n_real, int D,
+           RowLayout ol, int lsa, Drop drop, cudaStream_t stream) {
   const long long rows = (long long)BH * Nq;
   const unsigned prep_blocks = (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
   cudaError_t err;
@@ -690,22 +947,47 @@ int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
       (const bf16*)o, (const bf16*)dout, (const float*)dlse, (bf16*)dohm, (float*)delta, BH, Nq,
       D, DP, ol);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  constexpr int dq_bytes = dq_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DP><<<dim3((Nq + BQ - 1) / BQ, BH), THREADS, dq_bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dohm, (const float*)lse,
-      (const float*)delta, (bf16*)dq, Nq, Nk, n_real, D, lsa, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  constexpr int kv_bytes = dkdv_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<DP><<<dim3((Nk + CK - 1) / CK, BH), THREADS, kv_bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dohm, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, Nq, Nk, n_real, D, lsa, drop);
-  return (int)cudaGetLastError();
+  if constexpr (DP <= ONE_PASS_MAX_DP) {
+    if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
+    const long long n4 = rows * DP / 4;
+    err = cudaMemsetAsync(dq_acc, 0, (size_t)n4 * 16, stream);
+    if (err != cudaSuccess) return (int)err;
+    constexpr int bytes = one_pass_smem_bytes<DP>();
+    err = cudaFuncSetAttribute(flash_bwd_one_pass_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap qmap, kmap, vmap, dmap;
+    int rc;
+    if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, QB)) != 0 ||
+        (rc = hopper::make_panel_map(&dmap, dohm, BH, Nq, DP, QB)) != 0 ||
+        (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, KB)) != 0 ||
+        (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, KB)) != 0)
+      return rc;
+    flash_bwd_one_pass_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), BWD_THREADS, bytes, stream>>>(
+        qmap, kmap, vmap, dmap, (const float*)lse, (const float*)delta, (float*)dq_acc,
+        (bf16*)dk, (bf16*)dv, Nq, Nk, n_real, D, lsa, drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    flash_bwd_dq_convert_kernel<<<(unsigned)((n4 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+        (const float4*)dq_acc, (bf16*)dq, n4);
+    return (int)cudaGetLastError();
+  } else {
+    constexpr int dq_bytes = dq_smem_bytes<DP>();
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<DP><<<dim3((Nq + BQ - 1) / BQ, BH), THREADS, dq_bytes, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dohm, (const float*)lse,
+        (const float*)delta, (bf16*)dq, Nq, Nk, n_real, D, lsa, drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    constexpr int kv_bytes = dkdv_smem_bytes<DP>();
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_kernel<DP><<<dim3((Nk + CK - 1) / CK, BH), THREADS, kv_bytes, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dohm, (const float*)lse,
+        (const float*)delta, (bf16*)dk, (bf16*)dv, Nq, Nk, n_real, D, lsa, drop);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -716,16 +998,17 @@ int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
 // o_batch + (bh % H) * o_head + row * o_row + d, d < D, in the same dtype;
 // lse (BH, Nq) float32 natural log from the forward; dlse (BH, Nq) float32
 // or null. Writes dq (BH, Nq, DP), dk and dv (BH, Nk, DP), zero past D.
-// dohm (BH, Nq, DP) in the dtype and delta (BH, Nq) float32 are scratch.
+// dohm (BH, Nq, DP) in the dtype and delta (BH, Nq) float32 are scratch,
+// and dq_acc (BH, Nq, DP) float32 for bf16 at DP <= 160 (null otherwise).
 // threshold > 0 regenerates the forward's keep mask of (seed, site).
 extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        const void* dlse, void* dq, void* dk, void* dv,
-                                       void* dohm, void* delta, int BH, int Nq, int Nk,
-                                       int n_real_k, int D, int DP, int H, int o_batch,
-                                       int o_head, int o_row, int f32, int lsa, unsigned seed,
-                                       unsigned site, unsigned threshold, float drop_scale,
-                                       void* stream) {
+                                       void* dohm, void* delta, void* dq_acc, int BH,
+                                       int Nq, int Nk, int n_real_k, int D, int DP, int H,
+                                       int o_batch, int o_head, int o_row, int f32, int lsa,
+                                       unsigned seed, unsigned site, unsigned threshold,
+                                       float drop_scale, void* stream) {
   if (BH < 1 || BH > 65535 || H < 1 || D > DP || n_real_k > Nk || Nq < 1 || Nk < 1)
     return (int)cudaErrorInvalidValue;
   const Drop drop{seed, site, threshold, drop_scale};
@@ -733,14 +1016,40 @@ extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void*
   cudaStream_t s = (cudaStream_t)stream;
   const bool f = f32 != 0;
   switch (DP) {
-    case 32: return launch<32>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 64: return launch<64>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 96: return launch<96>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 128: return launch<128>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 160: return launch<160>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 192: return launch<192>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 224: return launch<224>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 256: return launch<256>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 32: return launch<32>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 64: return launch<64>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 96: return launch<96>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 128: return launch<128>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 160: return launch<160>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 192: return launch<192>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 224: return launch<224>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 256: return launch<256>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+namespace {
+template <int DP>
+int bf16_bwd_smem() {
+  if constexpr (DP <= ONE_PASS_MAX_DP) return one_pass_smem_bytes<DP>();
+  else return dq_smem_bytes<DP>() > dkdv_smem_bytes<DP>() ? dq_smem_bytes<DP>()
+                                                           : dkdv_smem_bytes<DP>();
+}
+}  // namespace
+
+// Dynamic shared memory of a block of the bf16 backward's main kernel (the
+// larger of dq and dkdv above ONE_PASS_MAX_DP) at padded head width dp (0
+// for a width it is not built for).
+extern "C" int v1t_flash_attention_bwd_smem(int dp) {
+  switch (dp) {
+    case 32: return bf16_bwd_smem<32>();
+    case 64: return bf16_bwd_smem<64>();
+    case 96: return bf16_bwd_smem<96>();
+    case 128: return bf16_bwd_smem<128>();
+    case 160: return bf16_bwd_smem<160>();
+    case 192: return bf16_bwd_smem<192>();
+    case 224: return bf16_bwd_smem<224>();
+    case 256: return bf16_bwd_smem<256>();
+    default: return 0;
   }
 }

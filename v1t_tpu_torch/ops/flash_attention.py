@@ -16,7 +16,10 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   ``o`` is written as a (B, Nq, H, D) buffer, so that the heads' concat
   before the output projection is a view. The forward returns the
   natural-log LSE (B*H, Nq); the backward folds the LSE's cotangent into
-  delta = rowsum(dO . o) - dlse, as the JAX backward does.
+  delta = rowsum(dO . o) - dlse, as the JAX backward does. ``bwd_plan``
+  says which backward kernels run: in bf16 up to ``ONE_PASS_MAX_DP`` one
+  wgmma pass that adds dq into a float32 accumulator, above it dq and dkdv
+  passes.
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -48,6 +51,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 MASKED = -1e30  # the kernels' masked score (log2 units)
 MAX_HEAD_PAD = 256  # padded head widths the kernels are built for: 32, 64, ..., 256
+ONE_PASS_MAX_DP = 160  # bf16 backward: one wgmma pass up to here, two mma.sync passes above
 PLAIN_CHUNK_ELEMENTS = 1 << 26  # the plain versions' (B*H, chunk, Nk) float32 scores
 
 
@@ -185,6 +189,25 @@ def _check_bwd(q: Tensor, o: Tensor, do: Tensor, lse: Tensor, dlse: t.Optional[T
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(x.shape)} {x.dtype}")
 
 
+class BwdPlan(t.NamedTuple):
+    kernels: t.Tuple[str, ...]  # the launches of one flash_bwd call, in order
+    dq_acc: t.Optional[t.Tuple[int, int, int]]  # float32 scratch shape, or None
+
+
+def bwd_plan(dtype: torch.dtype, bh: int, nq: int, dp: int) -> BwdPlan:
+    """Which kernels ``flash_bwd`` launches for these operands, and the
+    float32 dq accumulator it allocates: bf16 at DP <= ``ONE_PASS_MAX_DP``
+    takes the one-pass wgmma kernel, which adds dq's partial sums into a
+    (BH, Nq, DP) float32 buffer that a last kernel rounds to bf16; bf16 above
+    it (dK and dV would not fit the registers) and float32 take dq and dkdv
+    passes. The same rule is compiled into ``csrc/flash_attention_bwd.cu``."""
+    if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
+        raise ValueError(f"flash_attention_bwd: padded head width {dp}")
+    if dtype == torch.bfloat16 and dp <= ONE_PASS_MAX_DP:
+        return BwdPlan(("prep", "one_pass", "dq_convert"), (bh, nq, dp))
+    return BwdPlan(("prep", "dq", "dkdv"), None)
+
+
 def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tensor,
                     head_dim: int, heads: int = 1, *, dlse: t.Optional[Tensor] = None,
                     n_real_k: t.Optional[int] = None, use_lsa: bool = False,
@@ -261,13 +284,16 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tenso
     elif any(not x.is_contiguous() or x.dtype != dt or x.shape != y.shape
              for x, y in zip(out, (q, k, v))):
         raise ValueError("flash_attention_bwd: out is not three contiguous tensors like q, k, v")
+    plan = bwd_plan(dt, bh, nq, dp)
     dohm = torch.empty_like(q)  # scratch: dO head-major
     delta = torch.empty((bh, nq), dtype=f32, device=q.device)
+    dq_acc = None if plan.dq_acc is None else torch.empty(plan.dq_acc, dtype=f32,
+                                                           device=q.device)
     rc = _build.library().v1t_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), _build.ptr(dlse), out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), dohm.data_ptr(), delta.data_ptr(), bh, nq, nk, n_real_k,
-        head_dim, dp, heads, o.stride(0), o.stride(2), o.stride(1),
+        out[2].data_ptr(), dohm.data_ptr(), delta.data_ptr(), _build.ptr(dq_acc), bh, nq, nk,
+        n_real_k, head_dim, dp, heads, o.stride(0), o.stride(2), o.stride(1),
         int(dt == torch.float32), int(use_lsa), *drop_args(drop), _build.stream_of(q),
     )
     _build.check_launch("flash_attention_bwd", rc)
