@@ -15,6 +15,10 @@ Phases, one line each as they go:
    the same function, and the least time the card could take (bytes at
    3.35 TB/s or operations at the peak rate of their type, whichever is
    larger);
+   3b. the backward kernels (``attention_bwd`` with and without dropout),
+   and the bf16 one-pass backward that ``attention_bwd`` and ``flash_bwd``
+   share, timed through both at the flagship shape with its kernels
+   profiled;
 4. serving: the flagship model (random weights from a seed) serving 3
    batches of 64 through ``training.inference`` / ``Trainer.predict`` with
    the kernel launch counters set to 0 just before and read just after; the
@@ -51,6 +55,7 @@ the port is not beside it, or if any phase fails. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import shutil
@@ -106,7 +111,9 @@ FR_MAP_H, FR_MAP_W = 137, 249
 # kernel launches per train step (one micro-batch of 64, one mouse), written
 # down before the first run: 4 blocks x (QKV, out-proj, fc1, fc2) forward
 # projections, 4 attention cores, one readout sampling; backward per block
-# 2 + 2 dX / dW for the attention sublayer and 2 + 2 for the MLP
+# 2 + 2 dX / dW for the attention sublayer and 2 + 2 for the MLP, and one
+# attention_bwd (its prep, the bf16 one pass it shares with flash_bwd, its
+# convert: the flash wrapper launches nothing on this path)
 TRAIN_LAUNCHES_PER_STEP = {
     "ln_linear": 16, "attention": 4, "bilinear_sample_cm": 1, "ln_linear_bwd": 16,
     "ln_linear_wgrad": 16, "attention_bwd": 4, "bilinear_sample_cm_bwd": 1,
@@ -441,14 +448,21 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
     rows = []
     log("phase 3b: backward kernels against their plain versions, dropout on")
 
-    # attention_bwd: dq, dk, dv head-major and dscale
-    (dqkv, dscale), (dqkv_ref, dscale_ref) = (
-        fn(qkv, o, do, lse, scale, E, drop=drop_p)
-        for fn in (attention_bwd, attention_bwd_plain))
-    worst = max(compare(f"attention_bwd {part}", dqkv[i], dqkv_ref[i], KERNEL_TOL)
-                for i, part in enumerate(("dq", "dk", "dv")))
-    compare("attention_bwd dscale", dscale, dscale_ref, KERNEL_TOL)
-    del dqkv_ref
+    # attention_bwd (prep, the shared one pass, convert): dq, dk, dv
+    # head-major and dscale, without dropout (on the no-dropout forward's o
+    # and LSE) and with it
+    o0, lse0 = attention(qkv, scale, E, with_lse=True)
+    worst = (0.0, 0.0)
+    for label, o_, lse_, drp in (("no dropout", o0, lse0, None), ("dropout", o, lse, drop_p)):
+        (dqkv, dscale), (dqkv_ref, dscale_ref) = (
+            fn(qkv, o_, do, lse_, scale, E, drop=drp)
+            for fn in (attention_bwd, attention_bwd_plain))
+        worst = max([worst] + [compare(f"attention_bwd[{label}] {part}", dqkv[i], dqkv_ref[i],
+                                       KERNEL_TOL) for i, part in enumerate(("dq", "dk", "dv"))])
+        compare(f"attention_bwd[{label}] dscale", dscale, dscale_ref, KERNEL_TOL)
+        del dqkv_ref
+    ms0 = cuda_ms(lambda: attention_bwd(qkv, o0, do, lse0, scale, E))
+    del o0, lse0
     ms = cuda_ms(lambda: attention_bwd(qkv, o, do, lse, scale, E, drop=drop_p))
     plain_ms = cuda_ms(lambda: attention_bwd_plain(qkv, o, do, lse, scale, E, drop=drop_p),
                        iters=1)
@@ -461,14 +475,19 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
     del qs, ks, vs, sdpa, do_h
     b_ms, b_by = bound(2 * head_bytes(qkv, E) + nbytes(o, do, lse, scale, dscale),
                        5 * 2.0 * B * H * N * N * E, "bf16")
-    log(f"  attention_bwd (B {B}, H {H}, N {N}, D {E}): kernel_ms {ms:.4f} plain_ms "
-        f"{plain_ms:.4f} sdpa_backward_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    log(f"  attention_bwd (B {B}, H {H}, N {N}, D {E}): kernel_ms {ms:.4f} (no dropout "
+        f"{ms0:.4f}) plain_ms {plain_ms:.4f} sdpa_backward_ms {lib_ms:.4f} bound_ms "
+        f"{b_ms:.4f} ({b_by}); no dropout / sdpa {ms0 / lib_ms:.3f}, bound share "
+        f"{b_ms / ms0:.3f}")
     rows.append(dict(
-        name="attention_bwd", route="cuda", source="v1t_tpu_torch/csrc/attention_bwd.cu",
+        name="attention_bwd", route="cuda",
+        source="v1t_tpu_torch/csrc/attention_bwd.cu (+ the one pass of "
+               "v1t_tpu_torch/csrc/flash_attention_bwd.cu)",
         replaces="v1t_tpu/ops/fused_mha.py:676 (_mha_bwd_kernel_dt2, attention core)",
         max_abs_err=worst[0], rel_err=worst[1], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms,
         library="autograd backward of F.scaled_dot_product_attention (no dropout)",
+        ms_like_for_like=ms0, like_for_like="no dropout",
     ))
 
     # ln_linear_bwd (dX, with the LayerNorm backward or fc1's GELU' fused)
@@ -607,6 +626,44 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
     return rows
 
 
+def one_pass_at_flagship(gen: torch.Generator) -> dict:
+    """The bf16 one-pass backward at the flagship shape (B*H 256, N 1654, D
+    155 padded to 160) through the wrappers that launch it: ``flash_bwd``
+    (natural-log LSE, the scale folded into q) and ``attention_bwd`` (log2
+    LSE, its prep and convert around it), with and without dropout, and each
+    call's kernels under torch.profiler."""
+    from v1t_tpu_torch.ops.dropout import Dropout
+    from v1t_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from v1t_tpu_torch.ops.fused_mha import attention, attention_bwd
+
+    log("phase 3b: the one-pass backward at the flagship shape, through both wrappers")
+    bf = torch.bfloat16
+    dp = -(-E // 32) * 32
+    qkv = torch.zeros(3, B, H, N, dp, dtype=bf, device=DEVICE)
+    qkv[..., :E] = torch.randn(3, B, H, N, E, generator=gen).to(DEVICE, bf)
+    scale = torch.full((H,), E ** -0.5, device=DEVICE)
+    q = (qkv[0] * scale.to(bf).view(1, H, 1, 1)).reshape(B * H, N, dp)
+    k, v = (qkv[i].reshape(B * H, N, dp) for i in (1, 2))
+    do = (torch.randn(B, N, H * E, generator=gen) * 0.1).to(DEVICE, bf)
+    times, calls = {}, {}
+    for label, drp in (("dropout", Dropout(T_DROP, 20261017, 0)), ("no dropout", None)):
+        o, lse = flash_fwd(q, k, v, E, H, drop=drp, with_lse=True)
+        calls[f"flash_bwd, {label}"] = functools.partial(
+            flash_bwd, q, k, v, o, do.view(B, N, H, E), lse, E, H, drop=drp)
+        o2, lse2 = attention(qkv, scale, E, drop=drp, with_lse=True)
+        calls[f"attention_bwd, {label}"] = functools.partial(
+            attention_bwd, qkv, o2, do, lse2, scale, E, drop=drp)
+    for name, fn in calls.items():
+        times[name] = cuda_ms(fn)
+    log("  " + "; ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
+        + f" (B*H {B * H}, N {N}, D {E})")
+    for name, fn in calls.items():
+        where_the_time_goes(name, fn, phase="3b")
+    del qkv, q, k, v, do, calls
+    torch.cuda.empty_cache()
+    return times
+
+
 def check_flash_kernels(gen: torch.Generator) -> list:
     """The flash kernels of the composed path (rows 7-8) against their
     chunked plain versions: forward (o, LSE) and backward (dq, dk, dv), with
@@ -716,12 +773,6 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         log(f"  flash_attention[{label}] keep mask: bit-identical to the plain version's "
             f"({bh} planes x {n} rows x {n} keys)")
 
-    from v1t_tpu_torch import _build
-
-    lib = _build.library()
-    log("  bf16 flash kernels' dynamic shared memory a block (bytes), by padded head width: "
-        + ", ".join(f"DP {dp}: forward {lib.v1t_flash_attention_smem(dp)}, backward "
-                    f"{lib.v1t_flash_attention_bwd_smem(dp)}" for dp in range(32, 257, 32)))
     cases = {}
     cases["full_res"] = check("full-res, dropout", FR_B * H, H, FR_N, FR_N, E, bf, drp=drop,
                               timed=True)
@@ -752,6 +803,8 @@ def check_flash_kernels(gen: torch.Generator) -> list:
             library="F.scaled_dot_product_attention" + (" (autograd backward)" if pre else ""),
             ms_like_for_like=full["bwd_no_dropout_ms" if pre else "serving_ms"],
             like_for_like="no dropout" + ("" if pre else ", no LSE (serving)"),
+            fp32={key: cases["fp32_flagship"][pre + key] for key in (
+                "ms", "bound_ms", "library_ms", "plain_ms") + (("no_dropout_ms",) if pre else ())},
             note="times at the full-resolution shape (BH 8, N 34114, D 155, bf16, dropout "
                  "on; ms_like_for_like without dropout, as the library call runs); per_case "
                  "holds the fp32 flagship's", per_case=cases))
@@ -1094,12 +1147,12 @@ def core_map(model, batch) -> torch.Tensor:
         return model.core(images, "A", behaviors, pupils)
 
 
-def where_the_time_goes(label: str, fn) -> None:
+def where_the_time_goes(label: str, fn, phase: str = "6") -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    log(f"phase 6: where the time goes, {label} under torch.profiler")
+    log(f"phase {phase}: where the time goes, {label} under torch.profiler")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         fn()
@@ -1155,6 +1208,14 @@ def main() -> int:
                     log(f"  {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
     except FileNotFoundError:
         pass
+    lib = _build.library()
+    widths = range(32, 257, 32)
+    log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
+        "forward " + ", ".join(f"{dp}: {lib.v1t_flash_attention_smem(dp)}" for dp in widths)
+        + "; the bf16 backward (the one pass of flash_bwd and attention_bwd to 160, dq / dkdv "
+        "above) " + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 0)}" for dp in widths)
+        + "; the float32 backward's one pass "
+        + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 1)}" for dp in widths))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1164,6 +1225,8 @@ def main() -> int:
         rows += check_backward_kernels(gen, tensors)
         del tensors
         torch.cuda.empty_cache()
+        next(row for row in rows if row["name"] == "attention_bwd")[
+            "one_pass_at_flagship_ms"] = one_pass_at_flagship(gen)
         rows += check_flash_kernels(gen)
         check_path_shapes(gen)
     torch.cuda.empty_cache()

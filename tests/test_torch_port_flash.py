@@ -169,12 +169,16 @@ def test_flash_dropout_keeps_the_rate_and_scales_kept_probabilities():
 @pytest.mark.parametrize("nq", [1, 63, 257, 34114])
 def test_backward_launch_plan(dtype, dp, nq):
     """bf16 at DP <= 160 takes the one-pass kernel and a float32 (BH, Nq, DP)
-    dq accumulator, whatever the ragged length; wider bf16 and float32 take
-    the dq and dkdv passes and no accumulator."""
+    dq accumulator, whatever the ragged length; wider bf16 takes the dq and
+    dkdv passes; float32 takes the one FFMA pass at every width, which adds
+    dq into the output itself: neither allocates an accumulator."""
     plan = fa.bwd_plan(TORCH[dtype], 8, nq, dp)
     one_pass = dtype == "bfloat16" and dp <= fa.ONE_PASS_MAX_DP
-    assert plan.kernels == (("prep", "one_pass", "dq_convert") if one_pass
-                            else ("prep", "dq", "dkdv"))
+    if dtype == "float32":
+        assert plan.kernels == ("prep", "one_pass_f32")
+    else:
+        assert plan.kernels == (("prep", "one_pass", "dq_convert") if one_pass
+                                else ("prep", "dq", "dkdv"))
     assert plan.dq_acc == ((8, nq, dp) if one_pass else None)
 
 
@@ -182,6 +186,60 @@ def test_backward_launch_plan(dtype, dp, nq):
 def test_backward_launch_plan_rejects_unbuilt_widths(dp):
     with pytest.raises(ValueError):
         fa.bwd_plan(torch.bfloat16, 1, 64, dp)
+
+
+@pytest.mark.parametrize("dp", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n", [1, 63, 1654])
+def test_attention_backward_launch_plan(dp, n):
+    """The fused sublayer's attention backward at attention.cu's widths runs
+    its prep, the one-pass kernel that flash_bwd also runs and its convert,
+    with a float32 (B*H, N, DP) dq accumulator; wider heads are not its
+    kernels' (attention_bwd hands them to flash_bwd)."""
+    from v1t_tpu_torch.ops.fused_mha import KERNEL_HEAD_PADS, attention_bwd_plan
+
+    if dp not in KERNEL_HEAD_PADS:
+        with pytest.raises(ValueError):
+            attention_bwd_plan(64, 4, n, dp)
+        return
+    plan = attention_bwd_plan(64, 4, n, dp)
+    assert plan.kernels == ("prep", "one_pass", "convert")
+    assert plan.dq_acc == (256, n, dp)
+
+
+def test_attention_backward_plan_rejects_grids_past_the_launch_limit():
+    from v1t_tpu_torch.ops.fused_mha import attention_bwd_plan
+
+    attention_bwd_plan(16383, 4, 100, 160)
+    with pytest.raises(ValueError):
+        attention_bwd_plan(16384, 4, 100, 160)
+
+
+def test_attention_backward_runs_the_flash_one_pass():
+    """attention_bwd.cu launches only its prep and convert kernels of its
+    own and reaches the one pass through one_pass::launch, which
+    flash_attention_bwd.cu defines beside the one-pass kernel; the two-pass
+    mma.sync kernels it replaced are gone."""
+    import re
+
+    from v1t_tpu_torch import _build
+
+    def kernels(name):
+        return set(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(",
+                              open(f"{_build.CSRC_DIR}/{name}").read()))
+
+    attn = open(f"{_build.CSRC_DIR}/attention_bwd.cu").read()
+    flash = open(f"{_build.CSRC_DIR}/flash_attention_bwd.cu").read()
+    assert kernels("attention_bwd.cu") == {"attention_bwd_prep_kernel",
+                                           "attention_bwd_convert_kernel"}
+    assert "one_pass::launch(" in attn and "int one_pass::launch(" in flash
+    assert {"flash_bwd_one_pass_kernel", "flash_bwd_f32_kernel"} <= kernels(
+        "flash_attention_bwd.cu")
+    assert not {"flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel"} & kernels(
+        "flash_attention_bwd.cu")
+    # the one pass is compiled from one source only
+    for path in _build.sources():
+        if not path.endswith("flash_attention_bwd.cu"):
+            assert "flash_bwd_one_pass_kernel" not in open(path).read(), path
 
 
 def test_backward_dispatch_width_matches_the_kernel_source():

@@ -41,19 +41,40 @@
 // 3. convert: the accumulator rounded to bf16 into dq. The key blocks add
 //    into it in no fixed order, so dq's float32 sums, and on rare ties its
 //    bf16 rounding, may differ from run to run.
+// The one pass is generic over the scores' units (one_pass_bwd.cuh): P =
+// exp2(s_log2 (q.k - lse)) and dk = dk_scale dS^T q. This file launches it
+// with s_log2 = log2 e and dk_scale = 1; attention_bwd.cu, whose q_s and LSE
+// are in log2 units, with 1 and ln 2, between its own prep and convert.
 // bf16 at DP 192-256: dK and dV of 64 keys would take 192-256 fp32
 // registers a thread beside S and dP, so these widths keep two passes on
-// mma.sync m16n8k16 (the design of attention_bwd.cu): dq by 8
-// warps of 16 rows with q and dO in shared memory, key tiles of 32; dkdv by
-// 4 pairs of warps over 16 keys each, the P warp computing S^T, P^T and the
-// keep mask and handing P^T over through shared memory (the keep bit as its
-// sign), the dS warp dP^T and dS^T; query tiles of 32. 7 N^2 products.
+// mma.sync m16n8k16: dq by 8 warps of 16 rows with q and dO in shared
+// memory, key tiles of 32; dkdv by 4 pairs of warps over 16 keys each, the P
+// warp computing S^T, P^T and the keep mask and handing P^T over through
+// shared memory (the keep bit as its sign), the dS warp dP^T and dS^T; query
+// tiles of 32. 7 N^2 products.
 // The dispatch on DP is the wrapper's (ops/flash_attention.py bwd_plan).
-// float32 (FFMA, not TF32): dq by 256 threads over 64 rows, thread (ty, tx)
-// owning rows 4 ty .. 4 ty + 3 and keys 2 tx, 2 tx + 1 of a 32-key tile for
-// S and dP, then dq at columns tx + 16 j through dS^T in shared memory;
-// dkdv over 64 keys and 32-query tiles, the same split with keys and queries
-// swapped, dv then dk through one shared (Z P)^T / dS^T buffer.
+//
+// float32 (FFMA, not TF32: the fp32 path's users want float32 arithmetic):
+// prep, dq zeroed, then one pass over key blocks with the five products on
+// the FMA pipes. A block of 256 threads owns 64 keys (32 from DP 192 on)
+// and loops over query tiles of 32, whose q, dO, lse and delta arrive by
+// cp.async into a 2-stage ring while the previous tile is computed; K and V
+// stay in shared memory. Every tile is row-major with rows padded by four
+// floats, and every product reads float4s along rows, so no tile is
+// transposed and no access conflicts on the banks:
+//   S^T = K q^T (the first half of the block) and dP^T = V dO^T (the
+//   second), both along d; a thread owns 4 keys (one Philox group) x 4
+//   queries. The first half writes Z P and P, with the keep bit as its sign,
+//   into [query][key] tiles; the second turns P into dS = P (Z dP - delta)
+//   in place.
+//   dV += (Z P)^T dO (first half) and dK += dS^T q (second half): a thread
+//   owns 4 keys x DP / 8 columns, DP / 2 fp32 registers, fed by one float4
+//   of A (4 keys) and DP / 32 float4s of B per query: ~13 FMAs a shared
+//   load at DP 160, where the FMA pipes need 4 to outrun shared memory.
+//   dq = dS K over each half's keys: a thread owns 2 queries x DP / 8
+//   columns, added to dq with float4 atomics (the float32 output is its own
+//   accumulator). The key blocks and the halves add in no fixed order, so
+//   dq's last bits may differ from run to run.
 //
 // Bound on the H100: 10 * BH * Nq * Nk * D FLOP (five products): 14.4 TFLOP
 // at the full-resolution shape (BH 8, N 34,114, D 155) = 14.6 ms of bf16
@@ -62,8 +83,9 @@
 // Not yet: dq's partial sums go out as atomics, not as TMA's bulk
 // reduce-add (its staging tile does not fit beside the panels at DP 160);
 // the one pass's products and its P / dS arithmetic do not overlap within a
-// warpgroup.
+// warpgroup; the float32 pass's two halves wait for each other twice a tile.
 #include "hopper.cuh"
+#include "one_pass_bwd.cuh"
 
 
 namespace {
@@ -125,7 +147,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq_acc,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Nq, int Nk, int n_real, int D, int lsa,
-    Drop drop) {
+    Drop drop, float s_log2, float dk_scale) {
   using namespace hopper;
   constexpr int KV_BYTES = KB * DP * 2, QP_BYTES = QB * DP * 2, PS_BYTES = QB * KB * 2;
   constexpr int DQC = dq_cols<DP>(), SK = sdp_keys<DP>();
@@ -202,7 +224,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
     const uint32_t qt_s = q_s + st * QP_BYTES, dot_s = do_s + st * QP_BYTES;
     const int lr0 = 16 * warp + g, lr1 = lr0 + 8;  // accumulator rows within the tile
     const int r0 = it * QB + lr0, r1 = it * QB + lr1;
-    const float lse0 = Ls[st * QB + lr0] * LOG2E, lse1 = Ls[st * QB + lr1] * LOG2E;
+    const float lse0 = Ls[st * QB + lr0] * s_log2, lse1 = Ls[st * QB + lr1] * s_log2;
     const float del0 = Dl[st * QB + lr0], del1 = Dl[st * QB + lr1];
 
     // S = q k^T and dP = dO v^T for the tile's 64 queries x SK of the
@@ -238,7 +260,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
         float pk[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = ex2(fmaf(s[4 * ni + e], LOG2E, -((e >> 1) ? lse1 : lse0)));
+          float p = ex2(fmaf(s[4 * ni + e], s_log2, -((e >> 1) ? lse1 : lse0)));
           if (edge) {
             const int key = kbase + ni * 8 + 2 * t + (e & 1), row = (e >> 1) ? r1 : r0;
             if (key >= n_real || row >= Nq || (lsa && key == row)) p = 0.f;
@@ -310,7 +332,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
       const int col = 8 * i + 2 * t + (e & 1);
       if (key < Nk) {
         const size_t at = ((size_t)bh * Nk + key) * DP + col;
-        dk[at] = __float2bfloat16_rn(col < D ? dk_acc[4 * i + e] : 0.f);
+        dk[at] = __float2bfloat16_rn(col < D ? dk_acc[4 * i + e] * dk_scale : 0.f);
         dv[at] = __float2bfloat16_rn(col < D ? dv_acc[4 * i + e] * dv_scale : 0.f);
       }
     }
@@ -658,260 +680,299 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float32
+// float32: one pass on FFMA
 
-constexpr int GQ = 64, GK = 32;  // dq: rows per block, key tile
-constexpr int HK = 64, HQ = 32;  // dkdv: keys per block, query tile
-constexpr int WLD = 68, NLD = 36;  // strides of the 64- and 32-wide transposed tiles
+constexpr int F32_QT = 32;  // queries per tile
 
+// keys per block: dK and dV of KB keys are KB * DP / 128 fp32 registers a
+// thread (each half of the block accumulates one of them)
+template <int DP>
+__host__ __device__ constexpr int f32_keys() { return DP <= 160 ? 64 : 32; }
+
+// K and V tiles [KB][DP + 4]; per stage the q and dO tiles [QT][DP + 4] and
+// the lse and delta rows; the Z P and P / dS tiles [QT][KB + 4]
 template <int DP>
 constexpr int f32_smem_bytes() {
-  // two [DP][WLD] tiles, two [DP][NLD] tiles, one [32][WLD] buffer, two rows of 64
-  return (2 * DP * WLD + 2 * DP * NLD + 32 * WLD + 2 * 64) * (int)sizeof(float);
+  constexpr int KB = f32_keys<DP>();
+  return (2 * KB * (DP + 4) + 2 * 2 * F32_QT * (DP + 4) + 2 * F32_QT * (KB + 4) +
+          2 * 2 * F32_QT) * (int)sizeof(float);
 }
 
-// rows r0 .. r0 + rows - 1 of a (rows_total, DP) float32 operand into a
-// transposed [DP][ld] shared tile (zero past rows_total)
-template <int DP>
-__device__ __forceinline__ void load_transposed(float* dst, int ld, const float* __restrict__ src,
-                                                int r0, int rows, int rows_total) {
-  constexpr int C4 = DP / 4;
-  for (int i = threadIdx.x; i < rows * C4; i += THREADS) {
-    const int r = i / C4, c = (i % C4) * 4, row = r0 + r;
-    const float4 x = row < rows_total
-                         ? *reinterpret_cast<const float4*>(src + (size_t)row * DP + c)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    dst[(c + 0) * ld + r] = x.x;
-    dst[(c + 1) * ld + r] = x.y;
-    dst[(c + 2) * ld + r] = x.z;
-    dst[(c + 3) * ld + r] = x.w;
-  }
+// named barriers (0 is __syncthreads): wait for `count` threads, or arrive
+// without waiting
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc + a . b over four terms, in order
+__device__ __forceinline__ float dot4(float acc, const float4& a, const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// acc += a b, four columns
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_f32_kernel(
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dohm, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int Nq, int Nk, int n_real, int D,
-    int lsa, Drop drop) {
-  constexpr int NJ = DP / 16;
+    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk,
+    float* __restrict__ dv, int Nq, int Nk, int n_real, int D, int lsa, Drop drop) {
+  constexpr int KB = f32_keys<DP>(), QT = F32_QT, LD = DP + 4, PLD = KB + 4, NQ4 = DP / 4;
+  constexpr int KG = KB / 4;                 // groups of 4 keys
+  constexpr int QG = 128 / KG, QA = QT / QG; // S / dP: query groups, queries a thread
+  constexpr int DG = 128 / KG;               // dK / dV: column groups (of quads)
+  constexpr int JB = (NQ4 + DG - 1) / DG;    // dK / dV: quads a thread
+  constexpr int JC = NQ4 / 8;                // dq: quads a thread (8 column groups)
+  constexpr int KH = KB / 2;                 // dq: keys of each half of the block
+  static_assert(QA * QG == QT && QT == 32 && NQ4 % 8 == 0, "tile shape");
   extern __shared__ __align__(16) float fsm[];
-  float* Qt = fsm;              // [DP][WLD]
-  float* dOt = Qt + DP * WLD;   // [DP][WLD]
-  float* Kt = dOt + DP * WLD;   // [DP][NLD]
-  float* Vt = Kt + DP * NLD;    // [DP][NLD]
-  float* Ws = Vt + DP * NLD;    // [GK][WLD], dS^T
-  float* Ls = Ws + 32 * WLD;    // [GQ], lse * log2 e
-  float* Dl = Ls + 64;          // [GQ]
+  float* Ks = fsm;                // [KB][LD]
+  float* Vs = Ks + KB * LD;       // [KB][LD]
+  float* Qs = Vs + KB * LD;       // [2][QT][LD]
+  float* dOs = Qs + 2 * QT * LD;  // [2][QT][LD]
+  float* Ps = dOs + 2 * QT * LD;  // [QT][PLD] Z P (the 1 / keep scale is dv's, at the end)
+  float* Hs = Ps + QT * PLD;      // [QT][PLD] P with the keep bit as its sign, then dS
+  float* Ls = Hs + QT * PLD;      // [2][QT] lse
+  float* Dl = Ls + 2 * QT;        // [2][QT] delta
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const size_t qoff = (size_t)bh * Nq * DP, koff = (size_t)bh * Nk * DP;
-  load_transposed<DP>(Qt, WLD, q + qoff, qt * GQ, GQ, Nq);
-  load_transposed<DP>(dOt, WLD, dohm + qoff, qt * GQ, GQ, Nq);
-  if (tid < GQ) {
-    const int row = qt * GQ + tid;
-    Ls[tid] = row < Nq ? lse[(size_t)bh * Nq + row] * LOG2E : 0.f;
-    Dl[tid] = row < Nq ? delta[(size_t)bh * Nq + row] : 0.f;
-  }
-
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  const int ntiles = (Nk + GK - 1) / GK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    __syncthreads();  // every thread is done with the previous tile
-    load_transposed<DP>(Kt, NLD, k + koff, kt * GK, GK, Nk);
-    load_transposed<DP>(Vt, NLD, v + koff, kt * GK, GK, Nk);
-    __syncthreads();
-
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * WLD + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(dOt + d * WLD + ty * 4);
-      const float2 b = *reinterpret_cast<const float2*>(Kt + d * NLD + tx * 2);
-      const float2 e = *reinterpret_cast<const float2*>(Vt + d * NLD + tx * 2);
-      const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(av[i], b.x, s[i][0]);
-        s[i][1] = fmaf(av[i], b.y, s[i][1]);
-        dp[i][0] = fmaf(cv[i], e.x, dp[i][0]);
-        dp[i][1] = fmaf(cv[i], e.y, dp[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = qt * GQ + ty * 4 + i, key_pair = kt * GK + tx * 2;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key_pair >> 2);
-      float ds[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = key_pair + j;
-        const bool masked = key >= n_real || row >= Nq || (lsa && key == row);
-        const float p = masked ? 0.f : exp2f(s[i][j] * LOG2E - Ls[ty * 4 + i]);
-        const float z =
-            drop.on() ? (word_of(w, (key_pair & 3) + j) < drop.threshold ? drop.scale : 0.f) : 1.f;
-        ds[j] = p * (z * dp[i][j] - Dl[ty * 4 + i]);
-      }
-      Ws[(tx * 2 + 0) * WLD + ty * 4 + i] = ds[0];
-      Ws[(tx * 2 + 1) * WLD + ty * 4 + i] = ds[1];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 d4 = *reinterpret_cast<const float4*>(Ws + kk * WLD + ty * 4);
-      const float dv4[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kv = Kt[(tx + 16 * j) * NLD + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv4[i], kv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = qt * GQ + ty * 4 + i;
-    if (row >= Nq) continue;
-    float* dst = dq + ((size_t)bh * Nq + row) * DP;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j;
-      dst[col] = col < D ? acc[i][j] : 0.f;
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dohm, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Nq,
-    int Nk, int n_real, int D, int lsa, Drop drop) {
-  constexpr int NJ = DP / 16;
-  extern __shared__ __align__(16) float fsm[];
-  float* Kt = fsm;              // [DP][WLD]
-  float* Vt = Kt + DP * WLD;    // [DP][WLD]
-  float* Qt = Vt + DP * WLD;    // [DP][NLD]
-  float* dOt = Qt + DP * NLD;   // [DP][NLD]
-  float* Ws = dOt + DP * NLD;   // [HQ][WLD], (Z P)^T then dS^T
-  float* Ls = Ws + 32 * WLD;    // [HQ], lse * log2 e
-  float* Dl = Ls + 64;          // [HQ]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // the first half of the block (grp 0) computes S, P and dV; the second
+  // dP, dS and dK; both compute dq, over half of the block's keys each
+  const int tid = threadIdx.x, grp = tid >> 7, i = tid & 127;
   const int kb = blockIdx.x, bh = blockIdx.y;
-  const size_t qoff = (size_t)bh * Nq * DP, koff = (size_t)bh * Nk * DP;
-  load_transposed<DP>(Kt, WLD, k + koff, kb * HK, HK, Nk);
-  load_transposed<DP>(Vt, WLD, v + koff, kb * HK, HK, Nk);
-  const int key_base = kb * HK + ty * 4;  // this thread's 4 keys (one Philox group)
+  const float* qg = q + (size_t)bh * Nq * DP;
+  const float* dog = dohm + (size_t)bh * Nq * DP;
+  const float* kg = k + (size_t)bh * Nk * DP;
+  const float* vg = v + (size_t)bh * Nk * DP;
+  const float* lrow = lse + (size_t)bh * Nq;
+  const float* drow = delta + (size_t)bh * Nq;
 
-  float adk[4][NJ], adv[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  const int ntiles = (Nq + HQ - 1) / HQ;
-  for (int qt = 0; qt < ntiles; ++qt) {
-    __syncthreads();  // every thread is done with the previous tile
-    load_transposed<DP>(Qt, NLD, q + qoff, qt * HQ, HQ, Nq);
-    load_transposed<DP>(dOt, NLD, dohm + qoff, qt * HQ, HQ, Nq);
-    if (tid < HQ) {
-      const int row = qt * HQ + tid;
-      Ls[tid] = row < Nq ? lse[(size_t)bh * Nq + row] * LOG2E : 0.f;
-      Dl[tid] = row < Nq ? delta[(size_t)bh * Nq + row] : 0.f;
+  for (int x = tid; x < KB * NQ4; x += THREADS) {
+    const int r = x / NQ4, c = (x % NQ4) * 4, key = kb * KB + r;
+    const bool valid = key < Nk;
+    const size_t off = valid ? (size_t)key * DP + c : 0;
+    cp_async16(Ks + r * LD + c, kg + off, valid);
+    cp_async16(Vs + r * LD + c, vg + off, valid);
+  }
+  // the copies of query tile it + 1 run while tile it is computed
+  auto load_tile = [&](int it) {
+    const int s = it & 1;
+    for (int x = tid; x < QT * NQ4; x += THREADS) {
+      const int r = x / NQ4, c = (x % NQ4) * 4, row = it * QT + r;
+      const bool valid = row < Nq;
+      const size_t off = valid ? (size_t)row * DP + c : 0;
+      cp_async16(Qs + (s * QT + r) * LD + c, qg + off, valid);
+      cp_async16(dOs + (s * QT + r) * LD + c, dog + off, valid);
     }
-    __syncthreads();
+    if (tid < QT) {
+      const int row = it * QT + tid;
+      hopper::cp_async4(Ls + s * QT + tid, lrow + (row < Nq ? row : 0), row < Nq);
+      hopper::cp_async4(Dl + s * QT + tid, drow + (row < Nq ? row : 0), row < Nq);
+    }
+    cp_async_commit();
+  };
+  const int ntiles = (Nq + QT - 1) / QT;
+  load_tile(0);  // commits the K and V tiles with it
 
-    // S^T and dP^T for keys 4 ty + i and queries 2 tx + j
-    float s[4][2], dp[4][2];
+  // S / dP, P, dS: keys 4 ka .. 4 ka + 3 (one Philox group), queries qa + QG j
+  const int ka = i / QG, qa = i % QG, key0 = kb * KB + 4 * ka;
+  // dV / dK: keys 4 kd .. 4 kd + 3, quads dd + DG j
+  const int kd = i / DG, dd = i % DG;
+  // dq: queries qc and qc + 16, quads dc + 8 j
+  const int qc = i / 8, dc = i % 8;
+  float4 acc[4][JB];  // dV (grp 0) or dK (grp 1) of keys 4 kd + e
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int j = 0; j < JB; ++j) acc[e][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; every thread is done with tile it - 1
+    if (it + 1 < ntiles) load_tile(it + 1);
+    const float* q_t = Qs + st * QT * LD;
+    const float* do_t = dOs + st * QT * LD;
+
+    // S^T = K q^T (grp 0) or dP^T = V dO^T (grp 1), float4 loads along d
+    float s[4][QA];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int j = 0; j < QA; ++j) s[e][j] = 0.f;
+    {
+      const float* a_rows = (grp ? Vs : Ks) + 4 * ka * LD;
+      const float* b_rows = (grp ? do_t : q_t) + qa * LD;
+#pragma unroll 2
+      for (int d = 0; d < DP; d += 4) {
+        float4 a[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = *reinterpret_cast<const float4*>(a_rows + e * LD + d);
+#pragma unroll
+        for (int j = 0; j < QA; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(b_rows + j * QG * LD + d);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[e][j] = dot4(s[e][j], a[e], b);
+        }
+      }
+    }
+    if (grp == 0) {
+      // P, its keep mask (one Philox per query), Z P and the signed hand-over
+#pragma unroll
+      for (int j = 0; j < QA; ++j) {
+        const int ql = qa + QG * j, row = it * QT + ql;
+        const float l2 = Ls[st * QT + ql] * LOG2E;
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if (drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key0 >> 2);
+        float zp[4], sp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + e;
+          const bool masked = key >= n_real || row >= Nq || (lsa && key == row);
+          const float p = masked ? 0.f : exp2f(s[e][j] * LOG2E - l2);
+          const bool keep = !drop.on() || word_of(w, e) < drop.threshold;
+          zp[e] = keep ? p : 0.f;
+          sp[e] = keep ? p : -p;  // P >= 0; a dropped P of 0 adds 0 either way
+        }
+        *reinterpret_cast<float4*>(Ps + ql * PLD + 4 * ka) = make_float4(zp[0], zp[1], zp[2], zp[3]);
+        *reinterpret_cast<float4*>(Hs + ql * PLD + 4 * ka) = make_float4(sp[0], sp[1], sp[2], sp[3]);
+      }
+    }
+    __syncthreads();  // P and Z P are in shared memory
+    if (grp == 1) {
+      // dS = P (Z dP - delta), over P's hand-over slot
+#pragma unroll
+      for (int j = 0; j < QA; ++j) {
+        const int ql = qa + QG * j;
+        const float del = Dl[st * QT + ql];
+        float4* slot = reinterpret_cast<float4*>(Hs + ql * PLD + 4 * ka);
+        const float4 h = *slot;
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pk = lane4(h, e);
+          const float z = drop.on() ? (pk > 0.f ? drop.scale : 0.f) : 1.f;
+          ds[e] = fabsf(pk) * (z * s[e][j] - del);
+        }
+        *slot = make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+      named_arrive(1, THREADS);  // dS is in shared memory, for grp 0's dq
+      named_sync(2, 128);        // ... and for this half's dK
+    }
+
+    // dV += (Z P)^T dO (grp 0) or dK += dS^T q (grp 1): float4 loads along
+    // the keys (A) and along d (B)
+    {
+      const float* a_t = (grp ? Hs : Ps) + 4 * kd;
+      const float* b_t = (grp ? q_t : do_t) + 4 * dd;
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Kt + d * WLD + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(Vt + d * WLD + ty * 4);
-      const float2 b = *reinterpret_cast<const float2*>(Qt + d * NLD + tx * 2);
-      const float2 e = *reinterpret_cast<const float2*>(dOt + d * NLD + tx * 2);
-      const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+      for (int qq = 0; qq < QT; ++qq) {
+        const float4 a = *reinterpret_cast<const float4*>(a_t + qq * PLD);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(av[i], b.x, s[i][0]);
-        s[i][1] = fmaf(av[i], b.y, s[i][1]);
-        dp[i][0] = fmaf(cv[i], e.x, dp[i][0]);
-        dp[i][1] = fmaf(cv[i], e.y, dp[i][1]);
-      }
-    }
-    float zp[2][4], ds[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int qc = tx * 2 + j, row = qt * HQ + qc;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key_base >> 2);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = key_base + i;
-        const bool masked = key >= n_real || row >= Nq || (lsa && key == row);
-        const float p = masked ? 0.f : exp2f(s[i][j] * LOG2E - Ls[qc]);
-        const float z = drop.on() ? (word_of(w, i) < drop.threshold ? drop.scale : 0.f) : 1.f;
-        zp[j][i] = z * p;
-        ds[j][i] = p * (z * dp[i][j] - Dl[qc]);
-      }
-    }
-    // dv += (Z P)^T dO, then dk += dS^T q, through one buffer
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float* src = pass ? ds[j] : zp[j];
-        *reinterpret_cast<float4*>(Ws + (tx * 2 + j) * WLD + ty * 4) =
-            make_float4(src[0], src[1], src[2], src[3]);
-      }
-      __syncthreads();
-      const float* opnd = pass ? Qt : dOt;
-#pragma unroll 4
-      for (int qq = 0; qq < HQ; ++qq) {
-        const float4 w4 = *reinterpret_cast<const float4*>(Ws + qq * WLD + ty * 4);
-        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float x = opnd[(tx + 16 * j) * NLD + qq];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (pass) adk[i][j] = fmaf(wv[i], x, adk[i][j]);
-            else adv[i][j] = fmaf(wv[i], x, adv[i][j]);
+        for (int j = 0; j < JB; ++j) {
+          if (NQ4 % DG == 0 || dd + DG * j < NQ4) {
+            const float4 b = *reinterpret_cast<const float4*>(b_t + qq * LD + 4 * DG * j);
+            fma4(acc[0][j], a.x, b);
+            fma4(acc[1][j], a.y, b);
+            fma4(acc[2][j], a.z, b);
+            fma4(acc[3][j], a.w, b);
           }
         }
       }
-      __syncthreads();  // the buffer is free for the next pass
+    }
+    if (grp == 0) named_sync(1, THREADS);  // dS is in shared memory
+
+    // dq[tile rows] += dS[:, half's keys] K[half's keys, :], float4 loads
+    // along the keys (A) and along d (B), added to dq with float4 atomics
+    {
+      float4 g[2][JC];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < JC; ++j) g[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* a0 = Hs + qc * PLD + KH * grp;
+      const float* a1 = a0 + 16 * PLD;
+      const float* k_t = Ks + KH * grp * LD + 4 * dc;
+#pragma unroll 2
+      for (int kk = 0; kk < KH; kk += 4) {
+        const float4 x0 = *reinterpret_cast<const float4*>(a0 + kk);
+        const float4 x1 = *reinterpret_cast<const float4*>(a1 + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int j = 0; j < JC; ++j) {
+            const float4 b = *reinterpret_cast<const float4*>(k_t + (kk + e) * LD + 32 * j);
+            fma4(g[0][j], lane4(x0, e), b);
+            fma4(g[1][j], lane4(x1, e), b);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = it * QT + qc + 16 * r;
+        if (row < Nq) {
+          float* dst = dq + ((size_t)bh * Nq + row) * DP + 4 * dc;
+#pragma unroll
+          for (int j = 0; j < JC; ++j) atomicAdd(reinterpret_cast<float4*>(dst + 32 * j), g[r][j]);
+        }
+      }
     }
   }
 
+  // dV (grp 0, times 1 / keep) and dK (grp 1) of the block's keys, zero past D
+  const float out_scale = grp == 0 && drop.on() ? drop.scale : 1.f;
+  float* out = (grp ? dk : dv) + (size_t)bh * Nk * DP;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = key_base + i;
+  for (int e = 0; e < 4; ++e) {
+    const int key = kb * KB + 4 * kd + e;
     if (key >= Nk) continue;
-    float* dkr = dk + ((size_t)bh * Nk + key) * DP;
-    float* dvr = dv + ((size_t)bh * Nk + key) * DP;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j;
-      dkr[col] = col < D ? adk[i][j] : 0.f;
-      dvr[col] = col < D ? adv[i][j] : 0.f;
+    for (int j = 0; j < JB; ++j) {
+      const int col = 4 * (dd + DG * j);
+      if (NQ4 % DG != 0 && col >= DP) continue;
+      const float4 x = acc[e][j];
+      *reinterpret_cast<float4*>(out + (size_t)key * DP + col) =
+          make_float4(col < D ? x.x * out_scale : 0.f, col + 1 < D ? x.y * out_scale : 0.f,
+                      col + 2 < D ? x.z * out_scale : 0.f, col + 3 < D ? x.w * out_scale : 0.f);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
+
+template <int DP>
+int launch_one_pass(const void* q, const void* k, const void* v, const void* dohm,
+                    const float* lse, const float* delta, float* dq_acc, bf16* dk, bf16* dv,
+                    int BH, int Nq, int Nk, int n_real, int D, int lsa, Drop drop, float s_log2,
+                    float dk_scale, cudaStream_t stream) {
+  constexpr int bytes = one_pass_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_one_pass_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap qmap, kmap, vmap, dmap;
+  int rc;
+  if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, QB)) != 0 ||
+      (rc = hopper::make_panel_map(&dmap, dohm, BH, Nq, DP, QB)) != 0 ||
+      (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, KB)) != 0 ||
+      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, KB)) != 0)
+    return rc;
+  flash_bwd_one_pass_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), BWD_THREADS, bytes, stream>>>(
+      qmap, kmap, vmap, dmap, lse, delta, dq_acc, dk, dv, Nq, Nk, n_real, D, lsa, drop, s_log2,
+      dk_scale);
+  return (int)cudaGetLastError();
+}
 
 template <int DP>
 int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
@@ -926,21 +987,18 @@ int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
         (const float*)o, (const float*)dout, (const float*)dlse, (float*)dohm, (float*)delta,
         BH, Nq, D, DP, ol);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    // the key blocks add dq's partial sums into dq itself
+    err = cudaMemsetAsync(dq, 0, (size_t)rows * DP * sizeof(float), stream);
+    if (err != cudaSuccess) return (int)err;
     constexpr int bytes = f32_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+    err = cudaFuncSetAttribute(flash_bwd_f32_kernel<DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32_kernel<DP><<<dim3((Nq + GQ - 1) / GQ, BH), THREADS, bytes, stream>>>(
+    constexpr int KB = f32_keys<DP>();
+    flash_bwd_f32_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), THREADS, bytes, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dohm,
-        (const float*)lse, (const float*)delta, (float*)dq, Nq, Nk, n_real, D, lsa, drop);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkdv_f32_kernel<DP><<<dim3((Nk + HK - 1) / HK, BH), THREADS, bytes, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dohm,
-        (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Nq, Nk, n_real, D, lsa,
-        drop);
+        (const float*)lse, (const float*)delta, (float*)dq, (float*)dk, (float*)dv, Nq, Nk,
+        n_real, D, lsa, drop);
     return (int)cudaGetLastError();
   }
   flash_bwd_prep_kernel<bf16><<<prep_blocks, THREADS, 0, stream>>>(
@@ -952,21 +1010,10 @@ int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
     const long long n4 = rows * DP / 4;
     err = cudaMemsetAsync(dq_acc, 0, (size_t)n4 * 16, stream);
     if (err != cudaSuccess) return (int)err;
-    constexpr int bytes = one_pass_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_one_pass_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    CUtensorMap qmap, kmap, vmap, dmap;
-    int rc;
-    if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, QB)) != 0 ||
-        (rc = hopper::make_panel_map(&dmap, dohm, BH, Nq, DP, QB)) != 0 ||
-        (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, KB)) != 0 ||
-        (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, KB)) != 0)
-      return rc;
-    flash_bwd_one_pass_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), BWD_THREADS, bytes, stream>>>(
-        qmap, kmap, vmap, dmap, (const float*)lse, (const float*)delta, (float*)dq_acc,
-        (bf16*)dk, (bf16*)dv, Nq, Nk, n_real, D, lsa, drop);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int rc = one_pass::launch(q, k, v, dohm, (const float*)lse, (const float*)delta,
+                                    (float*)dq_acc, (bf16*)dk, (bf16*)dv, BH, Nq, Nk, n_real, D,
+                                    DP, lsa, drop, LOG2E, 1.f, stream);
+    if (rc != 0) return rc;
     flash_bwd_dq_convert_kernel<<<(unsigned)((n4 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
         (const float4*)dq_acc, (bf16*)dq, n4);
     return (int)cudaGetLastError();
@@ -991,6 +1038,22 @@ int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
 }
 
 }  // namespace
+
+int one_pass::launch(const void* q, const void* k, const void* v, const void* dohm,
+                     const float* lse, const float* delta, float* dq_acc, bf16* dk, bf16* dv,
+                     int BH, int Nq, int Nk, int n_real, int D, int DP, int lsa, Drop drop,
+                     float s_log2, float dk_scale, cudaStream_t stream) {
+  if (BH < 1 || BH > 65535 || D > DP || n_real > Nk || Nq < 1 || Nk < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (DP) {
+    case 32: return launch_one_pass<32>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 64: return launch_one_pass<64>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 96: return launch_one_pass<96>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 128: return launch_one_pass<128>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 160: return launch_one_pass<160>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Returns a CUDA error code (0 on success). q (BH, Nq, DP), k, v (BH, Nk,
 // DP) as the forward read them (bf16 when f32 == 0, float32 when 1; DP =
@@ -1030,26 +1093,29 @@ extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void*
 
 namespace {
 template <int DP>
-int bf16_bwd_smem() {
+int bwd_smem(bool f32) {
+  if (f32) return f32_smem_bytes<DP>();
   if constexpr (DP <= ONE_PASS_MAX_DP) return one_pass_smem_bytes<DP>();
   else return dq_smem_bytes<DP>() > dkdv_smem_bytes<DP>() ? dq_smem_bytes<DP>()
                                                            : dkdv_smem_bytes<DP>();
 }
 }  // namespace
 
-// Dynamic shared memory of a block of the bf16 backward's main kernel (the
-// larger of dq and dkdv above ONE_PASS_MAX_DP) at padded head width dp (0
-// for a width it is not built for).
-extern "C" int v1t_flash_attention_bwd_smem(int dp) {
+// Dynamic shared memory of a block of the backward's main kernel at padded
+// head width dp: in bf16 the one pass (which attention_bwd.cu launches too)
+// or, above ONE_PASS_MAX_DP, the larger of dq and dkdv; with f32 the float32
+// pass. 0 for a width it is not built for.
+extern "C" int v1t_flash_attention_bwd_smem(int dp, int f32) {
+  const bool f = f32 != 0;
   switch (dp) {
-    case 32: return bf16_bwd_smem<32>();
-    case 64: return bf16_bwd_smem<64>();
-    case 96: return bf16_bwd_smem<96>();
-    case 128: return bf16_bwd_smem<128>();
-    case 160: return bf16_bwd_smem<160>();
-    case 192: return bf16_bwd_smem<192>();
-    case 224: return bf16_bwd_smem<224>();
-    case 256: return bf16_bwd_smem<256>();
+    case 32: return bwd_smem<32>(f);
+    case 64: return bwd_smem<64>(f);
+    case 96: return bwd_smem<96>(f);
+    case 128: return bwd_smem<128>(f);
+    case 160: return bwd_smem<160>(f);
+    case 192: return bwd_smem<192>(f);
+    case 224: return bwd_smem<224>(f);
+    case 256: return bwd_smem<256>(f);
     default: return 0;
   }
 }

@@ -19,7 +19,7 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   delta = rowsum(dO . o) - dlse, as the JAX backward does. ``bwd_plan``
   says which backward kernels run: in bf16 up to ``ONE_PASS_MAX_DP`` one
   wgmma pass that adds dq into a float32 accumulator, above it dq and dkdv
-  passes.
+  passes; in float32 one FFMA pass that adds dq into the output itself.
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -199,11 +199,14 @@ def bwd_plan(dtype: torch.dtype, bh: int, nq: int, dp: int) -> BwdPlan:
     float32 dq accumulator it allocates: bf16 at DP <= ``ONE_PASS_MAX_DP``
     takes the one-pass wgmma kernel, which adds dq's partial sums into a
     (BH, Nq, DP) float32 buffer that a last kernel rounds to bf16; bf16 above
-    it (dK and dV would not fit the registers) and float32 take dq and dkdv
-    passes. The same rule is compiled into ``csrc/flash_attention_bwd.cu``."""
+    it (dK and dV would not fit the registers) takes dq and dkdv passes;
+    float32 takes one FFMA pass that adds dq's partial sums into dq itself.
+    The same rule is compiled into ``csrc/flash_attention_bwd.cu``."""
     if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
         raise ValueError(f"flash_attention_bwd: padded head width {dp}")
-    if dtype == torch.bfloat16 and dp <= ONE_PASS_MAX_DP:
+    if dtype == torch.float32:
+        return BwdPlan(("prep", "one_pass_f32"), None)
+    if dp <= ONE_PASS_MAX_DP:
         return BwdPlan(("prep", "one_pass", "dq_convert"), (bh, nq, dp))
     return BwdPlan(("prep", "dq", "dkdv"), None)
 

@@ -17,7 +17,8 @@ scale) and cotangents (per-batch fp32 partials summed, then cast to the
 weights' dtype; dgamma, dbeta and dscale float32), is
 
     ln_linear_bwd (out-proj dX) + ln_linear_wgrad (dWp, dbp)
-    ->  attention_bwd (dq, dk, dv, dscale; csrc/attention_bwd.cu)
+    ->  attention_bwd (dq, dk, dv, dscale; csrc/attention_bwd.cu: a prep,
+        the bf16 one-pass kernel that flash_bwd also runs, a convert)
     ->  ln_linear_bwd (QKV dX + LayerNorm backward: dx, dgamma, dbeta,
         dbias_row) + ln_linear_wgrad (dWqkv).
 
@@ -44,7 +45,7 @@ import torch
 from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, keep_mask
 from v1t_tpu_torch.ops.flash_attention import (
-    MAX_HEAD_PAD, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+    MAX_HEAD_PAD, BwdPlan, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
 )
 from v1t_tpu_torch.ops.ln_linear import (
     drop_args, ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_plain,
@@ -229,6 +230,21 @@ def attention_bwd_plain(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: 
     return torch.nn.functional.pad(dqkv, (0, dp - head_dim)).contiguous(), dscale
 
 
+def attention_bwd_plan(b: int, h: int, n: int, dp: int) -> BwdPlan:
+    """Which kernels ``attention_bwd`` launches on the card for qkv (3, B, H,
+    N, DP) at attention.cu's padded head widths, and the float32 dq
+    accumulator it allocates: its prep (q_s, dO head-major, delta), the
+    one-pass kernel that ``flash_bwd`` also runs (here with log2-domain
+    scores and LSE, dk = ln2 dS^T q_s), which adds dS k into a (B*H, N, DP)
+    float32 buffer, and its convert (dq = scale_h acc, dscale = sum q . acc).
+    Wider heads run ``flash_bwd`` (``bwd_plan``)."""
+    if dp not in KERNEL_HEAD_PADS:
+        raise ValueError(f"attention_bwd: padded head width {dp} runs on flash_bwd")
+    if b * h > 65535:
+        raise ValueError("attention_bwd: batch x heads exceeds the launch grid")
+    return BwdPlan(("prep", "one_pass", "convert"), (b * h, n, dp))
+
+
 def attention_bwd(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor,
                   head_dim: int, use_lsa: bool = False,
                   drop: t.Optional[Dropout] = None) -> t.Tuple[Tensor, Tensor]:
@@ -251,17 +267,18 @@ def attention_bwd(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor
     _head_width_check("attention_bwd", dp, head_dim)
     if dp not in KERNEL_HEAD_PADS:  # wider heads: the flash kernels
         return _attention_bwd_flash(flash_bwd, qkv, o, do, lse, scale, head_dim, use_lsa, drop)
-    if b > 65535 or h > 65535:
-        raise ValueError("attention_bwd: batch or heads exceed the launch grid")
+    plan = attention_bwd_plan(b, h, n, dp)
     dqkv = torch.empty_like(qkv)
     dscale = torch.zeros((b, h), dtype=f32, device=qkv.device)
     qs = torch.empty((b, h, n, dp), dtype=bf, device=qkv.device)  # scratch: scaled q
     dohm = torch.empty_like(qs)  # scratch: dO head-major
     delta = torch.empty((b, h, n), dtype=f32, device=qkv.device)
+    dq_acc = torch.empty(plan.dq_acc, dtype=f32, device=qkv.device)  # scratch: dS k
     rc = _build.library().v1t_attention_bwd(
         qkv.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), scale.data_ptr(),
         dqkv.data_ptr(), dscale.data_ptr(), qs.data_ptr(), dohm.data_ptr(), delta.data_ptr(),
-        b, n, h, head_dim, dp, int(use_lsa), *drop_args(drop), _build.stream_of(qkv),
+        dq_acc.data_ptr(), b, n, h, head_dim, dp, int(use_lsa), *drop_args(drop),
+        _build.stream_of(qkv),
     )
     _build.check_launch("attention_bwd", rc)
     attention_bwd.launches += 1
