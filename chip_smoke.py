@@ -6,7 +6,10 @@
 Phases, one line each as they go:
 1. the card's name and power limit;
 2. the build of the CUDA kernels (one ``nvcc`` per source, in parallel,
-   into ``v1t_tpu_torch/_build``);
+   into ``v1t_tpu_torch/_build``), each kernel's registers and spills, the
+   flash kernels' shared memory a block, and the launch plans of the flash
+   forward and of ``ln_linear_dx`` held against the library's (the dX plan
+   of each flagship use: rows a block, ring depth, how often dY' is read);
 3. every kernel against its plain PyTorch version at the flagship shapes
    (batch 64, 1654 tokens, emb 155, 4 heads of 155, MLP 488, a 29x57 core
    map, 7000 neurons), the training variants and the backward kernels with
@@ -14,7 +17,7 @@ Phases, one line each as they go:
    plain version's time, one PyTorch library call's time where one computes
    the same function, and the least time the card could take (bytes at
    3.35 TB/s or operations at the peak rate of their type, whichever is
-   larger);
+   larger), with each dX use's share of its bound;
    3b. the backward kernels (``attention_bwd`` with and without dropout),
    and the bf16 one-pass backward that ``attention_bwd`` and ``flash_bwd``
    share, timed through both at the flagship shape with its kernels
@@ -27,7 +30,8 @@ Phases, one line each as they go:
    3c. the flash-attention kernels of the composed path against their
    chunked plain versions: the full-resolution shape (batch 2 x 4 heads,
    34,114 tokens, head 155, bf16, dropout on, the keep masks bit-identical),
-   the fp32 flagship shape (64 x 4 heads, 1654 tokens), a rectangular case
+   the fp32 flagship shape (64 x 4 heads, 1654 tokens; serving against SDPA
+   and the bound), a rectangular case
    with padded keys and an LSE cotangent, an LSA case and head widths 192
    and 256; and the fused MLP's and the readout's kernels at the shapes
    the composed paths give them (68,228 rows; a 137x249 and a float32 map);
@@ -550,10 +554,11 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
         bwd_row["worst"] = max(bwd_row["worst"], err)
         bwd_row["kinds"].add(b_by)
         bwd_row["per_use"][use] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                       torch_bf16_bwd_ms=torch_ms, max_abs_err=err[0])
+                                       bound_share=b_ms / ms, torch_bf16_bwd_ms=torch_ms,
+                                       max_abs_err=err[0])
         log(f"  ln_linear_bwd[{use}] ({m}x{nout} @ {nout}x{k}): kernel_ms {ms:.4f} "
             f"plain_ms {plain_ms:.4f} torch_bf16_bwd_ms {torch_ms:.4f} bound_ms {b_ms:.4f} "
-            f"({b_by})")
+            f"({b_by}); bound share {b_ms / ms:.3f}")
         del got
 
     wgrad_uses = {
@@ -804,7 +809,8 @@ def check_flash_kernels(gen: torch.Generator) -> list:
             ms_like_for_like=full["bwd_no_dropout_ms" if pre else "serving_ms"],
             like_for_like="no dropout" + ("" if pre else ", no LSE (serving)"),
             fp32={key: cases["fp32_flagship"][pre + key] for key in (
-                "ms", "bound_ms", "library_ms", "plain_ms") + (("no_dropout_ms",) if pre else ())},
+                "ms", "bound_ms", "library_ms", "plain_ms")
+                + (("no_dropout_ms",) if pre else ("serving_ms",))},
             note="times at the full-resolution shape (BH 8, N 34114, D 155, bf16, dropout "
                  "on; ms_like_for_like without dropout, as the library call runs); per_case "
                  "holds the fp32 flagship's", per_case=cases))
@@ -1177,6 +1183,34 @@ def where_the_time_goes(label: str, fn, phase: str = "6") -> None:
         log(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def check_launch_plans(lib) -> None:
+    """The host's mirrors of the plans compiled into the kernels
+    (``fwd_plan``, ``dx_plan``) against the library's, and the dX plan of
+    each flagship use: rows a block, ring depth, whether dY' stays in shared
+    memory, how often each dY' element is read, shared memory a block."""
+    from v1t_tpu_torch.ops.flash_attention import fwd_plan
+    from v1t_tpu_torch.ops.ln_linear import dx_plan
+
+    for dp in range(32, 257, 32):
+        for dtype, f32 in ((torch.bfloat16, 0), (torch.float32, 1)):
+            if lib.v1t_flash_attention_smem(dp, f32) != fwd_plan(dtype, dp).smem:
+                raise AssertionError(f"fwd_plan({dtype}, {dp}) disagrees with the library")
+    dp = -(-E // 32) * 32
+    uses = {  # (K, stored reduction columns, rows 16-byte aligned, LayerNorm)
+        "out_proj": (H * E, dp, E % 8 == 0, False),
+        "qkv": (E, 3 * H * dp, True, True),
+        "fc2": (F_HID, dp, E % 8 == 0, False),
+        "fc1": (E, -(-F_HID // 32) * 32, F_HID % 8 == 0, True),
+    }
+    for use, (k, ns, aligned, ln) in uses.items():
+        plan = dx_plan(k, ns, aligned, ln)
+        if plan is None or lib.v1t_ln_linear_dx_smem(k, ns, int(aligned), int(ln)) != plan.smem:
+            raise AssertionError(f"dx_plan of {use} disagrees with the library")
+        log(f"  ln_linear_dx[{use}] (K {k}, {ns} stored reduction columns): {plan.rows} rows "
+            f"a block, {plan.stages} stages, {'resident' if plan.resident else 'streamed'}, "
+            f"dY' read {plan.dy_reads}x, {plan.smem} bytes of shared memory a block")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU",
@@ -1211,11 +1245,14 @@ def main() -> int:
     lib = _build.library()
     widths = range(32, 257, 32)
     log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
-        "forward " + ", ".join(f"{dp}: {lib.v1t_flash_attention_smem(dp)}" for dp in widths)
+        "forward " + ", ".join(f"{dp}: {lib.v1t_flash_attention_smem(dp, 0)}" for dp in widths)
+        + "; the float32 forward "
+        + ", ".join(f"{dp}: {lib.v1t_flash_attention_smem(dp, 1)}" for dp in widths)
         + "; the bf16 backward (the one pass of flash_bwd and attention_bwd to 160, dq / dkdv "
         "above) " + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 0)}" for dp in widths)
         + "; the float32 backward's one pass "
         + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 1)}" for dp in widths))
+    check_launch_plans(lib)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -522,3 +522,203 @@ def test_small_model_training_step_matches_plain_path(gen):
         worst = max(worst, rel)
         assert rel <= GRAD_TOL, (name, rel)
     print(f"worst gradient max|d|/max|ref| {worst:.3e}")
+
+
+# the float32 kernels against their plain versions: summation order only
+# (chip_smoke.py's F32_KERNEL_TOL)
+F32_KERNEL_TOL = 2e-5
+
+
+@pytest.mark.parametrize("lsa", [False, True], ids=["no_lsa", "lsa"])
+@pytest.mark.parametrize("n", [1, 63, 65, 129, 1654])
+@pytest.mark.parametrize("d", [27, 64, 90, 128, 155, 190, 224, 256])
+def test_flash_forward_float32_matches_plain(gen, d, n, lsa):
+    """The float32 forward at every padded head width (32-256), lengths
+    that fill no tile of 32 keys or of 128 (64) queries, with and without
+    LSA, with dropout and the LSE: o and the LSE within the float32
+    tolerance, and the keep mask bit for bit (q = 0 makes every probability
+    1 / N and v[k] = e_(k mod D) makes o count the kept keys of each
+    residue class: exact small integers times one scale)."""
+    bh, heads = 2, 2
+    dp = -(-d // 32) * 32
+    drop = _drop(0.25, site=11)
+
+    def operand():
+        x = torch.zeros(bh, n, dp, device="cuda")
+        x[..., :d] = _randn(gen, bh, n, d, dtype=torch.float32) * d ** -0.25
+        return x
+
+    q, k, v = operand(), operand(), operand()
+    for drp in (None, drop):
+        kw = dict(use_lsa=lsa, drop=drp)
+        (o, lse), (o_ref, lse_ref) = (fn(q, k, v, d, heads, with_lse=True, **kw)
+                                      for fn in (flash_fwd, flash_fwd_plain))
+        _close(o, o_ref, F32_KERNEL_TOL)
+        _close(lse, lse_ref, F32_KERNEL_TOL)
+        _close(flash_fwd(q, k, v, d, heads, **kw), o_ref, F32_KERNEL_TOL)  # serving
+    zero = torch.zeros_like(q)
+    onehot = torch.zeros_like(v)
+    keys = torch.arange(n, device="cuda")
+    onehot[:, keys, keys % d] = 1.0
+    got = flash_fwd(zero, zero, onehot, d, heads, use_lsa=lsa, drop=drop)
+    ref = flash_fwd_plain(zero, zero, onehot, d, heads, use_lsa=lsa, drop=drop)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_flash_forward_float32_rectangular_matches_plain(gen):
+    """Queries and keys apart, keys past n_real_k masked, at the flagship's
+    head width."""
+    bh, heads, nq, nk, n_real, d = 4, 2, 300, 1000, 777, 155
+    q, k, v = (torch.zeros(bh, n, 160, device="cuda") for n in (nq, nk, nk))
+    for x in (q, k, v):
+        x[..., :d] = _randn(gen, bh, x.shape[1], d, dtype=torch.float32) * d ** -0.25
+    kw = dict(n_real_k=n_real, drop=_drop(0.5, site=12))
+    for got, ref in zip(flash_fwd(q, k, v, d, heads, with_lse=True, **kw),
+                        flash_fwd_plain(q, k, v, d, heads, with_lse=True, **kw)):
+        _close(got, ref, F32_KERNEL_TOL)
+
+
+def _offset(x):
+    """x as a contiguous view that starts 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 2
+    return y
+
+
+def _dx_case(gen, use, b, n, k, nout, rate, head_dim=None, row=True, res=True):
+    """dy, w and ln_linear_bwd's keywords for one use of the dX kernel:
+    out_proj / fc2 (row-major dy, keep mask; fc2 with fc1's pre-GELU
+    activation and mask), qkv (head-major dy as ln_linear writes it,
+    LayerNorm epilogue), fc1 (row-major dy, LayerNorm epilogue)."""
+    w = _randn(gen, nout, k, scale=nout ** -0.5)
+    kw = {}
+    if use == "qkv":
+        heads = (nout // (3 * head_dim), head_dim)
+        dy = ln_linear(_randn(gen, b, n, 32), _randn(gen, nout, 32, scale=0.3), heads=heads)
+        kw["heads"] = heads
+    else:
+        dy = _randn(gen, b, n, nout)
+    if use in ("out_proj", "fc2"):
+        kw["drop"] = _drop(rate, site=2)
+    if use == "fc2":
+        kw.update(pre=_randn(gen, b, n, k), pre_drop=_drop(rate, site=5))
+    if use in ("qkv", "fc1"):
+        kw.update(x=_randn(gen, b, n, k), gamma=1.0 + _randn(gen, k, scale=0.1, dtype=torch.float32),
+                  beta=_randn(gen, k, scale=0.1, dtype=torch.float32))
+        if row:
+            kw["pro_row"] = _randn(gen, b, k, scale=0.5)
+        if res:
+            kw["dres"] = _randn(gen, b, n, k)
+    return dy, w, kw
+
+
+def _check_dx(dy, w, kw):
+    got, ref = ln_linear_bwd(dy, w, **kw), ln_linear_bwd_plain(dy, w, **kw)
+    if "x" not in kw:
+        _close(got, ref)
+        return
+    for g_, r_ in zip(got, ref):
+        if r_ is None:
+            assert g_ is None
+        else:
+            _close(g_, r_)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("use,nout,k", [
+    ("out_proj", 155, 620), ("fc2", 155, 488), ("fc1", 488, 155), ("qkv", 3 * 4 * 155, 155),
+])
+@pytest.mark.parametrize("b,n", [(2, 65), (3, 1654), (1, 1)], ids=str)
+def test_ln_linear_dx_uses_match_plain(gen, b, n, use, nout, k, offset):
+    """The four uses of a block at the flagship's widths, at row counts that
+    fill no block of 128 (130, 4962, 1), dropout on; row-major dy also from
+    a start 2 bytes past a 16-byte boundary, so that every slab starts
+    unaligned (a head-major dy must start aligned)."""
+    dy, w, kw = _dx_case(gen, use, b, n, k, nout, 0.25, head_dim=155)
+    if offset and use == "qkv":
+        with pytest.raises(ValueError):
+            ln_linear_bwd(_offset(dy.reshape(-1)).view(dy.shape), w, **kw)
+        return
+    _check_dx(_offset(dy) if offset else dy, w, kw)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("nout,k", [
+    (155, 32), (155, 100), (155, 160), (155, 161), (96, 320), (33, 640), (640, 96), (1001, 155),
+    (3001, 320),
+], ids=str)
+def test_ln_linear_dx_widths_match_plain(gen, nout, k, rate):
+    """The plain epilogue from K 32 to 640 (one, two and four output tiles),
+    over reductions that are aligned (96, 640) or not (33, 155, 1001, 3001;
+    3001 is too wide to stay in shared memory across two output tiles, so
+    dY streams once per tile), with and without fc1's mask and GELU'."""
+    for use in ("out_proj", "fc2"):
+        dy, w, kw = _dx_case(gen, use, 2, 129, k, nout, rate)
+        _check_dx(dy, w, kw)
+
+
+@pytest.mark.parametrize("row,res", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("use,k,nout,head_dim", [
+    ("fc1", 155, 488, None), ("fc1", 320, 640, None), ("fc1", 640, 96, None),
+    ("fc1", 640, 155, None), ("qkv", 155, 3 * 4 * 155, 155), ("qkv", 192, 3 * 2 * 192, 192),
+    ("qkv", 256, 3 * 8 * 256, 256), ("qkv", 48, 3 * 2 * 17, 17),
+], ids=str)
+def test_ln_linear_dx_layernorm_matches_plain(gen, use, k, nout, head_dim, row, res):
+    """The LayerNorm epilogue with and without pro_row and dres, K from 48
+    to 640, head widths 17 to 256 (a K above 160 takes two or four output
+    tiles; 640 takes blocks of 64 rows)."""
+    dy, w, kw = _dx_case(gen, use, 2, 65, k, nout, 0.0, head_dim=head_dim, row=row, res=res)
+    _check_dx(dy, w, kw)
+
+
+def test_ln_linear_dx_reruns_agree(gen):
+    """The LayerNorm epilogue adds dgamma, dbeta and dbias_row with fp32
+    atomics in no fixed order: two runs agree within the kernel tolerance on
+    them, and exactly on dz and the LayerNorm output (one row, one warp)."""
+    dy, w, kw = _dx_case(gen, "qkv", 3, 700, 155, 3 * 4 * 155, 0.0, head_dim=155)
+    first, second = (ln_linear_bwd(dy, w, **kw) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for g_, r_ in zip(second[2:], first[2:]):
+        _close(g_, r_)
+
+
+def test_attention_backward_pads_stay_zero_for_the_dx_kernel(gen):
+    """The dX kernel reads a head-major dq/dk/dv as it lies, its pad
+    columns against zero rows of W^T: 0 x NaN would poison dX, so
+    attention_bwd must leave exact zeros past D, and dX over its output must
+    be finite and match the plain version."""
+    b, n, h, d = 2, 300, 4, 155
+    x = _randn(gen, b, n, d)
+    gamma = torch.ones(d, device="cuda")
+    qkv = ln_linear(x, _randn(gen, 3 * h * d, d, scale=0.08), gamma=gamma, beta=gamma * 0.0,
+                    heads=(h, d))
+    scale = torch.full((h,), d ** -0.5, device="cuda")
+    o, lse = attention(qkv, scale, d, with_lse=True)
+    dqkv, _ = attention_bwd(qkv, o, _randn(gen, b, n, h * d), lse, scale, d)
+    torch.cuda.synchronize()
+    assert torch.all(dqkv[..., d:] == 0)
+    w = _randn(gen, 3 * h * d, d, scale=0.05)
+    kw = dict(heads=(h, d), x=x, gamma=gamma, beta=gamma * 0.0)
+    _check_dx(dqkv, w, kw)
+
+
+def test_launch_plans_match_the_library(gen):
+    """ops/ln_linear.py dx_plan and ops/flash_attention.py fwd_plan mirror
+    the plans compiled into the kernels: the same shared memory a block."""
+    from v1t_tpu_torch import _build
+    from v1t_tpu_torch.ops.flash_attention import fwd_plan
+    from v1t_tpu_torch.ops.ln_linear import dx_plan
+
+    lib = _build.library()
+    for dp in range(32, 257, 32):
+        for dtype, f32 in ((torch.bfloat16, 0), (torch.float32, 1)):
+            assert lib.v1t_flash_attention_smem(dp, f32) == fwd_plan(dtype, dp).smem
+    for k in (1, 32, 155, 160, 161, 320, 488, 620, 640, 2048):
+        for ns in (32, 96, 160, 512, 640, 1920, 6144):
+            for aligned in (0, 1):
+                for ln in (0, 1) if k <= 640 else (0,):
+                    plan = dx_plan(k, ns, bool(aligned), bool(ln))
+                    assert lib.v1t_ln_linear_dx_smem(k, ns, aligned, ln) == plan.smem

@@ -101,6 +101,24 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 
+// float4 helpers of the float32 (FFMA) kernels
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc + a . b over four terms, in order
+__device__ __forceinline__ float dot4(float acc, const float4& a, const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// acc += a b, four columns
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
 // Where row `row` of plane bh = b * H + h of a (B, H, N, D) tensor starts
 // when it is stored with arbitrary strides (a (B, N, H, D) buffer: batch
 // N * H * D, head D, row H * D).

@@ -39,12 +39,23 @@
 // cudaGetDriverEntryPointByVersion; the map travels as a __grid_constant__
 // parameter, its boxes one [rows][32] sub-tile in the 64-byte swizzle.
 // float32: FFMA on the CUDA cores, not TF32 (the fp32 model exists for
-// exact arithmetic). A block of 256 threads owns 64 query rows; key tiles of
-// 64. Thread (ty, tx) computes the scores of rows 4 ty .. 4 ty + 3 against
-// keys 4 tx .. 4 tx + 3 from q^T and k^T tiles in shared memory (one float4
-// of each per head column for 16 FMA), the row max and sum by shuffles over
-// the 16 lanes of a row group, writes P^T to shared memory and accumulates
-// o for its 4 rows at columns tx + 16 j.
+// exact arithmetic). FFMA on an H100 outruns shared memory: its 128 lanes
+// of FMA a cycle face 128 bytes of shared loads a cycle, so each loaded
+// float must feed several FMAs, and that sets the tiles. A block of 256
+// threads owns 128 query rows (64 above DP 160, so that o fits the
+// registers); key tiles of 64. q, K and V lie in shared memory row-major,
+// rows padded by four floats (and four more every 8 rows), brought by
+// 16-byte cp.async: q once, K and V taking turns in a two-stage ring (V_j
+// copied while S_j is computed, K_j+1 while P_j v_j is), two __syncthreads
+// a tile. Lane 2 cl + rl of a warp owns rows rl + 2 i of the warp's 16 (8):
+// S for keys 4 cl .. 4 cl + 3 (one Philox group) from float4s of q and k
+// along d, 128 FMAs for 12 shared loads; the row max over the 16 lanes of
+// a row (4 shuffles), the row sum kept per lane until the end; the kept P
+// written [query][key] to the warp's own rows of a P tile, then o for the
+// same 8 rows at float2 columns cl + 16 j (DP / 16 columns, 80 registers at
+// DP 160) from float4s of P along the keys and float2s of v along the
+// columns: 320 FMAs for 28 shared loads. P never leaves the warp
+// (__syncwarp).
 //
 // Bound on the H100: 4 * BH * Nq * Nk * D FLOP (two products) over ~3 x
 // BH * N * D * dtype bytes: at the full-resolution shape (BH 8, N 34,114,
@@ -56,8 +67,12 @@
 // behind the products; drawn in the loading warpgroup instead, it fell
 // behind the tensor cores (four warps of Philox against eight of softmax).
 // Taking turns between the two consumer warpgroups' products (named
-// barriers, FlashAttention-3's ping-pong) did not shorten it either. Not
-// yet: the fp32 kernel's loads are not double-buffered.
+// barriers, FlashAttention-3's ping-pong) did not shorten it either. The
+// float32 kernel ran slower on an H100 with 4-row x 20-column o tiles
+// (float4 loads of v: more shared bytes per FMA) and with 32-key tiles in a
+// ring of (K, V) pairs (more barriers and rescales per key); one block a SM
+// (203 KB at DP 160) leaves its 8 warps' loads to hide behind each other's
+// FMAs.
 #include "hopper.cuh"
 
 namespace {
@@ -305,148 +320,199 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float32
+// float32 (FFMA)
 
-constexpr int FQ = 64, FK = 64, FTHREADS = 256, QLD = FQ + 4, KLD = FK + 4;
+constexpr int F32_KB = 64, F32_THREADS = 256;
 
+// query rows a thread owns: its o tile is f32_rows x DP / 16 fp32 registers
+// (80 at DP 160 with 8 rows; 64 at DP 256 with 4)
+template <int DP>
+__host__ __device__ constexpr int f32_rows() { return DP <= 160 ? 8 : 4; }
+template <int DP>
+__host__ __device__ constexpr int f32_queries() { return 16 * f32_rows<DP>(); }
+
+// a row-major tile of DP floats a row: row r starts r (DP + 4) + 4 (r / 8)
+// floats in, so that consecutive rows, and rows four apart, fall on
+// distinct 16-byte bank groups
+__host__ __device__ constexpr int f32_tile_floats(int rows, int dp) {
+  return rows * (dp + 4) + 4 * ((rows + 7) / 8);
+}
+__device__ __forceinline__ int f32_row(int r, int ld) { return r * ld + ((r >> 3) << 2); }
+
+// q [QB rows], a K and a V tile [KB rows], P [QB][KB + 4]
 template <int DP>
 constexpr int f32_smem_bytes() {
-  // q^T [DP][QLD], k^T [DP][KLD], v [FK][DP], P^T [FK][QLD]
-  return (DP * QLD + DP * KLD + FK * DP + FK * QLD) * (int)sizeof(float);
+  constexpr int QB = f32_queries<DP>();
+  return (f32_tile_floats(QB, DP) + 2 * f32_tile_floats(F32_KB, DP) + QB * (F32_KB + 4)) *
+         (int)sizeof(float);
 }
 
 template <int DP, bool TRAIN>
-__global__ void __launch_bounds__(FTHREADS, 1) flash_fwd_f32_kernel(
+__global__ void __launch_bounds__(F32_THREADS, 1) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, int n_real, int D,
     RowLayout ol, int lsa, Drop drop) {
-  constexpr int NJ = DP / 16, C4 = DP / 4;
+  constexpr int RQ = f32_rows<DP>(), QB = f32_queries<DP>(), KB = F32_KB;
+  constexpr int LD = DP + 4, PLD = KB + 4, NQ4 = DP / 4, CV = DP / 32;
+  constexpr int QT = f32_tile_floats(QB, DP), KT = f32_tile_floats(KB, DP);
   extern __shared__ __align__(16) float fsm[];
-  float* Qt = fsm;             // [DP][QLD]
-  float* Kt = Qt + DP * QLD;   // [DP][KLD]
-  float* Vs = Kt + DP * KLD;   // [FK][DP]
-  float* Pt = Vs + FK * DP;    // [FK][QLD]
+  float* Qs = fsm;      // q rows
+  float* Ks = Qs + QT;  // the K tile
+  float* Vs = Ks + KT;  // the V tile
+  float* Ps = Vs + KT;  // [QB][PLD] the kept probabilities, [query][key]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // lane = 2 cl + rl: rows rbase + 2 i (i < RQ) of the warp's 2 RQ; keys
+  // 4 cl .. 4 cl + 3 of a tile (one Philox group) for S, float2 columns
+  // cl + 16 j (j < CV) for o
+  const int tid = threadIdx.x, lane = tid & 31, cl = lane >> 1;
+  const int rbase = (tid >> 5) * 2 * RQ + (lane & 1);
   const int qt = blockIdx.x, bh = blockIdx.y;
   const float* qg = q + (size_t)bh * Nq * DP;
   const float* kg = k + (size_t)bh * Nk * DP;
   const float* vg = v + (size_t)bh * Nk * DP;
 
-  for (int i = tid; i < FQ * C4; i += FTHREADS) {
-    const int r = i / C4, c = (i % C4) * 4, row = qt * FQ + r;
-    const float4 x = row < Nq ? *reinterpret_cast<const float4*>(qg + (size_t)row * DP + c)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    Qt[(c + 0) * QLD + r] = x.x;
-    Qt[(c + 1) * QLD + r] = x.y;
-    Qt[(c + 2) * QLD + r] = x.z;
-    Qt[(c + 3) * QLD + r] = x.w;
+  for (int x = tid; x < QB * NQ4; x += F32_THREADS) {
+    const int r = x / NQ4, c = (x - r * NQ4) * 4, row = qt * QB + r;
+    const bool valid = row < Nq;
+    cp_async16(Qs + f32_row(r, LD) + c, qg + (valid ? (size_t)row * DP + c : 0), valid);
   }
+  // K and V tiles take turns in a two-stage ring: V_j is copied while S_j
+  // is computed, K_j+1 while P_j v_j is
+  auto load = [&](float* dst, const float* src, int j) {
+    for (int x = tid; x < KB * NQ4; x += F32_THREADS) {
+      const int r = x / NQ4, c = (x - r * NQ4) * 4, key = j * KB + r;
+      const bool valid = key < Nk;
+      cp_async16(dst + f32_row(r, LD) + c, src + (valid ? (size_t)key * DP + c : 0), valid);
+    }
+    cp_async_commit();
+  };
+  const int ntiles = (Nk + KB - 1) / KB;
+  load(Ks, kg, 0);  // commits q with it
 
-  float o[4][NJ], m[4], l[4];
+  float2 o[RQ][CV];
+  float m[RQ], l[RQ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m[i] = MASKED;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < CV; ++j) o[i][j] = make_float2(0.f, 0.f);
   }
 
-  const int ntiles = (Nk + FK - 1) / FK;
   for (int kt = 0; kt < ntiles; ++kt) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < FK * C4; i += FTHREADS) {
-      const int j = i / C4, c = (i % C4) * 4, key = kt * FK + j;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-      if (key < Nk) {
-        x = *reinterpret_cast<const float4*>(kg + (size_t)key * DP + c);
-        y = *reinterpret_cast<const float4*>(vg + (size_t)key * DP + c);
-      }
-      Kt[(c + 0) * KLD + j] = x.x;
-      Kt[(c + 1) * KLD + j] = x.y;
-      Kt[(c + 2) * KLD + j] = x.z;
-      Kt[(c + 3) * KLD + j] = x.w;
-      *reinterpret_cast<float4*>(Vs + j * DP + c) = y;
-    }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();  // K_kt has landed; every thread is done with V_kt-1
+    load(Vs, vg, kt);
 
-    float s[4][4];
+    // S = q k^T: float4s along d, RQ rows x 4 keys a thread
+    float s[RQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * QLD + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(Kt + d * KLD + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DP; d += 4) {
+      float4 a[RQ], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
+        a[i] = *reinterpret_cast<const float4*>(Qs + f32_row(rbase + 2 * i, LD) + d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int e = 0; e < 4; ++e)
+        b[e] = *reinterpret_cast<const float4*>(Ks + f32_row(4 * cl + e, LD) + d);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dot4(s[i][e], a[i], b[e]);
     }
 
+    // the online softmax in log2 units: keys past Nk (the tile's zero
+    // fill) weigh nothing, keys at or past n_real and the LSA diagonal are
+    // masked as the plain version masks them; the row max over the 16
+    // lanes of a row, one Philox per row for the thread's 4 keys
+    const int key0 = kt * KB + 4 * cl;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = qt * FQ + ty * 4 + i;
-      float mx = m[i];
+    for (int i = 0; i < RQ; ++i) {
+      const int row = qt * QB + rbase + 2 * i;
+      float mx = MASKED;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kt * FK + tx * 4 + j;
-        s[i][j] *= LOG2E;
-        if (key >= n_real || (lsa && key == row)) s[i][j] = MASKED;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + e;
+        float x = s[i][e] * LOG2E;
+        if (key >= Nk) x = __int_as_float(0xff800000u);  // -inf
+        else if (key >= n_real || (lsa && key == row)) x = MASKED;
+        s[i][e] = x;
+        mx = fmaxf(mx, x);
       }
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int off = 2; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mx = fmaxf(m[i], mx);
       const float alpha = exp2f(m[i] - mx);
       m[i] = mx;
       l[i] *= alpha;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) o[i][j] *= alpha;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (TRAIN && drop.on())
-        w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)(kt * FK + tx * 4) >> 2);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = exp2f(s[i][j] - mx);
-        l[i] += p;
-        if (TRAIN && drop.on() && word_of(w, j) >= drop.threshold) p = 0.f;
-        Pt[(tx * 4 + j) * QLD + ty * 4 + i] = p;
+      for (int j = 0; j < CV; ++j) {
+        o[i][j].x *= alpha;
+        o[i][j].y *= alpha;
       }
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (TRAIN && drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key0 >> 2);
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[i][e] - mx);
+        l[i] += p[e];
+        if (TRAIN && drop.on() && word_of(w, e) >= drop.threshold) p[e] = 0.f;
+      }
+      *reinterpret_cast<float4*>(Ps + (rbase + 2 * i) * PLD + 4 * cl) =
+          make_float4(p[0], p[1], p[2], p[3]);
     }
-    __syncthreads();
+    __syncwarp();  // a warp reads back only its own rows of P
 
-#pragma unroll 4
-    for (int kk = 0; kk < FK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(Pt + kk * QLD + ty * 4);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
+    cp_async_wait<0>();
+    __syncthreads();  // V_kt has landed; every thread is done with K_kt
+    if (kt + 1 < ntiles) load(Ks, kg, kt + 1);
+
+    // o += P v: float4s of P along the keys, float2s of v along the columns
+#pragma unroll 2
+    for (int kk = 0; kk < KB; kk += 4) {
+      float4 pv[RQ];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[kk * DP + tx + 16 * j];
+      for (int i = 0; i < RQ; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (rbase + 2 * i) * PLD + kk);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = Vs + f32_row(kk + e, LD) + 2 * cl;
+#pragma unroll
+        for (int j = 0; j < CV; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(vr + 32 * j);
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) {
+            const float pe = lane4(pv[i], e);
+            o[i][j].x = fmaf(pe, b.x, o[i][j].x);
+            o[i][j].y = fmaf(pe, b.y, o[i][j].y);
+          }
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
+  for (int i = 0; i < RQ; ++i) {
+    float li = l[i];  // the 16 lanes of a row hold partial sums
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = qt * FQ + ty * 4 + i;
+    for (int off = 2; off < 32; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = qt * QB + rbase + 2 * i;
     if (row >= Nq) continue;
     float inv = li == 0.f ? 1.f : 1.f / li;
     if (TRAIN && drop.on()) inv *= drop.scale;
-    if (lse != nullptr && tx == 0)
+    if (lse != nullptr && cl == 0)
       lse[(size_t)bh * Nq + row] = (m[i] + log2f(fmaxf(li, 1e-37f))) * LN2;
     float* orow = out + ol.at(bh, row);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < D) orow[col] = o[i][j] * inv;
+    for (int j = 0; j < CV; ++j) {
+      const int col = 2 * cl + 32 * j;
+      if (col < D) orow[col] = o[i][j].x * inv;
+      if (col + 1 < D) orow[col + 1] = o[i][j].y * inv;
     }
   }
 }
@@ -463,7 +529,8 @@ int launch_dp(bool f32, const void* q, const void* k, const void* v, void* out, 
     err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DP, TRAIN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_f32_kernel<DP, TRAIN><<<dim3((Nq + FQ - 1) / FQ, BH), FTHREADS, bytes, stream>>>(
+    constexpr int QB = f32_queries<DP>();
+    flash_fwd_f32_kernel<DP, TRAIN><<<dim3((Nq + QB - 1) / QB, BH), F32_THREADS, bytes, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, Nq, Nk,
         n_real, D, ol, lsa, drop);
   } else {
@@ -494,6 +561,9 @@ int launch(bool f32, bool train, const void* q, const void* k, const void* v, vo
   return launch_dp<DP, false>(f32, q, k, v, out, lse, BH, Nq, Nk, n_real, D, ol, lsa, drop,
                               stream);
 }
+
+template <int DP>
+int fwd_smem(bool f32) { return f32 ? f32_smem_bytes<DP>() : bf16_smem_bytes<DP>(); }
 
 }  // namespace
 
@@ -530,18 +600,20 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
   }
 }
 
-// Dynamic shared memory of a block of the bf16 kernel at padded head width
-// dp (0 for a width it is not built for).
-extern "C" int v1t_flash_attention_smem(int dp) {
+// Dynamic shared memory of a block of the bf16 (f32 == 0) or float32
+// (f32 == 1) kernel at padded head width dp (0 for a width it is not built
+// for).
+extern "C" int v1t_flash_attention_smem(int dp, int f32) {
+  const bool f = f32 != 0;
   switch (dp) {
-    case 32: return bf16_smem_bytes<32>();
-    case 64: return bf16_smem_bytes<64>();
-    case 96: return bf16_smem_bytes<96>();
-    case 128: return bf16_smem_bytes<128>();
-    case 160: return bf16_smem_bytes<160>();
-    case 192: return bf16_smem_bytes<192>();
-    case 224: return bf16_smem_bytes<224>();
-    case 256: return bf16_smem_bytes<256>();
+    case 32: return fwd_smem<32>(f);
+    case 64: return fwd_smem<64>(f);
+    case 96: return fwd_smem<96>(f);
+    case 128: return fwd_smem<128>(f);
+    case 160: return fwd_smem<160>(f);
+    case 192: return fwd_smem<192>(f);
+    case 224: return fwd_smem<224>(f);
+    case 256: return fwd_smem<256>(f);
     default: return 0;
   }
 }

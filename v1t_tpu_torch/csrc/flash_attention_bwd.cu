@@ -708,23 +708,6 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ float lane4(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// acc + a . b over four terms, in order
-__device__ __forceinline__ float dot4(float acc, const float4& a, const float4& b) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-// acc += a b, four columns
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
-  acc.x = fmaf(a, b.x, acc.x);
-  acc.y = fmaf(a, b.y, acc.y);
-  acc.z = fmaf(a, b.z, acc.z);
-  acc.w = fmaf(a, b.w, acc.w);
-}
-
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,

@@ -16,7 +16,8 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   ``o`` is written as a (B, Nq, H, D) buffer, so that the heads' concat
   before the output projection is a view. The forward returns the
   natural-log LSE (B*H, Nq); the backward folds the LSE's cotangent into
-  delta = rowsum(dO . o) - dlse, as the JAX backward does. ``bwd_plan``
+  delta = rowsum(dO . o) - dlse, as the JAX backward does. ``fwd_plan``
+  says which tiles the forward runs on; ``bwd_plan``
   says which backward kernels run: in bf16 up to ``ONE_PASS_MAX_DP`` one
   wgmma pass that adds dq into a float32 accumulator, above it dq and dkdv
   passes; in float32 one FFMA pass that adds dq into the output itself.
@@ -104,6 +105,33 @@ def _keep(drop: t.Optional[Dropout], bh: int, r0: int, c: int, nk: int, device):
 def _out_buffer(q: Tensor, heads: int, head_dim: int) -> Tensor:
     bh, nq, _ = q.shape
     return torch.empty((bh // heads, nq, heads, head_dim), dtype=q.dtype, device=q.device)
+
+
+class FwdPlan(t.NamedTuple):
+    queries: int  # query rows a block
+    keys: int  # keys a tile
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
+    """The tiles ``csrc/flash_attention.cu`` runs the forward on at padded
+    head width DP: bf16, 128 queries (two consumer warpgroups of 64) against
+    key tiles of 64 up to DP 160 and 32 above, a TMA ring 3 deep up to DP
+    192 and 2 above; float32, 128 queries (8 rows a thread) up to DP 160 and
+    64 (4 rows) above, so that o fits the registers, key tiles of 64 whose K
+    and V take turns in a two-stage cp.async ring, every tile's rows padded
+    by 4 floats and 4 more every 8 rows."""
+    if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
+        raise ValueError(f"flash_attention: padded head width {dp}")
+    if dtype == torch.float32:
+        queries = 128 if dp <= 160 else 64
+
+        def tile(rows):
+            return rows * (dp + 4) + 4 * -(-rows // 8)
+
+        return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4)
+    keys, stages = (64 if dp <= 160 else 32), (3 if dp <= 192 else 2)
+    return FwdPlan(128, keys, 1024 + (128 + 2 * stages * keys) * dp * 2 + (1 + 2 * stages) * 8)
 
 
 def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, head_dim: int, heads: int = 1, *,

@@ -18,8 +18,10 @@ before the rounding and the residual, ``ops/dropout.py``) and ``save_pre``
 (fc1 also returns its pre-GELU activation in bf16, which the backward's
 GELU' reads: saved, not recomputed). The backward is two kernels
 (``csrc/ln_linear_bwd.cu``): ``ln_linear_bwd`` (dX = dY' W, with fc1's
-mask and GELU' or the LayerNorm backward fused) and ``ln_linear_wgrad``
-(dW = dY'^T A and db, per-batch partials summed here).
+mask and GELU' or the LayerNorm backward fused; it reads each dY' element
+once a call when K <= 160 or dY' fits in shared memory, ``dx_plan``, against
+the W^T of ``dx_weight``) and ``ln_linear_wgrad`` (dW = dY'^T A and db,
+per-batch partials summed here).
 
 Activations round to the input dtype where the JAX package's fused TPU
 kernels round them: the (x + row) sum, the normalised input, the projection
@@ -225,6 +227,64 @@ def _masked_dy(dy: Tensor, heads, drop: t.Optional[Dropout]) -> Tensor:
     return apply_dropout(dy.reshape(-1, dy.shape[-1]), drop).reshape(dy.shape)
 
 
+def dx_weight(w: Tensor, heads=None) -> Tensor:
+    """W^T (K, NS) over the stored columns of the cotangent ``ln_linear_bwd``
+    reads: (Nout, K) w transposed and zero-padded at the end to a multiple of
+    32 for a row-major dy, or each head's D columns zero-padded to
+    ``padded_head_dim(D)`` for a head-major one, so that the kernel walks
+    its (S, B, H, N, DP) planes as they lie (NS = S * H * DP)."""
+    nout, k = w.shape
+    if heads is None:
+        return F.pad(w.t(), (0, -(-nout // 32) * 32 - nout)).contiguous()
+    head_dim = heads[1]
+    wt = w.t().reshape(k, nout // head_dim, head_dim)
+    return F.pad(wt, (0, padded_head_dim(head_dim) - head_dim)).reshape(k, -1).contiguous()
+
+
+class DxPlan(t.NamedTuple):
+    rows: int  # rows a block: 128 or 64
+    stages: int  # depth of the copy ring
+    resident: bool  # the block's dY' rows stay in shared memory for every output tile
+    k_tiles: int  # output tiles of DX_TILE columns
+    smem: int  # dynamic shared memory a block, bytes
+
+    @property
+    def dy_reads(self) -> int:
+        """How many times each dY' element is read from device memory."""
+        return 1 if self.resident else self.k_tiles
+
+
+DX_TILE, DX_CHUNK, DX_MAX_SMEM = 160, 32, 232448
+
+
+def dx_plan(k: int, ns: int, aligned: bool, ln: bool) -> t.Optional[DxPlan]:
+    """The launch ``csrc/ln_linear_bwd.cu`` ``dx_plan`` picks for a K-wide
+    dX over NS stored reduction columns, dY rows 16-byte aligned or not,
+    with the LayerNorm epilogue or not (None: no launch fits). A block owns
+    a 160-column output tile; its dY' rows stay in shared memory across the
+    tiles when they fit (resident), else dY streams once per tile; 128 rows
+    before 64; of the ring depths 4, 3, 2 the deepest that leaves room for
+    two blocks a SM, else the deepest that fits. The products go through an
+    fp32 tile; the LayerNorm's fp32 rows reuse the ring when K fits one
+    tile."""
+    k_tiles = -(-k // DX_TILE)
+    ld = DX_CHUNK + 8
+    for resident in ((True, False) if k_tiles > 1 else (False,)):
+        for rows in (128, 64):
+            for limit in (DX_MAX_SMEM // 2 - 1024, DX_MAX_SMEM):
+                for stages in (4, 3, 2):
+                    w = stages * DX_TILE * ld * 2
+                    a = rows * (ns + 8) * 2 if resident else (stages if aligned else 2) * rows * ld * 2
+                    ring = w + a + (0 if aligned else stages * rows * ld * 2)
+                    e = (rows * (k_tiles * DX_TILE + 4) * 4 + rows * 16 if ln
+                         else rows * (DX_TILE + 4) * 4)
+                    e_off = 0 if ln and k_tiles == 1 and e <= ring else ring
+                    smem = max(ring, e_off + e)
+                    if smem <= limit:
+                        return DxPlan(rows, stages, resident, k_tiles, smem)
+    return None
+
+
 def gelu_grad(x: Tensor) -> Tensor:
     """d/dx of the exact-erf GELU, in float32."""
     x = x.float()
@@ -305,8 +365,9 @@ def ln_linear_bwd(
     if drop is not None and pre_drop is not None and drop.active and pre_drop.active and (
             drop.rate != pre_drop.rate or drop.seed != pre_drop.seed):
         raise ValueError("ln_linear_bwd: the two masks share one rate and seed")
-    np_ = -(-nout // 32) * 32
-    wt = F.pad(w.t(), (0, np_ - nout)).contiguous()  # (K, NP)
+    if heads is not None and dy.data_ptr() % 16:
+        raise ValueError("ln_linear_bwd: a head-major dy starts 16-byte aligned")
+    wt = dx_weight(w, heads)  # (K, NS)
     num_heads, head_dim = heads or (0, 0)
     head_pad = padded_head_dim(head_dim) if heads else 0
     dx = torch.empty((b, n, k), dtype=bf, device=dy.device)
@@ -321,7 +382,7 @@ def ln_linear_bwd(
     if thr_out and not thr_in:  # the two masks share one seed and scale
         seed, _, _, scale = drop_args(pre_drop)
     rc = _build.library().v1t_ln_linear_dx(
-        dy.data_ptr(), dx.data_ptr(), wt.data_ptr(), b * n, nout, k, np_, n, num_heads,
+        dy.data_ptr(), dx.data_ptr(), wt.data_ptr(), b * n, nout, k, wt.shape[1], n, num_heads,
         head_dim, head_pad, seed, site_in, thr_in, _build.ptr(pre), site_out,
         thr_out, scale, _build.ptr(x), _build.ptr(pro_row),
         _build.ptr(gamma), _build.ptr(beta), _build.ptr(dres), _build.ptr(ln_out),
