@@ -8,8 +8,11 @@ Phases, one line each as they go:
 2. the build of the CUDA kernels (one ``nvcc`` per source, in parallel,
    into ``v1t_tpu_torch/_build``), each kernel's registers and spills, the
    flash kernels' shared memory a block, and the launch plans of the flash
-   forward and of ``ln_linear_dx`` held against the library's (the dX plan
-   of each flagship use: rows a block, ring depth, how often dY' is read);
+   forward, of ``ln_linear`` (``linear_plan``), ``ln_linear_dx``
+   (``dx_plan``) and ``ln_linear_wgrad`` (``wgrad_plan``) held against the
+   library's, with each flagship use's plan (rows a block, tiles, ring
+   depths, how often dY' is read, slices and clusters of the weight
+   gradient);
 3. every kernel against its plain PyTorch version at the flagship shapes
    (batch 64, 1654 tokens, emb 155, 4 heads of 155, MLP 488, a 29x57 core
    map, 7000 neurons), the training variants and the backward kernels with
@@ -17,7 +20,11 @@ Phases, one line each as they go:
    plain version's time, one PyTorch library call's time where one computes
    the same function, and the least time the card could take (bytes at
    3.35 TB/s or operations at the peak rate of their type, whichever is
-   larger), with each dX use's share of its bound;
+   larger), with each dX use's share of its bound; beside each projection
+   and weight gradient, the library's time for its product alone
+   (``F.linear`` on the materialised LayerNorm output, ``torch.matmul`` of
+   the materialised row-major dY'^T and A), and the weight gradient run
+   twice, bit for bit;
    3b. the backward kernels (``attention_bwd`` with and without dropout),
    and the bf16 one-pass backward that ``attention_bwd`` and ``flash_bwd``
    share, timed through both at the flagship shape with its kernels
@@ -32,8 +39,9 @@ Phases, one line each as they go:
    34,114 tokens, head 155, bf16, dropout on, the keep masks bit-identical),
    the fp32 flagship shape (64 x 4 heads, 1654 tokens; serving against SDPA
    and the bound), a rectangular case
-   with padded keys and an LSE cotangent, an LSA case and head widths 192
-   and 256; and the fused MLP's and the readout's kernels at the shapes
+   with padded keys and an LSE cotangent, an LSA case, rows whose every
+   key is masked (LSA at N 1) and key counts that fill no tile, and head
+   widths 192 and 256; and the fused MLP's and the readout's kernels at the shapes
    the composed paths give them (68,228 rows; a 137x249 and a float32 map);
 5. training: ``Trainer.train_step`` on the flagship model (dropout on,
    readout noise on), two mice of 7000 neurons, batch 64, two cycles with
@@ -304,13 +312,21 @@ def check_kernels(gen: torch.Generator) -> tuple:
         ms = cuda_ms(lambda: ln_linear(kw["x"], kw["w"], **args))
         plain_ms = cuda_ms(lambda: ln_linear_plain(kw["x"], kw["w"], **args), iters=3)
         torch_ms = cuda_ms(lambda: torch_ln_linear(kw))
+        # the library's product alone, on the materialised LayerNorm output
+        z = kw["x"]
+        if kw.get("gamma") is not None:
+            z = z if kw.get("pro_row") is None else z + kw["pro_row"][:, None, :]
+            z = F.layer_norm(z.float(), (k,), kw["gamma"], kw["beta"], 1e-5).to(bf)
+        product_ms = cuda_ms(lambda: F.linear(z, kw["w"]))
+        del z
         per_use[use] = dict(ms=ms, plain_ms=plain_ms, torch_bf16_ms=torch_ms, bound_ms=b_ms,
-                            bound_by=b_by, max_abs_err=err)
+                            bound_by=b_by, max_abs_err=err, product_library_ms=product_ms)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms), ("torch_ms", torch_ms)):
             tot[key] += val
         bound_kinds.add(b_by)
         log(f"  ln_linear[{use}] ({m}x{k} @ {k}x{n_out}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"torch_bf16_ms {torch_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            f"torch_bf16_ms {torch_ms:.4f} F.linear_product_ms {product_ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}); bound share {b_ms / ms:.3f}")
     rows.append(dict(
         name="ln_linear", route="cuda", source="v1t_tpu_torch/csrc/ln_linear.cu",
         replaces="v1t_tpu/ops/fused_mha.py:567 (projections); v1t_tpu/ops/fused_mlp.py:111",
@@ -432,8 +448,8 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
         bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain,
     )
     from v1t_tpu_torch.ops.ln_linear import (
-        ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_wgrad, ln_linear_wgrad_plain,
-        merge_heads,
+        _masked_dy, ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_wgrad,
+        ln_linear_wgrad_plain, merge_heads,
     )
 
     dev, bf, f32 = DEVICE, torch.bfloat16, torch.float32
@@ -574,19 +590,33 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
         err = compare(f"ln_linear_wgrad[{use}] dW", dw, dw_ref, KERNEL_TOL)
         if db is not None:
             compare(f"ln_linear_wgrad[{use}] db", db, db_ref, KERNEL_TOL)
+        # no float atomics: a second run gives the same bits
+        dw2, db2 = ln_linear_wgrad(kw["dy"], kw["a"], **args)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and (db is None or torch.equal(db, db2))):
+            raise AssertionError(f"ln_linear_wgrad[{use}]: two runs differ")
+        log(f"  ln_linear_wgrad[{use}] rerun: dW and db bit-identical")
+        del dw2, db2
         nout, k = dw.shape
         b_ms, b_by = bound(m * nout * 2 + nbytes(kw["a"], dw, db), 2.0 * m * nout * k, "bf16")
         ms = cuda_ms(lambda: ln_linear_wgrad(kw["dy"], kw["a"], **args))
         plain_ms = cuda_ms(lambda: ln_linear_wgrad_plain(kw["dy"], kw["a"], **args), iters=3)
+        # the library's product alone, on materialised row-major dY' and A
+        d_rm = _masked_dy(kw["dy"], args.get("heads"), args.get("drop")).reshape(m, nout)
+        d_t, a_rm = d_rm.t(), kw["a"].reshape(m, k)
+        product_ms = cuda_ms(lambda: torch.matmul(d_t, a_rm))
+        del d_rm, d_t, a_rm
         wgrad_row["ms"] += ms
         wgrad_row["plain_ms"] += plain_ms
         wgrad_row["bound_ms"] += b_ms
         wgrad_row["worst"] = max(wgrad_row["worst"], err)
         wgrad_row["kinds"].add(b_by)
         wgrad_row["per_use"][use] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                         max_abs_err=err[0])
+                                         max_abs_err=err[0], product_library_ms=product_ms,
+                                         rerun_bit_identical=True)
         log(f"  ln_linear_wgrad[{use}] ({nout}x{m} @ {m}x{k}): kernel_ms {ms:.4f} "
-            f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            f"plain_ms {plain_ms:.4f} torch.matmul_product_ms {product_ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}); bound share {b_ms / ms:.3f}")
     for name, acc in (("ln_linear_bwd", bwd_row), ("ln_linear_wgrad", wgrad_row)):
         rows.append(dict(
             name=name, route="cuda", source="v1t_tpu_torch/csrc/ln_linear_bwd.cu",
@@ -778,6 +808,34 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         log(f"  flash_attention[{label}] keep mask: bit-identical to the plain version's "
             f"({bh} planes x {n} rows x {n} keys)")
 
+    def masked_rows():
+        """bf16 rows whose every key is masked (LSA at N 1: P spreads over the
+        masked keys, keys past Nk weigh nothing) and key counts that fill no
+        tile, forward and backward against the plain versions. At N 1 the
+        row's P is 1 whatever its score, so dS = P (dP - delta) vanishes but
+        for rounding: dq and dk are held to the tolerance of dv's scale."""
+        for nq, lsa in ((1, True), (1, False), (70, True)):
+            q, k, v = operands(8, nq, nq, E, bf)
+            (o, lse), (o_ref, lse_ref) = (fn(q, k, v, E, 4, with_lse=True, use_lsa=lsa)
+                                          for fn in (flash_fwd, flash_fwd_plain))
+            label = f"N {nq}{', lsa' if lsa else ''}"
+            compare(f"flash_attention[{label}] o", o, o_ref, KERNEL_TOL)
+            compare(f"flash_attention[{label}] lse", lse, lse_ref, F32_KERNEL_TOL)
+            do = torch.randn(o.shape, generator=gen).to(DEVICE, bf)
+            got = flash_bwd(q, k, v, o_ref, do, lse_ref, E, 4, use_lsa=lsa)
+            ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, E, 4, use_lsa=lsa)
+            compare(f"flash_attention_bwd[{label}] dv", got[2], ref[2], KERNEL_TOL)
+            scale = ref[2].float().abs().max().item()
+            for part, g_, r_ in zip(("dq", "dk"), got[:2], ref[:2]):
+                err = (g_.float() - r_.float()).abs().max().item()
+                ref_max = max(r_.float().abs().max().item(), scale if nq == 1 else 0.0)
+                ok = torch.isfinite(g_.float()).all().item() and err <= KERNEL_TOL * ref_max
+                log(f"  flash_attention_bwd[{label}] {part}: max|d| {err:.3e}, of the scale "
+                    f"{ref_max:.3e}: {err / max(ref_max, 1e-30):.3e} (tol {KERNEL_TOL:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd[{label}] {part}")
+
     cases = {}
     cases["full_res"] = check("full-res, dropout", FR_B * H, H, FR_N, FR_N, E, bf, drp=drop,
                               timed=True)
@@ -788,6 +846,7 @@ def check_flash_kernels(gen: torch.Generator) -> list:
     cases["rectangular"] = check("rectangular, n_real_k 1300, dlse", 8, 4, 1000, 1500, 64, bf,
                                  n_real=1300, dlse=True)
     cases["lsa"] = check("lsa", 8, 4, N, N, E, bf, lsa=True, drp=drop)
+    masked_rows()
     for d in (192, 256):
         cases[f"head_{d}"] = check(f"head width {d}", 8, 8, N, N, d, bf, drp=drop)
     full = cases["full_res"]
@@ -1185,11 +1244,12 @@ def where_the_time_goes(label: str, fn, phase: str = "6") -> None:
 
 def check_launch_plans(lib) -> None:
     """The host's mirrors of the plans compiled into the kernels
-    (``fwd_plan``, ``dx_plan``) against the library's, and the dX plan of
-    each flagship use: rows a block, ring depth, whether dY' stays in shared
-    memory, how often each dY' element is read, shared memory a block."""
+    (``fwd_plan``, ``dx_plan``, ``linear_plan``, ``wgrad_plan``) against the
+    library's, and the plan of each flagship use: rows a block, tiles, ring
+    depth, whether dY' stays in shared memory, how often each dY' element is
+    read, the weight gradient's slices and clusters, shared memory a block."""
     from v1t_tpu_torch.ops.flash_attention import fwd_plan
-    from v1t_tpu_torch.ops.ln_linear import dx_plan
+    from v1t_tpu_torch.ops.ln_linear import COPIES, dx_plan, linear_plan, wgrad_plan
 
     for dp in range(32, 257, 32):
         for dtype, f32 in ((torch.bfloat16, 0), (torch.float32, 1)):
@@ -1209,6 +1269,49 @@ def check_launch_plans(lib) -> None:
         log(f"  ln_linear_dx[{use}] (K {k}, {ns} stored reduction columns): {plan.rows} rows "
             f"a block, {plan.stages} stages, {'resident' if plan.resident else 'streamed'}, "
             f"dY' read {plan.dy_reads}x, {plan.smem} bytes of shared memory a block")
+    # the forward and the weight gradient at the flagship's and the
+    # full-resolution path's rows: (N, K, heads, LayerNorm, x aligned,
+    # residual) and (N, K, heads, dY aligned, A aligned)
+    m, fr_m = B * N, FR_B * FR_N
+    fwd = {"qkv": (3 * H * E, E, H, True, False, False),
+           "out_proj": (E, H * E, 0, False, H * E % 8 == 0, True),
+           "fc1": (F_HID, E, 0, True, False, False),
+           "fc2": (E, F_HID, 0, False, F_HID % 8 == 0, True)}
+    for use, (n_, k, h, ln, al, res) in fwd.items():
+        plan = linear_plan(m, n_, k, (h, E) if h else None, ln, al, res)
+        got = [lib.v1t_ln_linear_plan(m, n_, k, -(-k // 32) * 32, h, E if h else 0,
+                                      dp if h else 0, int(ln), int(al), int(res), f)
+               for f in range(6)]
+        if plan is None or got != [int(plan.stream), plan.rows, plan.tile, plan.tiles,
+                                   plan.stages, plan.smem]:
+            raise AssertionError(f"linear_plan of {use} disagrees with the library: {got}")
+        log(f"  ln_linear[{use}] (K {k}, N {n_}): {'x streamed' if plan.stream else 'panel'}, "
+            f"{plan.rows} rows a block, {plan.tiles} tiles of {plan.tile}, {plan.stages} stages, "
+            f"{plan.smem} bytes of shared memory a block")
+    wg = {"out_proj": (E, H * E, 0, E % 8 == 0, H * E % 8 == 0),
+          "qkv": (3 * H * E, E, H, True, E % 8 == 0),
+          "fc2": (E, F_HID, 0, E % 8 == 0, F_HID % 8 == 0),
+          "fc1": (F_HID, E, 0, F_HID % 8 == 0, E % 8 == 0)}
+    for rows, path in ((m, "flagship"), (fr_m, "full-res")):
+        for use, (n_, k, h, dy_al, a_al) in wg.items():
+            if path == "full-res" and use not in ("fc1", "fc2"):
+                continue
+            per_batch = N if path == "flagship" else FR_N
+            plan = wgrad_plan(rows, n_, k, per_batch, (h, E) if h else None, dy_al, a_al)
+            got = [lib.v1t_ln_linear_wgrad_plan(rows, n_, k, per_batch, h, E if h else 0,
+                                                dp if h else 0, int(dy_al), int(a_al), f)
+                   for f in range(11)]
+            want = [plan.tile, plan.n_tiles, plan.k_tiles, plan.slices, plan.cluster,
+                    plan.stages, plan.smem, plan.chunks, COPIES.index(plan.a_copy),
+                    COPIES.index(plan.dy_copy), plan.copied_stages]
+            if got != want:
+                raise AssertionError(f"wgrad_plan of {use} ({path}) disagrees: {got} != {want}")
+            log(f"  ln_linear_wgrad[{use}, {path}] (N {n_}, K {k}, {rows} rows): "
+                f"{plan.n_tiles} x {plan.k_tiles} tiles, {plan.slices} slices, clusters of "
+                f"{plan.cluster}, {plan.blocks} blocks, dY copied {plan.dy_reads}x, A by "
+                f"{plan.a_copy}, dY by {plan.dy_copy}, partials "
+                f"{plan.slices * n_ * k * 4 / (rows * n_ * 2):.3f} of dY's bytes, "
+                f"{plan.smem} bytes of shared memory a block")
 
 
 def main() -> int:

@@ -92,6 +92,9 @@ LN_CASES = [
     (2, 50, 768, 200, "bias+residual"),
     (2, 40, 320, 100, "ln+bias+gelu"),
     (1, 33, 640, 64, "ln+row"),
+    # no LayerNorm, rows not 16-byte aligned and wider than a panel: padded
+    # to aligned rows by the wrapper, then streamed
+    (2, 33, 1001, 64, "bias+residual"),
 ]
 
 
@@ -722,3 +725,155 @@ def test_launch_plans_match_the_library(gen):
                 for ln in (0, 1) if k <= 640 else (0,):
                     plan = dx_plan(k, ns, bool(aligned), bool(ln))
                     assert lib.v1t_ln_linear_dx_smem(k, ns, aligned, ln) == plan.smem
+
+
+# the sweep space (configs/sweep_v1t.yaml): emb, heads, MLP width
+SWEEP = [(e, h, f) for e in (64, 155, 256) for h in (2, 8) for f in (128, 487, 768)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("emb,heads,mlp", SWEEP, ids=str)
+def test_projection_kernels_cover_the_sweep(gen, emb, heads, mlp, rate):
+    """The forward (a resident LayerNorm panel, an unaligned panel or a
+    streamed x) and the weight gradient (TMA, whole-row spans, row segments)
+    at every width of the sweep space, the four projections of a block with
+    their dropout, over 2 x 67 rows (no multiple of 64 or 128)."""
+    b, n = 2, 67
+    drop = _drop(rate, site=4)
+    d = emb
+    x = _randn(gen, b, n, emb)
+    gamma = 1.0 + _randn(gen, emb, scale=0.1, dtype=torch.float32)
+    beta = _randn(gen, emb, scale=0.1, dtype=torch.float32)
+    row = _randn(gen, b, emb, scale=0.5)
+    wqkv = _randn(gen, 3 * heads * d, emb, scale=emb ** -0.5)
+    wp = _randn(gen, emb, heads * d, scale=(heads * d) ** -0.5)
+    w1 = _randn(gen, mlp, emb, scale=emb ** -0.5)
+    w2 = _randn(gen, emb, mlp, scale=mlp ** -0.5)
+    bias = {k_: _randn(gen, k_, scale=0.1, dtype=torch.float32) for k_ in (emb, mlp)}
+    o = _randn(gen, b, n, heads * d)
+    hid = _randn(gen, b, n, mlp)
+    forward = {
+        "qkv": (x, wqkv, dict(gamma=gamma, beta=beta, pro_row=row, heads=(heads, d))),
+        "out_proj": (o, wp, dict(bias=bias[emb], residual=x, res_row=row, drop=drop)),
+        "fc1": (x, w1, dict(gamma=gamma, beta=beta, bias=bias[mlp], gelu=True, drop=drop,
+                            save_pre=True)),
+        "fc2": (hid, w2, dict(bias=bias[emb], residual=x, drop=drop)),
+    }
+    for use, (xx, ww, kw) in forward.items():
+        got, ref = ln_linear(xx, ww, **kw), ln_linear_plain(xx, ww, **kw)
+        for g_, r_ in zip(*((got, ref) if kw.get("save_pre") else ((got,), (ref,)))):
+            _close(g_, r_)
+    qkv = ln_linear(x, wqkv, gamma=gamma, beta=beta, heads=(heads, d))
+    wgrad = {
+        "out_proj": (_randn(gen, b, n, emb), o, dict(drop=drop, bias=True)),
+        "qkv": (qkv, _randn(gen, b, n, emb), dict(heads=(heads, d))),
+        "fc2": (_randn(gen, b, n, emb), hid, dict(drop=drop, bias=True)),
+        "fc1": (_randn(gen, b, n, mlp), _randn(gen, b, n, emb), dict(bias=True)),
+    }
+    for use, (dy, a, kw) in wgrad.items():
+        (dw, db), (dw_ref, db_ref) = ln_linear_wgrad(dy, a, **kw), ln_linear_wgrad_plain(dy, a, **kw)
+        _close(dw, dw_ref)
+        if db_ref is not None:
+            _close(db, db_ref)
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 65), (2, 129), (2, 1000)], ids=str)
+@pytest.mark.parametrize("nout,k", [(155, 620), (155, 488), (488, 155), (33, 70)], ids=str)
+def test_ln_linear_wgrad_offset_operands_match_plain(gen, b, n, nout, k):
+    """dY and A that start 2 bytes past a 16-byte boundary (whole-row spans
+    and row segments at any offset), batch 1 and 2, rows that fill no chunk
+    of 64, the keep mask on."""
+    dy, a = _offset(_randn(gen, b, n, nout)), _offset(_randn(gen, b, n, k))
+    kw = dict(drop=_drop(0.25, site=9), bias=True)
+    for g_, r_ in zip(ln_linear_wgrad(dy, a, **kw), ln_linear_wgrad_plain(dy, a, **kw)):
+        _close(g_, r_)
+
+
+@pytest.mark.parametrize("use", ["out_proj", "qkv", "fc2", "fc1"])
+def test_ln_linear_wgrad_reruns_agree(gen, use):
+    """No float atomics: the slices' partials are summed in a fixed order
+    (the cluster's in rank order, the slices in slice order), so two runs
+    give the same dW and db bit for bit."""
+    b, n, emb, heads, mlp = 3, 700, 155, 4, 488
+    drop = _drop(0.25, site=2)
+    if use == "qkv":
+        dy = ln_linear(_randn(gen, b, n, 32), _randn(gen, 3 * heads * emb, 32, scale=0.3),
+                       heads=(heads, emb))
+        a, kw = _randn(gen, b, n, emb), dict(heads=(heads, emb))
+    else:
+        nout, k = dict(out_proj=(emb, heads * emb), fc2=(emb, mlp), fc1=(mlp, emb))[use]
+        dy, a = _randn(gen, b, n, nout), _randn(gen, b, n, k)
+        kw = dict(drop=drop if use != "fc1" else None, bias=True)
+    first, second = (ln_linear_wgrad(dy, a, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    for f_, s_ in zip(first, second):
+        assert (f_ is None and s_ is None) or torch.equal(f_, s_)
+
+
+@pytest.mark.parametrize("nq,nk,n_real,lsa", [
+    (1, 1, 1, True),  # the row's one key is masked: P spreads over the masked keys
+    (3, 3, 3, True), (1, 1, 1, False),
+    (70, 70, 70, True), (130, 200, 150, False),  # Nk no multiple of the key tile
+], ids=str)
+def test_flash_bf16_masked_rows_match_plain(gen, nq, nk, n_real, lsa):
+    """The bf16 flash forward and one-pass backward where a row's every key
+    is masked (LSA at N 1) and where Nk fills no key tile: keys past Nk weigh
+    nothing, masked keys keep the plain version's masked score. At N 1 the
+    row's P is 1 whatever its score, so dS = P (dP - delta) vanishes but for
+    rounding: dq and dk are held to the kernel tolerance of dv's scale."""
+    bh, heads, d = 4, 2, 155
+    q, k, v = (torch.zeros(bh, m, 160, dtype=torch.bfloat16, device="cuda") for m in (nq, nk, nk))
+    for x in (q, k, v):
+        x[..., :d] = _randn(gen, bh, x.shape[1], d) * d ** -0.25
+    kw = dict(n_real_k=n_real, use_lsa=lsa)
+    o, lse = flash_fwd(q, k, v, d, heads, with_lse=True, **kw)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, d, heads, with_lse=True, **kw)
+    _close(o, o_ref)
+    _close(lse, lse_ref, F32_TOL)
+    do = _randn(gen, *o.shape)
+    got = flash_bwd(q, k, v, o_ref, do, lse_ref, d, heads, **kw)
+    ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, d, heads, **kw)
+    torch.cuda.synchronize()
+    scale = ref[2].float().abs().max().item()
+    for g_, r_ in zip(got, ref):  # dq, dk, dv
+        assert torch.isfinite(g_.float()).all()
+        assert (g_.float() - r_.float()).abs().max().item() <= TOL * max(
+            r_.float().abs().max().item(), scale if nq == 1 else 0.0) + 1e-6
+
+
+def test_projection_plans_match_the_library(gen):
+    """ops/ln_linear.py linear_plan and wgrad_plan mirror the plans compiled
+    into csrc/ln_linear.cu and csrc/ln_linear_bwd.cu: the same launch."""
+    from v1t_tpu_torch import _build
+    from v1t_tpu_torch.ops.ln_linear import COPIES, linear_plan, wgrad_plan
+
+    lib = _build.library()
+    for m, rows in ((64 * 1654, 1654), (2 * 34114, 34114), (130, 65)):
+        for emb, heads, mlp in SWEEP + [(155, 4, 488)]:
+            kp = lambda k_: -(-k_ // 32) * 32  # noqa: E731
+            dp = -(-emb // 32) * 32
+            fwd = [(3 * heads * emb, emb, heads, True, False, False),
+                   (emb, heads * emb, 0, False, heads * emb % 8 == 0, True),
+                   (mlp, emb, 0, True, False, False), (emb, mlp, 0, False, mlp % 8 == 0, True)]
+            for n_, k_, h_, ln, al, res in fwd:
+                plan = linear_plan(m, n_, k_, (h_, emb) if h_ else None, ln, al, res)
+                got = [lib.v1t_ln_linear_plan(m, n_, k_, kp(k_), h_, emb if h_ else 0,
+                                              dp if h_ else 0, int(ln), int(al), int(res), f)
+                       for f in range(6)]
+                if plan is None:
+                    assert got[5] == 0
+                else:
+                    assert got == [int(plan.stream), plan.rows, plan.tile, plan.tiles,
+                                   plan.stages, plan.smem]
+            bwd = [(emb, heads * emb, 0), (3 * heads * emb, emb, heads), (emb, mlp, 0),
+                   (mlp, emb, 0)]
+            for n_, k_, h_ in bwd:
+                for dy_al, a_al in ((True, True), (False, False)):
+                    plan = wgrad_plan(m, n_, k_, rows, (h_, emb) if h_ else None, dy_al, a_al)
+                    got = [lib.v1t_ln_linear_wgrad_plan(m, n_, k_, rows, h_, emb if h_ else 0,
+                                                        dp if h_ else 0, int(dy_al), int(a_al), f)
+                           for f in range(11)]
+                    assert got == [plan.tile, plan.n_tiles, plan.k_tiles, plan.slices,
+                                   plan.cluster, plan.stages, plan.smem, plan.chunks,
+                                   COPIES.index(plan.a_copy), COPIES.index(plan.dy_copy),
+                                   plan.copied_stages]

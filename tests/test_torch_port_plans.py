@@ -1,9 +1,11 @@
 """Host-side logic of the port's redesigned kernels, on the CPU: the W^T
-layouts ``ln_linear_bwd`` hands its dX kernel, the launch plans the dX
-kernel and the float32 flash forward pick (``dx_plan``, ``fwd_plan``, mirrors
-of the plans compiled into ``csrc/ln_linear_bwd.cu`` and
-``csrc/flash_attention.cu``; a card test holds each mirror against the
-library), and source checks of what each kernel reads.
+layouts ``ln_linear_bwd`` hands its dX kernel and the padded w of the
+forward, the launch plans the projection kernels and the float32 flash
+forward pick (``linear_plan``, ``dx_plan``, ``wgrad_plan``, ``fwd_plan``,
+mirrors of the plans compiled into ``csrc/ln_linear.cu``,
+``csrc/ln_linear_bwd.cu`` and ``csrc/flash_attention.cu``; a card test holds
+each mirror against the library), and source checks of what each kernel
+reads.
 
 Tolerance of the layout checks: 1e-5 of the largest value, float32
 products summed in other orders.
@@ -15,15 +17,45 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops import flash_attention as fa
 from v1t_tpu_torch.ops.ln_linear import (
-    DX_MAX_SMEM, dx_plan, dx_weight, ln_linear_bwd_plain, merge_heads, padded_head_dim,
+    DX_MAX_SMEM, PANEL_MAX_K, PANEL_MAX_K128, WGRAD_KT, WGRAD_MAX_CLUSTER, WGRAD_PARTIAL_SHARE,
+    WGRAD_TARGET, dx_plan, dx_weight, forward_weight, linear_plan, ln_linear_bwd_plain,
+    ln_linear_plain, merge_heads, padded_head_dim, wgrad_plan,
 )
 
 TOL = 1e-5
 SMEM = 232448  # a block's shared memory on an H100
+SMS = 132  # streaming multiprocessors of an H100
+# the sweep space (configs/sweep_v1t.yaml): emb, heads, MLP width
+SWEEP = [(e, h, f) for e in (64, 155, 256) for h in (2, 8) for f in (128, 487, 768)]
+FLAGSHIP = (155, 4, 488)
+M_FLAGSHIP, M_FULLRES = 64 * 1654, 2 * 34114  # rows: batch x tokens
+
+
+def _forward_uses(emb, heads, mlp):
+    """Each projection of a block: (N, K, heads, LayerNorm, x rows 16-byte
+    aligned, residual)."""
+    return {
+        "qkv": (3 * heads * emb, emb, (heads, emb), True, False, False),
+        "out_proj": (emb, heads * emb, None, False, heads * emb % 8 == 0, True),
+        "fc1": (mlp, emb, None, True, False, False),
+        "fc2": (emb, mlp, None, False, mlp % 8 == 0, True),
+    }
+
+
+def _wgrad_uses(emb, heads, mlp):
+    """Each weight gradient of a block: (N, K, heads, dY rows 16-byte
+    aligned, A rows 16-byte aligned)."""
+    return {
+        "out_proj": (emb, heads * emb, None, emb % 8 == 0, heads * emb % 8 == 0),
+        "qkv": (3 * heads * emb, emb, (heads, emb), True, emb % 8 == 0),
+        "fc2": (emb, mlp, None, emb % 8 == 0, mlp % 8 == 0),
+        "fc1": (mlp, emb, None, mlp % 8 == 0, emb % 8 == 0),
+    }
 
 
 def _source(name):
@@ -136,16 +168,144 @@ def test_dx_plan_constants_match_the_kernel_source():
     assert int(re.search(r"constexpr int DX_MAX_SMEM = (\d+);", src).group(1)) == DX_MAX_SMEM
 
 
-def test_dx_kernel_gathers_nothing_and_wgrad_keeps_its_gather():
+def test_dx_kernel_gathers_nothing_and_wgrad_copies_whole_chunks():
     """The dX kernel copies dY in 16-byte granules, once per chunk it needs
-    (no gather in its loop over output tiles); ln_linear_wgrad still reads dY
-    through gather_dy4 and masks it through finish_dy4."""
+    (no gather in its loop over output tiles); ln_linear_wgrad no longer
+    gathers dY element by element (gather_dy4 / finish_dy4 are gone): one
+    thread copies each 64-row chunk whole, by TMA boxes or the span of its
+    rows (copy_rows), the keep mask is applied to the chunk in shared
+    memory, and no float atomic touches dW or db."""
     src = _source("ln_linear_bwd.cu")
     dx = _kernel_body(src, "ln_linear_dx_kernel")
-    wgrad = _kernel_body(src, "ln_linear_wgrad_kernel")
+    wgrad = _kernel_body(src, "wgrad_kernel")
     assert "gather" not in dx and "cp_async16(" in dx
     assert "if (!P.resident || s < NC) load_dy(s % NC, s);" in dx
-    assert "gather_dy4(dy, L," in wgrad and "finish_dy4(raw_t[i], drop," in wgrad
+    assert "gather_dy4" not in src and "finish_dy4" not in src
+    assert "tma_box(st + P.d_off" in wgrad and "copy_rows(P.dy_copy, dy," in wgrad
+    assert "keep_words(drop, 0u, row, grp)" in wgrad
+    assert "atomic" not in wgrad
+
+
+@pytest.mark.parametrize("emb,heads,mlp", SWEEP, ids=str)
+def test_forward_launch_plan_covers_the_sweep(emb, heads, mlp):
+    """Every width of the sweep space has a forward launch within a block's
+    shared memory; qkv's output tile is one head's plane of head_pad (two
+    halves above 160), so that its pad columns come out of w's zero rows;
+    other outputs split N evenly into tiles of at most 160 columns."""
+    for use, (n, k, hd, ln, aligned, res) in _forward_uses(emb, heads, mlp).items():
+        plan = linear_plan(M_FLAGSHIP, n, k, hd, ln, aligned, res)
+        if plan is None:  # only an x without LayerNorm, unaligned, wider than a panel
+            assert not ln and not aligned and k > PANEL_MAX_K, use
+            plan = linear_plan(M_FLAGSHIP, n, -(-k // 8) * 8, hd, ln, True, res)
+        assert plan is not None and plan.smem <= SMEM, use
+        assert plan.tile % 32 == 0 and plan.tile <= 160
+        if use == "qkv":
+            dp = padded_head_dim(emb)
+            parts = 1 if dp <= 160 else 2
+            assert plan.tiles == 3 * heads * parts and plan.tile * parts >= dp
+            if dp <= 160:
+                assert plan.tile == dp
+        else:
+            assert plan.tile * plan.tiles >= n and plan.tile * (plan.tiles - 1) < n
+        if not plan.stream:
+            assert k <= (PANEL_MAX_K128 if plan.rows == 128 else PANEL_MAX_K)
+
+
+def test_forward_launch_plan_of_the_flagship_uses():
+    """qkv and fc1 build their LayerNorm panel in blocks of 128 rows; the
+    out-projection's o has 1240-byte rows (not 16-byte aligned) and builds
+    a 640-column panel in blocks of 64; fc2 streams its aligned hidden
+    layer by TMA."""
+    uses = _forward_uses(*FLAGSHIP)
+    got = {use: linear_plan(M_FLAGSHIP, n, k, hd, ln, al, res)
+           for use, (n, k, hd, ln, al, res) in uses.items()}
+    assert (got["qkv"].stream, got["qkv"].rows, got["qkv"].tile, got["qkv"].tiles) == (
+        False, 128, 160, 12)
+    assert (got["out_proj"].stream, got["out_proj"].rows, got["out_proj"].tiles) == (False, 64, 1)
+    assert (got["fc1"].stream, got["fc1"].rows, got["fc1"].tile, got["fc1"].tiles) == (
+        False, 128, 128, 4)
+    assert (got["fc2"].stream, got["fc2"].rows, got["fc2"].tiles) == (True, 128, 1)
+
+
+@pytest.mark.parametrize("s,heads,k", [(3, (4, 155), 155), (3, (2, 17), 40), (3, (1, 256), 64)],
+                         ids=str)
+def test_forward_weight_pads_each_head_to_its_plane(s, heads, k):
+    """x @ forward_weight(w, heads)^T (K and each head padded with zeros) laid
+    out per head gives the plain version's head-major output, pad columns
+    zero: the plane a qkv tile writes."""
+    h, d = heads
+    dp = padded_head_dim(d)
+    b, n = 2, 5
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(b, n, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(s * h * d, k)).astype(np.float32))
+    wp = forward_weight(w, heads)
+    kp = -(-k // 32) * 32
+    assert tuple(wp.shape) == (s * h * dp, kp) and wp.is_contiguous()
+    assert torch.all(wp.view(s * h, dp, kp)[:, d:] == 0) and torch.all(wp[:, k:] == 0)
+    y = (F.pad(x, (0, kp - k)) @ wp.t()).view(b, n, s, h, dp).permute(2, 0, 3, 1, 4)
+    ref = ln_linear_plain(x, w, heads=heads)
+    assert np.abs((y - ref).numpy()).max() <= TOL * np.abs(ref.numpy()).max()
+
+
+def test_forward_launch_plan_needs_padding_only_past_a_panel():
+    """An x without LayerNorm whose rows are not 16-byte aligned builds a
+    panel up to K 640; wider, no launch fits and the wrapper pads x to
+    aligned rows, which stream."""
+    assert linear_plan(1000, 155, 620).rows == 64
+    assert linear_plan(1000, 155, 1001) is None
+    assert linear_plan(1000, 155, 1008, x_aligned=True).stream
+
+
+@pytest.mark.parametrize("emb,heads,mlp", SWEEP, ids=str)
+def test_wgrad_launch_plan_covers_the_sweep(emb, heads, mlp):
+    """Every width of the sweep space has a weight-gradient launch within a
+    block's shared memory, whatever the operands' alignment; each dY element
+    is copied by one block per 192-column tile of A, so exactly once wherever
+    K <= 192 (qkv and fc1 up to emb 192); the slices do not depend on the
+    alignment (nor on the device)."""
+    for use, (n, k, hd, dy_al, a_al) in _wgrad_uses(emb, heads, mlp).items():
+        rows = 1654
+        plans = [wgrad_plan(M_FLAGSHIP, n, k, rows, hd, dy, a)
+                 for dy in (dy_al, False) for a in (a_al, False)]
+        for plan in plans:
+            assert 0 < plan.smem <= SMEM and plan.stages >= 2, (use, plan)
+            assert plan.dy_reads == plan.k_tiles == -(-k // WGRAD_KT)
+            assert plan.tile <= 160 and plan.tile % 32 == 0
+        assert len({(p.slices, p.cluster, p.n_tiles, p.k_tiles) for p in plans}) == 1
+        if k <= WGRAD_KT:
+            assert plans[0].dy_reads == 1
+
+
+@pytest.mark.parametrize("m", [M_FLAGSHIP, M_FULLRES], ids=["batch64x1654", "batch2x34114"])
+def test_wgrad_launch_plan_fills_the_card_with_few_partials(m):
+    """At the flagship's widths, batch 64 x 1654 rows and the full-resolution
+    batch 2 x 34,114 (its fc1 and fc2), the launch has at least a block a
+    SM, and the fp32 partials (one (N, K) tile per slice) stay within 10% of
+    dY's bytes; dY is copied once by qkv and fc1, whose K (155) is one tile
+    of A."""
+    uses = _wgrad_uses(*FLAGSHIP)
+    if m == M_FULLRES:
+        uses = {u: uses[u] for u in ("fc2", "fc1")}
+    for use, (n, k, hd, dy_al, a_al) in uses.items():
+        plan = wgrad_plan(m, n, k, 1654 if m == M_FLAGSHIP else 34114, hd, dy_al, a_al)
+        assert plan.blocks >= SMS, (use, plan)
+        assert plan.slices * n * k * 4 <= 0.1 * m * n * 2, (use, plan)
+        assert plan.slices <= max(1, m // (WGRAD_PARTIAL_SHARE * k))
+        assert plan.cluster <= WGRAD_MAX_CLUSTER
+        if use in ("qkv", "fc1"):
+            assert plan.dy_reads == 1
+
+
+def test_projection_plan_constants_match_the_kernel_sources():
+    bwd, fwd = _source("ln_linear_bwd.cu"), _source("ln_linear.cu")
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", bwd)}
+    assert 64 * consts["CONSUMERS"] == WGRAD_KT and consts["MAX_NT"] == 160
+    assert (consts["TARGET_BLOCKS"], consts["MAX_CLUSTER"], consts["PARTIAL_SHARE"]) == (
+        WGRAD_TARGET, WGRAD_MAX_CLUSTER, WGRAD_PARTIAL_SHARE)
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", fwd)}
+    assert (consts["MAX_NT"], consts["MAX_PANEL_K"], consts["MAX_PANEL_K128"], consts["CK"]) == (
+        160, PANEL_MAX_K, PANEL_MAX_K128, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

@@ -180,7 +180,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
     fence_regs(s);
     // only a tile that holds keys at or past n_real, or the block's
     // diagonal under LSA, is masked element by element (a uniform branch);
-    // its scores go to log2 units first, as the plain version masks them
+    // its scores go to log2 units first, as the plain version masks them:
+    // keys past Nk (the tile's zero fill) weigh nothing (-inf), else a row
+    // with every key masked (LSA at N 1) would count them in its sum
     const bool edge = (j + 1) * BKV > n_real ||
                       (lsa && j * BKV < qt * BQ + BQ && (j + 1) * BKV > qt * BQ);
     float scale = LOG2E;  // p = 2^(s scale - m) in one FFMA
@@ -192,7 +194,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
         for (int e = 0; e < 4; ++e) {
           const int key = j * BKV + ni * 8 + 2 * t + (e & 1);
           const bool masked = key >= n_real || (lsa && key == ((e >> 1) ? r1 : r0));
-          s[4 * ni + e] = masked ? MASKED : s[4 * ni + e] * LOG2E;
+          s[4 * ni + e] = key >= Nk ? __int_as_float(0xff800000u)
+                          : masked  ? MASKED
+                                    : s[4 * ni + e] * LOG2E;
         }
     }
     float mx0 = s[0], mx1 = s[2];

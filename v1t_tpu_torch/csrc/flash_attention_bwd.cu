@@ -16,6 +16,9 @@
 // q carries the softmax scale already (the scale's gradient flows through
 // PyTorch's autograd of q * scale, as through XLA's in JAX). Keys at or past
 // n_real_k and, with lsa, the diagonal are masked; Nq != Nk is allowed.
+// A masked key keeps the forward's masked score, so that a row with every
+// key masked (LSA at N 1) spreads P over them as the plain version does;
+// keys past Nk and queries past Nq (the tiles' zero fill) weigh nothing.
 //
 // bf16 at DP <= 160: one pass, the design of the TPU's _merged_bwd_kernel
 // and of FlashAttention-3, on wgmma (hopper.cuh), between two small kernels:
@@ -92,6 +95,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float MASKED = -1e30f;  // the forward's masked score (log2 units)
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_bwd_prep_kernel(
@@ -224,7 +228,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
     const uint32_t qt_s = q_s + st * QP_BYTES, dot_s = do_s + st * QP_BYTES;
     const int lr0 = 16 * warp + g, lr1 = lr0 + 8;  // accumulator rows within the tile
     const int r0 = it * QB + lr0, r1 = it * QB + lr1;
-    const float lse0 = Ls[st * QB + lr0] * s_log2, lse1 = Ls[st * QB + lr1] * s_log2;
+    // rounded as the plain version rounds lse * log2 e (no FMA contraction):
+    // a row whose every key is masked then gets P = 2^(MASKED - lse) = 1 / n
+    const float lse0 = __fmul_rn(Ls[st * QB + lr0], s_log2);
+    const float lse1 = __fmul_rn(Ls[st * QB + lr1], s_log2);
     const float del0 = Dl[st * QB + lr0], del1 = Dl[st * QB + lr1];
 
     // S = q k^T and dP = dO v^T for the tile's 64 queries x SK of the
@@ -260,10 +267,17 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
         float pk[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = ex2(fmaf(s[4 * ni + e], s_log2, -((e >> 1) ? lse1 : lse0)));
-          if (edge) {
+          const float l = (e >> 1) ? lse1 : lse0;
+          float p;
+          if (!edge) {
+            p = ex2(fmaf(s[4 * ni + e], s_log2, -l));
+          } else {
+            // keys past Nk and queries past Nq are the tiles' zero fill:
+            // nothing; a masked key carries the plain version's masked
+            // score (P 0 but in a row with every key masked)
             const int key = kbase + ni * 8 + 2 * t + (e & 1), row = (e >> 1) ? r1 : r0;
-            if (key >= n_real || row >= Nq || (lsa && key == row)) p = 0.f;
+            const bool masked = key >= n_real || (lsa && key == row);
+            p = key >= Nk || row >= Nq ? 0.f : ex2(masked ? MASKED - l : fmaf(s[4 * ni + e], s_log2, -l));
           }
           const float z = drop.on() ? (keep[e] ? drop.scale : 0.f) : 1.f;
           ds[e] = p * (z * dp[4 * ni + e] - ((e >> 1) ? del1 : del0));
@@ -412,7 +426,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
   const int r0 = row0 + g, r1 = r0 + 8;
   const float* lrow = lse + (size_t)bh * Nq;
   const float* drow = delta + (size_t)bh * Nq;
-  const float lse0 = r0 < Nq ? lrow[r0] * LOG2E : 0.f, lse1 = r1 < Nq ? lrow[r1] * LOG2E : 0.f;
+  const float lse0 = r0 < Nq ? __fmul_rn(lrow[r0], LOG2E) : 0.f;
+  const float lse1 = r1 < Nq ? __fmul_rn(lrow[r1], LOG2E) : 0.f;
   const float del0 = r0 < Nq ? drow[r0] : 0.f, del1 = r1 < Nq ? drow[r1] : 0.f;
   const bf16* qw = Qs + (warp * 16 + g) * LD + 2 * t;
   const bf16* dw = dOs + (warp * 16 + g) * LD + 2 * t;
@@ -467,8 +482,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
       for (int j = 0; j < 4; ++j) {
         const int key = kt * BKV + ni * 8 + 2 * t + (j & 1);
         const int row = (j >> 1) ? r1 : r0;
-        const bool masked = key >= n_real || row >= Nq || (lsa && key == row);
-        const float p = masked ? 0.f : exp2f(s[ni][j] * LOG2E - ((j >> 1) ? lse1 : lse0));
+        const bool masked = key >= n_real || (lsa && key == row);
+        const float l = (j >> 1) ? lse1 : lse0;
+        const float e2 = exp2f((masked ? MASKED : s[ni][j] * LOG2E) - l);
+        const float p = key >= Nk || row >= Nq ? 0.f : e2;
         const float z = drop.on() ? (keep[j] ? drop.scale : 0.f) : 1.f;
         ds[j] = p * (z * dp[ni][j] - ((j >> 1) ? del1 : del0));
       }
@@ -557,7 +574,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
     }
     if (tid < CQ) {
       const int row = qtile * CQ + tid;
-      Ls[stage * CQ + tid] = row < Nq ? lrow[row] * LOG2E : 0.f;
+      Ls[stage * CQ + tid] = row < Nq ? __fmul_rn(lrow[row], LOG2E) : 0.f;
       Dl[stage * CQ + tid] = row < Nq ? drow[row] : 0.f;
     }
     cp_async_commit();
@@ -623,8 +640,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
         float* slot = p_pair + (g + (j >> 1) * 8) * PLD + qc;
         if (p_warp) {
           const int key = key0 + g + (j >> 1) * 8;
-          const bool masked = key >= n_real || row >= Nq || (lsa && key == row);
-          const float p = masked ? 0.f : exp2f(c[ni][j] * LOG2E - l_s[qc]);
+          const bool masked = key >= n_real || (lsa && key == row);
+          const float e2 = exp2f((masked ? MASKED : c[ni][j] * LOG2E) - l_s[qc]);
+          const float p = key >= Nk || row >= Nq ? 0.f : e2;
           *slot = keep[j] ? p : -p;
           val[j] = keep[j] ? p : 0.f;  // the 1/keep scale is applied to dv at the end
         }
@@ -817,15 +835,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_kernel(
 #pragma unroll
       for (int j = 0; j < QA; ++j) {
         const int ql = qa + QG * j, row = it * QT + ql;
-        const float l2 = Ls[st * QT + ql] * LOG2E;
+        const float l2 = __fmul_rn(Ls[st * QT + ql], LOG2E);
         uint4 w = make_uint4(0u, 0u, 0u, 0u);
         if (drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key0 >> 2);
+        // only keys at or past n_real, a query past Nq or LSA mask
+        const bool edge = key0 + 4 > n_real || row >= Nq || lsa;
         float zp[4], sp[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = key0 + e;
-          const bool masked = key >= n_real || row >= Nq || (lsa && key == row);
-          const float p = masked ? 0.f : exp2f(s[e][j] * LOG2E - l2);
+          float p;
+          if (!edge) {
+            p = exp2f(s[e][j] * LOG2E - l2);
+          } else {
+            const bool masked = key >= n_real || (lsa && key == row);
+            p = key >= Nk || row >= Nq ? 0.f : exp2f((masked ? MASKED : s[e][j] * LOG2E) - l2);
+          }
           const bool keep = !drop.on() || word_of(w, e) < drop.threshold;
           zp[e] = keep ? p : 0.f;
           sp[e] = keep ? p : -p;  // P >= 0; a dropped P of 0 adds 0 either way

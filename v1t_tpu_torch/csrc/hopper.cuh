@@ -1,7 +1,8 @@
 // Hopper building blocks of the flash kernels (flash_attention.cu,
-// flash_attention_bwd.cu): shared-memory panels in the layout wgmma reads,
-// their descriptors, TMA copies into them, mbarriers, warpgroup fences and
-// register hand-over.
+// flash_attention_bwd.cu) and the projections' (ln_linear.cu,
+// ln_linear_bwd.cu): shared-memory panels in the layout wgmma reads, their
+// descriptors, TMA and bulk copies into them, mbarriers, warpgroup fences
+// and register hand-over.
 //
 // A panel holds R rows of DP bf16 (DP a multiple of 32) as DP / 32
 // sub-tiles of [R][32], each 64-byte row swizzled as the 64-byte swizzle
@@ -96,14 +97,16 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 
 // --- TMA -----------------------------------------------------------------
 
-// Tensor map of a (planes, rows, DP) bf16 array whose boxes are one
-// sub-tile, [box_rows][32] columns with the 64-byte swizzle, so that a box
-// lands as the panels above lay it out; rows past the end read as zeros.
-// cuTensorMapEncodeTiled lives in libcuda: its address comes from the
-// runtime (cudaGetDriverEntryPointByVersion), so that the library links
-// against the CUDA runtime alone. Returns a CUDA error code.
-inline int make_panel_map(CUtensorMap* map, const void* base, int planes, int rows, int dp,
-                          int box_rows) {
+// Tensor map of a (planes, rows, cols) bf16 array, rows ld elements apart
+// (ld * 2 and the base 16-byte aligned), planes rows * ld apart, whose
+// boxes are one sub-tile, [box_rows][32] columns with the 64-byte swizzle,
+// so that a box lands as the panels above lay it out; rows and columns past
+// the end read as zeros. cuTensorMapEncodeTiled lives in libcuda: its
+// address comes from the runtime (cudaGetDriverEntryPointByVersion), so
+// that the library links against the CUDA runtime alone. Returns a CUDA
+// error code.
+inline int make_map(CUtensorMap* map, const void* base, int planes, int rows, int cols, int ld,
+                    int box_rows) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -119,8 +122,8 @@ inline int make_panel_map(CUtensorMap* map, const void* base, int planes, int ro
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[3] = {(cuuint64_t)dp, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)dp * 2, (cuuint64_t)rows * dp * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)rows * ld * 2};
   const cuuint32_t box[3] = {32u, (cuuint32_t)box_rows, 1u};
   const cuuint32_t elem[3] = {1u, 1u, 1u};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
@@ -128,6 +131,12 @@ inline int make_panel_map(CUtensorMap* map, const void* base, int planes, int ro
                             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a (planes, rows, DP) array of rows zero-padded to DP
+inline int make_panel_map(CUtensorMap* map, const void* base, int planes, int rows, int dp,
+                          int box_rows) {
+  return make_map(map, base, planes, rows, dp, dp, box_rows);
 }
 
 // the arrival of the thread that starts a tile's copies, with the bytes
@@ -151,6 +160,68 @@ __device__ __forceinline__ void tma_panel(unsigned char* panel, const CUtensorMa
         "l"(reinterpret_cast<uint64_t>(map)), "r"(sub * 32), "r"(row0), "r"(plane),
         "r"(smem_u32(bar))
         : "memory");
+}
+
+// One box [box_rows][32] at (col, row, plane) into a sub-tile, completing
+// on `bar`.
+__device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* map, int col,
+                                        int row, int plane, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same in pieces of at most 8 KB, so that the copy engine keeps several
+// in flight.
+__device__ __forceinline__ void bulk_copy_pieces(void* dst, const void* src, uint32_t bytes,
+                                                 uint64_t* bar) {
+  for (uint32_t o = 0; o < bytes; o += 8192)
+    bulk_copy(static_cast<unsigned char*>(dst) + o, static_cast<const unsigned char*>(src) + o,
+              bytes - o < 8192u ? bytes - o : 8192u, bar);
+}
+
+// Eight consecutive bf16 from element j (< 8) of two consecutive 16-byte
+// granules, as four packed words: two word selects and a funnel shift, so
+// that rows copied whole at any 2-byte offset unpack 16 bytes at a time
+// (the granules of element e of a buffer are its (e / 8)-th and the next).
+__device__ __forceinline__ uint4 shift8(const uint4& lo, const uint4& hi, int j) {
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  uint32_t a[6], b[5], r[4];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) a[i] = (j & 4) ? w[i + 2] : w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) b[i] = (j & 2) ? a[i + 1] : a[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = (j & 1) ? __funnelshift_r(b[i], b[i + 1], 16) : b[i];
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// the words of 8 packed bf16 with elements from `valid` on set to zero
+__device__ __forceinline__ uint4 keep_first(uint4 v, int valid) {
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (2 * i >= valid) w[i] = 0u;
+    else if (2 * i + 1 >= valid) w[i] &= 0xffffu;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the threads of `count` (a multiple of 32) meet at named barrier `id`
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // --- warpgroups -------------------------------------------------------------

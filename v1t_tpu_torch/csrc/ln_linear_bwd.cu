@@ -53,21 +53,49 @@
 //      by one fp32 rounding of partial sums, far below the bf16 results).
 // 2. ln_linear_wgrad: dW = dY'^T A and db = colsum(dY') over the M =
 //    B x N rows, A the layer's input (the saved activation, or the LayerNorm
-//    output from 1). Split over the batch: a block computes a 64 x 64 tile of
-//    one batch's partial, 32 rows at a time (both operands gathered into
-//    registers a chunk ahead, then into shared memory; mma fragments through
-//    ldmatrix.trans), and writes fp32
-//    partials (B, N, K) that the caller sums over B, as the TPU kernels emit
-//    per-batch partials for XLA to sum: a fixed order, the same every run.
+//    output from 1); the TPU kernels' per-batch weight-gradient products
+//    (fused_mha.py :814-821 qkv and out-projection, fused_mlp.py :194-197
+//    and :207-210). Bound at the flagship: dY + A once (qkv 406 + 33 MB,
+//    0.13 ms at 3.35 TB/s; 61 GFLOP, 0.06 ms of tensor cores): bytes. The
+//    product is dW^T = A^T dY' on wgmma (hopper.cuh) with both operands
+//    MN-major in shared memory: a block owns an output tile of KT = 192 A
+//    columns (three consumer warpgroups, a 64-column slab each, fp32
+//    accumulators in registers) x NT <= 160 dY columns (one head's plane of
+//    head_pad for a head-major dY, so that its pad columns meet nothing
+//    else) and walks a fixed range of 64-row chunks. A producer warpgroup
+//    feeds it: one warp copies each chunk, by TMA where rows are 16-byte
+//    aligned (head-major planes through a 3-D map over (column, row,
+//    plane), rows past a batch read as zeros; fc1's dY and fc2's hidden
+//    layer), else as the contiguous span of the chunk's whole rows (rows of
+//    155 bf16, 310 bytes: 64 rows are one span of 19,840 bytes) or, where a
+//    tile takes part of each row (the out-projection's o, 1240-byte rows),
+//    one bulk copy a row; three warps unpack the copied rows into the
+//    panels, 16 bytes a store. Two rings (mbarriers): the copied rows, freed
+//    once unpacked, and the panels, freed once multiplied, so that copy,
+//    unpack and products of different chunks overlap at ring depths 2-4.
+//    dY's keep mask is applied to the chunk's panel in shared memory by the
+//    consumers before their products (one Philox per 4 columns), and db is
+//    the column sum of the same masked tiles. Each dY element is copied
+//    once a call where dY's columns split across tiles (qkv, fc1) and once
+//    per 192-column tile of A otherwise (out-projection: 4, fc2: 3; those
+//    tiles of a slice run side by side, so that all but the first read it
+//    from L2; a 155 x 620 fp32 output does not fit one SM's registers). The
+//    rows split into slices fixed by the shape (wgrad_plan, mirrored in
+//    ops/ln_linear.py): at most M / (20 K), so that the fp32 partials stay
+//    within 10% of dY's bytes; a cluster of up to 8 blocks shares a slice
+//    and tile and sums its tiles in distributed shared memory in rank order,
+//    and the caller sums the slices in order: the same bits every run, no
+//    float atomics.
 //
 // Bound on the H100 at the flagship shapes: every call moves more bytes
 // than its FLOPs need time (100..150 FLOP/byte, under the ~295 ridge of bf16):
 // bound by memory bytes, like the forward.
-// Not yet: wgmma (mma.sync reaches about half its rate) and TMA multicast
-// of each W^T chunk to the blocks of a cluster; ln_linear_wgrad still
-// gathers dY' 2 bytes at a time (gather_dy4), once per 64-column tile; the
-// two halves in one pass.
-#include "common.cuh"
+// Not yet: ln_linear_dx on wgmma, with W^T multicast to a cluster; dY
+// multicast to the tiles of A in ln_linear_wgrad; the two halves in one pass.
+#include <cooperative_groups.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,62 +107,12 @@ constexpr int DX_MAX_SMEM = 232448;  // a block's shared memory on an H100
 // the LayerNorm backward takes K <= MAX_LN_K (its BM x K fp32 d(ln) rows in
 // shared memory)
 constexpr int MAX_LN_K = 640;
-// ln_linear_wgrad: 64 x 64 tiles, 4 warps
-constexpr int BN = 64, THREADS = 128;
 
 // Where logical element (row, col) of an (M, N) operand lives: row-major, or
 // head-major (N / (heads * head_dim), B, heads, rows_per_batch, head_pad).
 struct Layout {
   int N, rows_per_batch, batches, heads, head_dim, head_pad;
 };
-
-// The raw bf16 bits of elements (row, col .. col + 3) of dY: the loads only,
-// so that they can be in flight while the previous chunk multiplies (zero
-// outside the M x N operand). One division per row and per column group.
-__device__ __forceinline__ void gather_dy4(const bf16* __restrict__ dy, const Layout& L, int M,
-                                           int row, int col, uint16_t raw[4]) {
-  const uint16_t* bits = reinterpret_cast<const uint16_t*>(dy);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) raw[j] = 0;
-  if (row >= M) return;
-  if (!L.heads) {
-    const uint16_t* p = bits + (size_t)row * L.N + col;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (col + j < L.N) raw[j] = p[j];
-    return;
-  }
-  const int b = row / L.rows_per_batch, n = row - b * L.rows_per_batch;
-  const int hd = L.heads * L.head_dim, s = col / hd, rem = col - s * hd;
-  int h = rem / L.head_dim, d = rem - h * L.head_dim, sb = s * L.batches + b;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (col + j < L.N)
-      raw[j] = bits[(((size_t)sb * L.heads + h) * L.rows_per_batch + n) * L.head_pad + d];
-    if (++d == L.head_dim) {  // the next column starts the next head (or q/k/v part)
-      d = 0;
-      if (++h == L.heads) {
-        h = 0;
-        sb += L.batches;
-      }
-    }
-  }
-}
-
-// dY' of those four elements: the keep mask (col is a multiple of 4, so the
-// four share one Philox call) and the scale, as two packed bf16 pairs
-__device__ __forceinline__ uint2 finish_dy4(const uint16_t raw[4], const Drop& drop, int row,
-                                            int col) {
-  float v[4];
-  uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (drop.on()) w = keep_words(drop, 0u, (uint32_t)row, (uint32_t)col >> 2);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[j] = __uint_as_float((uint32_t)raw[j] << 16);  // bf16 -> float
-    if (drop.on()) v[j] = word_of(w, j) < drop.threshold ? v[j] * drop.scale : 0.f;
-  }
-  return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-}
 
 __device__ __forceinline__ float gelu_grad(float x) {
   return 0.5f * (1.f + erff(x * 0.70710678118654752f)) +
@@ -559,98 +537,467 @@ int launch_dx(const DxPlan& P, cudaStream_t stream, const bf16* dy, Layout L, in
   return (int)cudaGetLastError();
 }
 
-constexpr int WR = 32, TLD = BN + 8;  // wgrad: rows per chunk, tile stride
+// ---------------------------------------------------------------------------
+// ln_linear_wgrad: dW^T = A^T dY' on wgmma (hopper.cuh)
 
-__global__ void __launch_bounds__(THREADS) ln_linear_wgrad_kernel(
-    const bf16* __restrict__ dy, Layout L, Drop drop, const bf16* __restrict__ a,
-    float* __restrict__ dw_part, float* __restrict__ db_part, int K) {
-  __shared__ __align__(16) bf16 Ts[WR * TLD];  // dY' rows x output rows n
-  __shared__ __align__(16) bf16 Us[WR * TLD];  // A rows x columns k
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 1, warp_n = warp & 1;
-  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BN, split = blockIdx.z;
-  const int N = L.N, rows = L.rows_per_batch, first = split * rows;
-  const int M = L.batches * rows;
-  const bool with_db = db_part != nullptr && blockIdx.y == 0;
+namespace wg {
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-  float dbias = 0.f;
+constexpr int CONSUMERS = 3;                    // consumer warpgroups: a 64-column slab of A each
+constexpr int KT = 64 * CONSUMERS;              // A columns (dW columns k) a block
+constexpr int MAX_NT = 160;                     // dY columns (dW rows n) a block at most
+constexpr int ROWS = 64;                        // rows a chunk
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // and a producer warpgroup
+constexpr int PREP = 96;                        // its threads that unpack (warps 1-3)
+constexpr int TARGET_BLOCKS = 264;              // two blocks a SM of an H100, fixed in the plan
+constexpr int MAX_CLUSTER = 8;                  // blocks that sum one slice's tile
+constexpr int PARTIAL_SHARE = 20;               // slices <= M / (20 K): partials <= 10% of dY's bytes
+constexpr int ELD = KT + 4;                     // row stride of the fp32 tile [n][k]
+constexpr int SUB = ROWS * 64;                  // bytes of a [64][32] sub-tile
+constexpr int HEAD = 1024;                      // barriers and the block's column sums
+constexpr int MAX_SMEM = 232448;
+enum Copy { TMA = 0, SPAN = 1, SEGMENTS = 2 };  // how an operand reaches shared memory
 
-  // both operands' chunks, 32 rows x 64 columns in units of 4: gathered
-  // into registers a chunk ahead, stored (dY' masked) at their chunk
-  constexpr int UNITS = WR * (BN / 4) / THREADS;
-  const uint16_t* abits = reinterpret_cast<const uint16_t*>(a);
-  uint16_t raw_t[UNITS][4], raw_u[UNITS][4];
-  auto gather = [&](int r0) {
-#pragma unroll
-    for (int i = 0; i < UNITS; ++i) {
-      const int u = tid + i * THREADS, r = u / (BN / 4), c = (u % (BN / 4)) * 4;
-      const bool valid = r0 + r < rows;
-      const int row = first + r0 + r;
-      gather_dy4(dy, L, valid ? M : 0, row, n0 + c, raw_t[i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        raw_u[i][j] = valid && k0 + c + j < K ? abits[(size_t)row * K + k0 + c + j] : 0;
-    }
-  };
-  gather(0);
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int up(int a, int b) { return cdiv(a, b) * b; }
 
-  for (int r0 = 0; r0 < rows; r0 += WR) {
-#pragma unroll
-    for (int i = 0; i < UNITS; ++i) {
-      const int u = tid + i * THREADS, r = u / (BN / 4), c = (u % (BN / 4)) * 4;
-      *reinterpret_cast<uint2*>(Ts + r * TLD + c) = finish_dy4(raw_t[i], drop, first + r0 + r,
-                                                               n0 + c);
-      *reinterpret_cast<uint2*>(Us + r * TLD + c) = make_uint2(
-          raw_u[i][0] | ((uint32_t)raw_u[i][1] << 16), raw_u[i][2] | ((uint32_t)raw_u[i][3] << 16));
-    }
-    if (r0 + WR < rows) gather(r0 + WR);  // in flight during this chunk's products
-    __syncthreads();
-    if (with_db && tid < BN)
-      for (int r = 0; r < WR; ++r) dbias += to_f(Ts[r * TLD + tid]);
-#pragma unroll
-    for (int ks = 0; ks < WR / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4_trans(af[mi], Ts + (ks * 16 + (lane >> 4) * 8 + (lane & 7)) * TLD +
-                                      warp_m * 32 + mi * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int ni = 0; ni < 4; ni += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, Us + (ks * 16 + (lane & 15)) * TLD + warp_n * 32 + ni * 8 +
-                                 (lane >> 4) * 8);
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_16816(acc[mi][ni], af[mi], b0);
-          mma_16816(acc[mi][ni + 1], af[mi], b1);
-        }
-      }
-    }
-    __syncthreads();
+// The launch of one call (ops/ln_linear.py wgrad_plan mirrors it). Rows are
+// walked in chunks of 64 within a batch of the chunk space (head-major dY:
+// rows_per_batch rows a batch, so that a chunk is one box of each plane;
+// row-major: one batch of M rows). A block owns an output tile of NT dY
+// columns x KT A columns and a contiguous range of chunks; the blocks of a
+// cluster own consecutive ranges of one slice and sum their tiles in
+// distributed shared memory, in rank order; each slice writes one fp32
+// partial, which the caller sums in slice order. Two rings: the panels the
+// products read ([64][KT] of A, [64][NT] of dY', TMA's boxes land there),
+// and the rows copied whole that the prep warps unpack into them, so that a
+// copied chunk's stage frees before its products run.
+struct Plan {
+  int nt, parts, n_tiles, k_tiles;     // parts: n-tiles a head-major plane
+  int slices, cluster, chunks, cpb;    // cpb: chunks a batch
+  int a_copy, dy_copy;                 // Copy of each operand
+  int pstages, rstages;                // depth of the panel ring and of the copied rows' ring
+  int pstage_bytes, rstage_bytes, d_off, ds_off, raw_off, smem;
+};
+
+// the staging row stride (elements) of a copied row segment of `width`
+// columns: its aligned granules, one of slack at each end
+__host__ __device__ constexpr int seg_ld(int width) { return width + 16; }
+
+// M rows of dY (logical N columns; head-major: N / head_dim planes of
+// head_pad) against A (M, K). The slice count depends on the shape alone.
+// An operand whose rows are 16-byte aligned goes by TMA; else, where a
+// tile takes whole rows, as the contiguous span of the chunk's rows (rows
+// of 155 bf16: 64 rows are one span of 19,840 bytes), and otherwise as one
+// copy of each row's segment (A (M, 620): 1240-byte rows); both are
+// unpacked into the panels. Ring depths: the deepest pair (panels first)
+// that fits.
+__host__ __device__ inline Plan wgrad_plan(int M, int N, int K, int rows_per_batch, int heads,
+                                          int head_dim, int head_pad, bool dy_aligned,
+                                          bool a_aligned) {
+  Plan p{};
+  if (heads) {
+    p.parts = cdiv(head_pad, MAX_NT);
+    p.nt = up(cdiv(head_pad, p.parts), 32);
+    p.n_tiles = N / head_dim * p.parts;
+  } else {
+    p.parts = 1;
+    p.n_tiles = cdiv(N, MAX_NT);
+    p.nt = up(cdiv(N, p.n_tiles), 32);
   }
-  float* out = dw_part + (size_t)split * N * K;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + warp_m * 32 + mi * 16 + g + (j >> 1) * 8;
-        const int k = k0 + warp_n * 32 + ni * 8 + 2 * t + (j & 1);
-        if (n < N && k < K) out[(size_t)n * K + k] = acc[mi][ni][j];
-      }
-  if (with_db && tid < BN && n0 + tid < N) db_part[(size_t)split * N + n0 + tid] = dbias;
+  p.k_tiles = cdiv(K, KT);
+  const int batches = heads ? M / rows_per_batch : 1, rows = heads ? rows_per_batch : M;
+  p.cpb = cdiv(rows, ROWS);
+  p.chunks = batches * p.cpb;
+  const int tiles = p.n_tiles * p.k_tiles;
+  int s = M / (PARTIAL_SHARE * K);
+  s = s < 1 ? 1 : s;
+  s = s < cdiv(TARGET_BLOCKS, tiles) ? s : cdiv(TARGET_BLOCKS, tiles);
+  p.slices = s < p.chunks ? s : p.chunks;
+  int c = cdiv(TARGET_BLOCKS, p.slices * tiles);
+  c = c < MAX_CLUSTER ? c : MAX_CLUSTER;
+  c = c < p.chunks / p.slices ? c : p.chunks / p.slices;
+  p.cluster = c < 1 ? 1 : c;
+  p.a_copy = a_aligned ? TMA : p.k_tiles == 1 ? SPAN : SEGMENTS;
+  p.dy_copy = heads || dy_aligned ? TMA : p.n_tiles == 1 ? SPAN : SEGMENTS;
+  auto staged = [](int copy, int row_elems, int tile) {
+    return copy == SPAN ? up(ROWS * row_elems * 2 + 32, 128)
+           : copy == SEGMENTS ? up(ROWS * seg_ld(tile) * 2 + 32, 128) : 0;
+  };
+  p.d_off = KT / 32 * SUB;  // a panel stage: A's panel, then dY's
+  p.pstage_bytes = p.d_off + p.nt / 32 * SUB;
+  p.ds_off = staged(p.a_copy, K, KT);  // a copied stage: A's rows, then dY's
+  p.rstage_bytes = up(p.ds_off + staged(p.dy_copy, N, p.nt), 1024);
+  const int tile = p.nt * ELD * 4;  // the fp32 tile, over the rings once they are drained
+  const bool raw = p.rstage_bytes > 0;
+  for (int ps = 4; ps >= 2 && p.smem == 0; --ps)
+    for (int rs = raw ? 4 : 0; rs >= (raw ? 2 : 0) && p.smem == 0; --rs) {
+      const int rings = ps * p.pstage_bytes + rs * p.rstage_bytes;
+      const int smem = 1024 + HEAD + (rings > tile ? rings : tile);
+      if (smem > MAX_SMEM) continue;
+      p.pstages = ps;
+      p.rstages = rs;
+      p.raw_off = ps * p.pstage_bytes;
+      p.smem = smem;
+    }
+  return p;
 }
 
+struct Args {
+  int M, N, K, batches, rows;  // the chunk space: batches x rows (x 64-row chunks)
+  int heads, head_dim, head_pad, planes;  // head-major dY: S * B * H planes of rows x head_pad
+};
+
+// Where `count` elements from element `at` of `base` lie in whole 16-byte
+// granules: the first granule, the bytes (a multiple of 16), and the
+// element's offset into it
+__device__ __forceinline__ const unsigned char* granules(const bf16* base, long long at,
+                                                         long long count, uint32_t& bytes,
+                                                         int& shift) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base + at);
+  const uintptr_t start = p & ~(uintptr_t)15;
+  bytes = (uint32_t)(((p + (uintptr_t)count * 2 + 15) & ~(uintptr_t)15) - start);
+  shift = (int)((p - start) >> 1);
+  return reinterpret_cast<const unsigned char*>(start);
+}
+
+// Bulk copies (the copying warp's lanes) of a chunk's rows of a row-major
+// (., W) operand that TMA cannot take: the span of rows row .. row + valid -
+// 1 (lane 0), or each row's columns col0 .. col0 + width - 1 into rows
+// seg_ld(tile) apart (a lane a row). Returns the lane's bytes.
+__device__ __forceinline__ uint32_t copy_rows(int copy, const bf16* base, long long row,
+                                              int valid, int W, int col0, int width, int tile,
+                                              unsigned char* dst, uint64_t* bar, int lane,
+                                              bool issue) {
+  uint32_t total = 0, bytes;
+  int shift;
+  if (copy == SPAN) {
+    if (lane == 0) {
+      const unsigned char* src = granules(base, row * W, (long long)valid * W, bytes, shift);
+      if (issue) hopper::bulk_copy_pieces(dst, src, bytes, bar);
+      total = bytes;
+    }
+    return total;
+  }
+  for (int r = lane; r < valid; r += 32) {
+    const unsigned char* src = granules(base, (row + r) * W + col0, width, bytes, shift);
+    if (issue) hopper::bulk_copy(dst + r * seg_ld(tile) * 2, src, bytes, bar);
+    total += bytes;
+  }
+  return total;
+}
+
+// The staging element index of (r, 0) of a chunk's copied rows
+__device__ __forceinline__ int copied(int copy, const bf16* base, long long row, int W, int col0,
+                                      int width, int tile, int r) {
+  uint32_t bytes;
+  int shift;
+  if (copy == SPAN) {
+    granules(base, row * W, 1, bytes, shift);
+    return shift + r * W;
+  }
+  granules(base, (row + r) * W + col0, width, bytes, shift);
+  return r * seg_ld(tile) + shift;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(
+    const __grid_constant__ CUtensorMap dymap, const __grid_constant__ CUtensorMap amap,
+    const bf16* __restrict__ dy, const bf16* __restrict__ a, Args g, Plan P, Drop drop,
+    float* __restrict__ dw_part, float* __restrict__ db_part) {
+  using namespace hopper;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by pointer arithmetic on the shared array, so that the compiler
+  // keeps every access below in shared memory (LDS/STS, not generic ones)
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(base);  // [4] a panel stage's TMA boxes landed
+  uint64_t* pready = pfull + 4;                          // [4] its unpacked rows are in
+  uint64_t* pempty = pready + 4;                         // [4] its products are done
+  uint64_t* rfull = pempty + 4;                          // [4] a copied stage's rows landed
+  uint64_t* rempty = rfull + 4;                          // [4] they are unpacked
+  float* dbs = reinterpret_cast<float*>(base + 256);     // [NT] the block's column sums
+  unsigned char* ring = base + HEAD;                     // panels, then the copied rows
+  unsigned char* raw = ring + P.raw_off;
+  const int PS = P.pstages, RS = P.rstages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31, wgi = tid / 128;
+  const int rank = (int)cluster.block_rank(), tile = blockIdx.x / P.cluster;
+  const int n_tile = tile / P.k_tiles, k0 = (tile - n_tile * P.k_tiles) * KT;
+  // the tile's dY columns: columns col0 .. of head-major plane `plane`, or
+  // of the row-major dY
+  const int plane = g.heads ? n_tile / P.parts : 0;
+  const int col0 = g.heads ? (n_tile - plane * P.parts) * NT : n_tile * NT;
+  const int width = g.heads ? g.head_pad - col0 : g.N - col0;  // stored columns from col0
+  const int a_w = min(KT, g.K - k0), d_w = min(NT, width);      // the tile's columns of each
+  const int U = P.slices * P.cluster, u = blockIdx.y * P.cluster + rank;
+  const int c_begin = (int)((long long)P.chunks * u / U);
+  const int c_end = (int)((long long)P.chunks * (u + 1) / U);
+  const bool with_db = db_part != nullptr && k0 == 0;
+  const bool prep = RS > 0;  // some operand is unpacked from copied rows
+  const bool tma = P.a_copy == TMA || P.dy_copy == TMA;
+
+  if (tid == 0) {
+    for (int s = 0; s < 4; ++s) {
+      bar_init(&pfull[s], 1);
+      bar_init(&pready[s], PREP);
+      bar_init(&pempty[s], 128 * CONSUMERS);
+      bar_init(&rfull[s], 1);
+      bar_init(&rempty[s], PREP);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the panels' sub-tiles that no copy writes stay zero
+  for (int i = tid; i < PS * P.pstage_bytes / 16; i += THREADS)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_async_smem();
+  __syncthreads();
+
+  // chunk c: batch b of the chunk space, its first row and valid rows
+  auto chunk = [&](int c, int& b, int& row0) {
+    b = c / P.cpb;
+    row0 = (c - b * P.cpb) * ROWS;
+    return min(ROWS, g.rows - row0);
+  };
+
+  float acc[NT / 2];  // the consumers' tile: k = k0 + 64 wgi + row, n = col0 + column
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  float dbias = 0.f;  // consumer tid < NT: column tid's sum of dY'
+  if (warp == 4 * CONSUMERS) {
+    // the copying warp: the copied rows (lanes) and TMA's boxes (lane 0)
+    const int hs = g.heads ? plane / g.heads : 0, hh = g.heads ? plane - hs * g.heads : 0;
+    for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+      const int ps = it % PS;
+      int b, row0;
+      const int valid = chunk(c, b, row0);
+      const long long grow = (long long)b * g.rows + row0;
+      if (prep) {
+        const int rs = it % RS;
+        if (it >= RS) bar_wait(&rempty[rs], (uint32_t)((it / RS - 1) & 1));
+        unsigned char* st = raw + rs * P.rstage_bytes;
+        uint32_t bytes = 0;
+        if (P.a_copy != TMA)
+          bytes += copy_rows(P.a_copy, a, grow, valid, g.K, k0, a_w, KT, st, &rfull[rs], lane, false);
+        if (P.dy_copy != TMA)
+          bytes += copy_rows(P.dy_copy, dy, grow, valid, g.N, col0, d_w, NT, st + P.ds_off, &rfull[rs], lane, false);
+        bytes = __reduce_add_sync(0xffffffffu, bytes);
+        if (lane == 0) bar_expect(&rfull[rs], bytes);
+        __syncwarp();
+        if (P.a_copy != TMA)
+          copy_rows(P.a_copy, a, grow, valid, g.K, k0, a_w, KT, st, &rfull[rs], lane, true);
+        if (P.dy_copy != TMA)
+          copy_rows(P.dy_copy, dy, grow, valid, g.N, col0, d_w, NT, st + P.ds_off, &rfull[rs], lane, true);
+      }
+      if (tma) {
+        if (it >= PS) bar_wait(&pempty[ps], (uint32_t)((it / PS - 1) & 1));
+        unsigned char* st = ring + ps * P.pstage_bytes;
+        if (lane == 0) {
+          uint32_t bytes = 0;
+          if (P.a_copy == TMA) bytes += (uint32_t)cdiv(a_w, 32) * SUB;
+          if (P.dy_copy == TMA) bytes += (uint32_t)cdiv(d_w, 32) * SUB;
+          bar_expect(&pfull[ps], bytes);
+          if (P.a_copy == TMA)
+            for (int i = 0; i < cdiv(a_w, 32); ++i)
+              tma_box(st + i * SUB, &amap, k0 + 32 * i, row0, b, &pfull[ps]);
+          if (P.dy_copy == TMA) {
+            const int dplane = g.heads ? (hs * g.batches + b) * g.heads + hh : 0;
+            for (int i = 0; i < cdiv(d_w, 32); ++i)
+              tma_box(st + P.d_off + i * SUB, &dymap, col0 + 32 * i, row0, dplane, &pfull[ps]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  } else if (wgi == CONSUMERS) {
+    // warps 1-3 of the producer warpgroup: the copied rows unpacked into
+    // the panels, 8 columns a store. A thread keeps one unit column and
+    // steps through every rps-th row, so that the loops carry no division;
+    // four rows at a time, their loads all issued before any store (which
+    // the compiler may not move past them: shared memory both ways)
+    const int pt = tid - 128 * CONSUMERS - 32;
+    const int au = up(a_w, 32) / 8, a_rps = PREP / au, a_c = (pt % au) * 8, a_r = pt / au;
+    const int du = NT / 8, d_rps = PREP / du, d_c = (pt % du) * 8, d_r = pt / du;
+    constexpr int RB = 4;
+    for (int c = c_begin, it = 0; c < c_end && prep; ++c, ++it) {
+      const int ps = it % PS, rs = it % RS;
+      const unsigned char* st = raw + rs * P.rstage_bytes;
+      unsigned char* pan = ring + ps * P.pstage_bytes;
+      bar_wait(&rfull[rs], (uint32_t)((it / RS) & 1));
+      if (it >= PS) bar_wait(&pempty[ps], (uint32_t)((it / PS - 1) & 1));
+      int b, row0;
+      const int valid = chunk(c, b, row0);
+      const long long grow = (long long)b * g.rows + row0;
+      if (P.a_copy != TMA && a_r < a_rps) {
+        for (int r0 = a_r; r0 < ROWS; r0 += RB * a_rps) {
+          uint4 lo[RB], hi[RB];
+          int e[RB];
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            const int r = r0 + q * a_rps;
+            e[q] = r < valid && a_c < a_w ? copied(P.a_copy, a, grow, g.K, k0, a_w, KT, r) + a_c : -1;
+            const uint4* src = reinterpret_cast<const uint4*>(st) + (e[q] < 0 ? 0 : e[q] >> 3);
+            lo[q] = src[0];
+            hi[q] = src[1];
+          }
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            const int r = r0 + q * a_rps;
+            if (r >= ROWS) break;
+            const uint4 v = e[q] < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                                     : keep_first(shift8(lo[q], hi[q], e[q] & 7), a_w - a_c);
+            *reinterpret_cast<uint4*>(pan + elem_at(ROWS, r, a_c)) = v;
+          }
+        }
+      }
+      if (P.dy_copy != TMA && d_r < d_rps) {
+        for (int r0 = d_r; r0 < ROWS; r0 += RB * d_rps) {
+          uint4 lo[RB], hi[RB];
+          int e[RB];
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            const int r = r0 + q * d_rps;
+            e[q] = r < valid && d_c < d_w ? copied(P.dy_copy, dy, grow, g.N, col0, d_w, NT, r) + d_c : -1;
+            const uint4* src = reinterpret_cast<const uint4*>(st + P.ds_off) + (e[q] < 0 ? 0 : e[q] >> 3);
+            lo[q] = src[0];
+            hi[q] = src[1];
+          }
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            const int r = r0 + q * d_rps;
+            if (r >= ROWS) break;
+            const uint4 raw_v = e[q] < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                                         : keep_first(shift8(lo[q], hi[q], e[q] & 7), d_w - d_c);
+            *reinterpret_cast<uint4*>(pan + P.d_off + elem_at(ROWS, r, d_c)) = raw_v;
+          }
+        }
+      }
+      bar_arrive(&rempty[rs]);  // the copied rows are read
+      fence_async_smem();
+      bar_arrive(&pready[ps]);
+    }
+  } else {
+    // consumers: warpgroup wgi owns A columns k0 + 64 wgi .. + 63
+    fence_regs(acc);
+    for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+      const int ps = it % PS;
+      unsigned char* st = ring + ps * P.pstage_bytes;
+      if (prep) bar_wait(&pready[ps], (uint32_t)((it / PS) & 1));
+      if (tma) bar_wait(&pfull[ps], (uint32_t)((it / PS) & 1));
+      if (drop.on()) {
+        // dY's keep mask in place, by the consumers (idle while the chunk
+        // came in): one Philox per 4 columns, each element's word drawn
+        // once by this block
+        int b, row0;
+        const int valid = chunk(c, b, row0);
+        const long long grow = (long long)b * g.rows + row0;
+#pragma unroll 1
+        for (int i = tid; i < ROWS * (NT / 8); i += 128 * CONSUMERS) {
+          const int r = i / (NT / 8), n = (i % (NT / 8)) * 8;
+          if (r >= valid) continue;
+          uint4* dst = reinterpret_cast<uint4*>(st + P.d_off + elem_at(ROWS, r, n));
+          const uint4 rv = *dst;
+          const uint32_t w[4] = {rv.x, rv.y, rv.z, rv.w};
+          const uint32_t row = (uint32_t)(grow + r), grp = (uint32_t)(col0 + n) >> 2;
+          const uint4 k0w = keep_words(drop, 0u, row, grp), k1w = keep_words(drop, 0u, row, grp + 1u);
+          uint32_t o[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const uint4& kw = h < 2 ? k0w : k1w;
+            const float lo = __uint_as_float(w[h] << 16), hi = __uint_as_float(w[h] & 0xffff0000u);
+            o[h] = pack_bf16(word_of(kw, (2 * h) & 3) < drop.threshold ? lo * drop.scale : 0.f,
+                             word_of(kw, (2 * h + 1) & 3) < drop.threshold ? hi * drop.scale : 0.f);
+          }
+          *dst = make_uint4(o[0], o[1], o[2], o[3]);
+        }
+        fence_async_smem();
+        named_sync(1, 128 * CONSUMERS);  // the chunk's dY' is complete
+      }
+      if (with_db && tid < NT) {  // db: column tid of the chunk's dY'
+        const unsigned char* dp = st + P.d_off;
+#pragma unroll 8
+        for (int r = 0; r < ROWS; ++r)
+          dbias += to_f(*reinterpret_cast<const bf16*>(dp + elem_at(ROWS, r, tid)));
+      }
+      const uint32_t a_s = smem_u32(st), d_s = smem_u32(st + P.d_off);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk)
+        wgmma::Mma<NT>::template ss<1, 1>(acc, desc_mn(a_s, ROWS, 2 * wgi, kk),
+                                          desc_mn(d_s, ROWS, 0, kk), 1);
+      mma_commit();
+      mma_wait<1>();  // the previous chunk's products are done: its stage is free
+      if (it > 0) bar_arrive(&pempty[(it - 1) % PS]);
+    }
+    mma_wait<0>();
+    fence_regs(acc);
+  }
+  __syncwarp();
+  __syncthreads();  // every chunk consumed: the rings are free
+  float* Es = reinterpret_cast<float*>(ring);  // the tile as [n][k]
+  if (wgi < CONSUMERS) {
+    const int w = warp & 3, gq = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        Es[(8 * j + 2 * t + (e & 1)) * ELD + 64 * wgi + 16 * w + gq + (e >> 1) * 8] = acc[4 * j + e];
+    if (with_db && tid < NT) dbs[tid] = dbias;
+  }
+  cluster.sync();  // every block of the cluster holds its tile
+  // block `rank` sums rows NT rank / C .. of the cluster's tiles in rank
+  // order and writes them to the slice's partial
+  const int C = P.cluster, nb = NT * rank / C, ne = NT * (rank + 1) / C;
+  float* out = dw_part + (size_t)blockIdx.y * g.N * g.K;
+  auto out_row = [&](int nl) {  // the dW row of tile row nl, or -1
+    const int d = col0 + nl;
+    if (g.heads) return d < g.head_dim ? plane * g.head_dim + d : -1;
+    return d < g.N ? d : -1;
+  };
+  for (int i = tid; i < (ne - nb) * a_w; i += THREADS) {
+    const int nl = nb + i / a_w, kl = i - (i / a_w) * a_w, n = out_row(nl);
+    if (n < 0) continue;
+    float v = 0.f;
+    for (int q = 0; q < C; ++q) v += cluster.map_shared_rank(Es, q)[nl * ELD + kl];
+    out[(size_t)n * g.K + k0 + kl] = v;
+  }
+  if (with_db)
+    for (int nl = nb + tid; nl < ne; nl += THREADS) {
+      const int n = out_row(nl);
+      if (n < 0) continue;
+      float v = 0.f;
+      for (int q = 0; q < C; ++q) v += cluster.map_shared_rank(dbs, q)[nl];
+      db_part[(size_t)blockIdx.y * g.N + n] = v;
+    }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+template <int NT>
+int launch(const Plan& P, const CUtensorMap& dymap, const CUtensorMap& amap, const bf16* dy,
+           const bf16* a, const Args& g, Drop drop, float* dw_part, float* db_part,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(P.cluster * P.n_tiles * P.k_tiles), (unsigned)P.slices, 1u);
+  cfg.blockDim = dim3(THREADS, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)P.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)P.cluster;
+  attr[0].val.clusterDim.y = 1u;
+  attr[0].val.clusterDim.z = 1u;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, wgrad_kernel<NT>, dymap, amap, dy, a, g, P, drop, dw_part,
+                           db_part);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
 }  // namespace
 
 // Returns a CUDA error code (0 on success). dX = mask(dy) W for dy (M, N):
@@ -714,21 +1061,66 @@ extern "C" int v1t_ln_linear_dx_smem(int K, int NP, int aligned, int ln) {
   return dx_plan(K, NP, aligned != 0, ln != 0).smem;
 }
 
-// Returns a CUDA error code (0 on success). dw_part (M / rows_per_batch, N,
-// K) float32 receives each batch's dY'^T a, db_part (M / rows_per_batch, N)
-// each batch's column sums of dY' (null: no bias). dy as for
-// v1t_ln_linear_dx (threshold > 0: keep mask (seed, site)); a (M, K) bf16.
+// Returns a CUDA error code (0 on success). dw_part (slices, N, K) float32
+// receives each slice's dY'^T a and db_part (slices, N) its column sums of
+// dY' (null: no bias), slices = v1t_ln_linear_wgrad_plan(..., 3); the caller
+// sums them in slice order. dy as for v1t_ln_linear_dx (threshold > 0: keep
+// mask (seed, site), row-major dy only); a (M, K) bf16, any 2-byte aligned
+// start.
 extern "C" int v1t_ln_linear_wgrad(const void* dy, const void* a, void* dw_part, void* db_part,
                                    int M, int N, int K, int rows_per_batch, int heads,
                                    int head_dim, int head_pad, unsigned seed, unsigned site,
                                    unsigned threshold, float drop_scale, void* stream) {
-  if (M % rows_per_batch != 0) return (int)cudaErrorInvalidValue;
-  const int batches = M / rows_per_batch;
-  if (batches > 65535) return (int)cudaErrorInvalidValue;
-  const Layout L{N, rows_per_batch, batches, heads, head_dim, head_pad};
+  const uintptr_t dy_at = reinterpret_cast<uintptr_t>(dy), a_at = reinterpret_cast<uintptr_t>(a);
+  if (M < 1 || N < 1 || K < 1 || rows_per_batch < 1 || M % rows_per_batch != 0 ||
+      ((dy_at | a_at) & 1))
+    return (int)cudaErrorInvalidValue;
+  if (heads && (head_dim < 1 || head_pad < head_dim || head_pad % 32 != 0 ||
+                N % (heads * head_dim) != 0 || (dy_at & 15) || threshold != 0u))
+    return (int)cudaErrorInvalidValue;
+  const bool dy_aligned = heads || (N % 8 == 0 && (dy_at & 15) == 0);
+  const bool a_aligned = K % 8 == 0 && (a_at & 15) == 0;
+  const wg::Plan P = wg::wgrad_plan(M, N, K, rows_per_batch, heads, head_dim, head_pad,
+                                    dy_aligned, a_aligned);
+  if (P.smem == 0 || P.slices > 65535) return (int)cudaErrorInvalidValue;
+  const wg::Args g{M, N, K, heads ? M / rows_per_batch : 1, heads ? rows_per_batch : M,
+                   heads, head_dim, head_pad, heads ? N / head_dim * (M / rows_per_batch) : 1};
+  CUtensorMap dymap, amap;
+  memset(&dymap, 0, sizeof(dymap));
+  memset(&amap, 0, sizeof(amap));
+  int rc;
+  if (P.a_copy == wg::TMA &&
+      (rc = hopper::make_map(&amap, a, g.batches, g.rows, K, K, wg::ROWS)) != 0)
+    return rc;
+  if (P.dy_copy == wg::TMA &&
+      (rc = heads ? hopper::make_map(&dymap, dy, g.planes, rows_per_batch, head_pad, head_pad,
+                                     wg::ROWS)
+                  : hopper::make_map(&dymap, dy, 1, M, N, N, wg::ROWS)) != 0)
+    return rc;
   const Drop drop{seed, site, threshold, drop_scale};
-  dim3 grid((N + BN - 1) / BN, (K + BN - 1) / BN, batches);
-  ln_linear_wgrad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)dy, L, drop, (const bf16*)a, (float*)dw_part, (float*)db_part, K);
-  return (int)cudaGetLastError();
+  auto* d = (const bf16*)dy;
+  auto* x = (const bf16*)a;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (P.nt) {
+    case 32: return wg::launch<32>(P, dymap, amap, d, x, g, drop, (float*)dw_part, (float*)db_part, s);
+    case 64: return wg::launch<64>(P, dymap, amap, d, x, g, drop, (float*)dw_part, (float*)db_part, s);
+    case 96: return wg::launch<96>(P, dymap, amap, d, x, g, drop, (float*)dw_part, (float*)db_part, s);
+    case 128: return wg::launch<128>(P, dymap, amap, d, x, g, drop, (float*)dw_part, (float*)db_part, s);
+    case 160: return wg::launch<160>(P, dymap, amap, d, x, g, drop, (float*)dw_part, (float*)db_part, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One number of the ln_linear_wgrad launch for these operands (field: 0 nt,
+// 1 n_tiles, 2 k_tiles, 3 slices, 4 cluster, 5 panel stages, 6 shared memory
+// a block, 7 chunks, 8 A's copy, 9 dY's copy: 0 TMA, 1 span, 2 row
+// segments; 10 copied-row stages), rows 16-byte aligned or not.
+extern "C" int v1t_ln_linear_wgrad_plan(int M, int N, int K, int rows_per_batch, int heads,
+                                        int head_dim, int head_pad, int dy_aligned,
+                                        int a_aligned, int field) {
+  const wg::Plan P = wg::wgrad_plan(M, N, K, rows_per_batch, heads, head_dim, head_pad,
+                                    dy_aligned != 0, a_aligned != 0);
+  const int values[11] = {P.nt, P.n_tiles, P.k_tiles, P.slices, P.cluster, P.pstages, P.smem,
+                          P.chunks, P.a_copy, P.dy_copy, P.rstages};
+  return field >= 0 && field < 11 ? values[field] : -1;
 }

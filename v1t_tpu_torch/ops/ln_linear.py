@@ -20,8 +20,9 @@ GELU' reads: saved, not recomputed). The backward is two kernels
 (``csrc/ln_linear_bwd.cu``): ``ln_linear_bwd`` (dX = dY' W, with fc1's
 mask and GELU' or the LayerNorm backward fused; it reads each dY' element
 once a call when K <= 160 or dY' fits in shared memory, ``dx_plan``, against
-the W^T of ``dx_weight``) and ``ln_linear_wgrad`` (dW = dY'^T A and db,
-per-batch partials summed here).
+the W^T of ``dx_weight``) and ``ln_linear_wgrad`` (dW = dY'^T A and db on
+wgmma, one fp32 partial per slice of the rows, ``wgrad_plan``, summed
+here in slice order). The forward's launch is ``linear_plan``.
 
 Activations round to the input dtype where the JAX package's fused TPU
 kernels round them: the (x + row) sum, the normalised input, the projection
@@ -30,9 +31,14 @@ before a residual add and the output.
 A CUDA tensor launches the kernel (bf16 only: the fp32 model takes the
 composed path, ``models/cores/vit.py``); a CPU tensor takes the plain
 version (bf16 or float32). Any K runs on the card, the LayerNorm's up to
-``MAX_LN_K`` (the kernels hold whole rows: 64 x K bf16 forward, fp32
-backward). ``ln_linear.launches`` (and ``ln_linear_bwd``'s,
-``ln_linear_wgrad``'s) counts kernel launches.
+``MAX_LN_K`` (the kernels hold whole rows: a panel of K bf16 columns
+forward, fp32 backward). The kernels copy operands by TMA (16-byte aligned
+rows) or as the contiguous span of whole rows (rows of 155 bf16 are 310
+bytes), the weight gradient also row by row; only a forward x without
+LayerNorm, rows not 16-byte aligned and K > 640, is zero-padded here to a
+multiple of 8 columns first (no flagship use).
+``ln_linear.launches`` (and ``ln_linear_bwd``'s, ``ln_linear_wgrad``'s)
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -90,6 +96,94 @@ def _check(x, w, gamma, beta, pro_row, bias, residual, res_row, heads) -> None:
             raise ValueError(f"ln_linear: {nout} outputs do not split into heads {heads}")
         if residual is not None:
             raise ValueError("ln_linear: a head-major output takes no residual")
+
+
+MAX_TILE = 160  # output columns a forward tile / dY columns a weight-gradient tile at most
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tiles(n: int, heads) -> t.Tuple[int, int, int]:
+    """(tile columns NT, tiles a head-major plane, tiles) of an output of N
+    logical columns: each head's plane of ``padded_head_dim`` split evenly
+    (wider than 160: in two), or N split evenly; NT a multiple of 32 up to
+    160, so that the accumulator fits the registers."""
+    if heads is not None:
+        head_pad = padded_head_dim(heads[1])
+        parts = _cdiv(head_pad, MAX_TILE)
+        return _cdiv(_cdiv(head_pad, parts), 32) * 32, parts, n // heads[1] * parts
+    tiles = _cdiv(n, MAX_TILE)
+    return _cdiv(_cdiv(n, tiles), 32) * 32, 1, tiles
+
+
+def _aligned(x: Tensor) -> bool:
+    """Rows of a contiguous (., K) bf16 operand 16-byte aligned: TMA can copy them."""
+    return x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+
+
+def _pad_columns(x: Tensor) -> Tensor:
+    """x zero-padded to a multiple of 8 columns (16-byte aligned rows)."""
+    k = x.shape[-1]
+    return F.pad(x, (0, -(-k // 8) * 8 - k)).contiguous()
+
+
+class LinearPlan(t.NamedTuple):
+    stream: bool  # x streams through the ring by TMA (else a panel built once a block)
+    rows: int  # rows a block: 128 (two consumer warpgroups) or 64
+    tile: int  # output columns a tile
+    tiles: int  # output tiles a block walks
+    stages: int  # depth of the ring
+    smem: int  # dynamic shared memory a block, bytes
+
+
+PANEL_MAX_K, PANEL_MAX_K128, SMEM_LIMIT = 640, 320, 232448
+
+
+def linear_plan(m: int, n: int, k: int, heads=None, ln: bool = False, x_aligned: bool = False,
+                residual: bool = False) -> t.Optional[LinearPlan]:
+    """The launch ``csrc/ln_linear.cu`` ``linear_plan`` picks (None: none
+    fits). x streams through the ring beside w when it needs no LayerNorm
+    and its rows are 16-byte aligned; otherwise its rows' span is copied
+    whole and turned into a resident panel of K rounded up to 64 columns
+    (KP, a multiple of 32, up to 640; blocks of 128 rows up to 320). Of ring
+    depths 4, 3, 2 the deepest that fits; the output tile is staged in fp32
+    (and, with a residual or rows not 16-byte aligned, once more in bf16)
+    in a region of its own, which the panel's x span uses first."""
+    kp = _cdiv(k, 32) * 32
+    nt, _, tiles = _tiles(n, heads)
+    stream = not ln and x_aligned
+    if not stream and kp > PANEL_MAX_K:
+        return None
+    direct = heads is not None or (n % 8 == 0 and not residual)
+    for rows in ((128,) if stream else (128, 64)):
+        if not stream and rows == 128 and kp > PANEL_MAX_K128:
+            continue
+        out = rows * (nt + 8) * (4 if direct else 6)
+        raw = 0 if stream else _cdiv(rows * k * 2 + 32, 128) * 128
+        region = _cdiv(max(out, raw), 1024) * 1024
+        panel = 0 if stream else rows * _cdiv(kp, 64) * 64 * 2
+        stage = (rows * 64 * 2 if stream else 0) + nt * 64 * 2
+        for stages in (4, 3, 2):
+            smem = 3072 + panel + stages * stage + region
+            if smem <= SMEM_LIMIT:
+                return LinearPlan(stream, rows, nt, tiles, stages, smem)
+    return None
+
+
+def forward_weight(w: Tensor, heads=None) -> Tensor:
+    """The (rows, KP) w the forward kernel streams: K zero-padded to a
+    multiple of 32 (16-byte aligned rows) and, head-major, each head's D
+    rows zero-padded to ``padded_head_dim(D)``, so that the plane's pad
+    columns come out zero."""
+    nout, k = w.shape
+    kp = _cdiv(k, 32) * 32
+    if heads is None:
+        return w if kp == k else F.pad(w, (0, kp - k))
+    d = heads[1]
+    w3 = w.reshape(nout // d, d, k)
+    return F.pad(w3, (0, kp - k, 0, padded_head_dim(d) - d)).reshape(-1, kp).contiguous()
 
 
 def _split_heads(y: Tensor, heads) -> Tensor:
@@ -178,9 +272,12 @@ def ln_linear(
     if gamma is not None and k > MAX_LN_K:
         raise ValueError(f"ln_linear: a LayerNorm of K = {k} > {MAX_LN_K} "
                          "(ROADMAP queue 3 item 1)")
-    # w's rows zero-padded to a multiple of 32 (16-byte aligned copies)
-    kp = -(-k // 32) * 32
-    w_pad = w if kp == k else F.pad(w, (0, kp - k))
+    if gamma is None and not _aligned(x) and k > PANEL_MAX_K:
+        # the kernel streams x by TMA: unaligned rows, padded to 8 columns
+        x, w = _pad_columns(x), _pad_columns(w)
+        k = x.shape[2]
+    kp = _cdiv(k, 32) * 32
+    w_pad = forward_weight(w, heads)
     if heads is None:
         num_heads = head_dim = head_pad = 0
         y = torch.empty((b, n, nout), dtype=bf, device=x.device)
@@ -239,6 +336,77 @@ def dx_weight(w: Tensor, heads=None) -> Tensor:
     head_dim = heads[1]
     wt = w.t().reshape(k, nout // head_dim, head_dim)
     return F.pad(wt, (0, padded_head_dim(head_dim) - head_dim)).reshape(k, -1).contiguous()
+
+
+class WgradPlan(t.NamedTuple):
+    tile: int  # dY columns (dW rows) a block
+    n_tiles: int  # tiles over dY's columns
+    k_tiles: int  # tiles of 192 over A's columns
+    slices: int  # fp32 partials written, summed in slice order
+    cluster: int  # blocks a slice and tile, summed in distributed shared memory
+    stages: int  # depth of the panel ring (the products' operands)
+    copied_stages: int  # depth of the ring of rows copied whole (0: every operand by TMA)
+    smem: int  # dynamic shared memory a block, bytes
+    chunks: int  # 64-row chunks of the rows
+    a_copy: str  # how A reaches shared memory: "tma", "span" or "segments"
+    dy_copy: str  # the same for dY
+
+    @property
+    def blocks(self) -> int:
+        return self.slices * self.cluster * self.n_tiles * self.k_tiles
+
+    @property
+    def dy_reads(self) -> int:
+        """How many blocks copy each dY element: one per tile over A's
+        columns (the k-tiles of one slice run side by side, so that all
+        but the first find it in L2)."""
+        return self.k_tiles
+
+
+WGRAD_KT, WGRAD_TARGET, WGRAD_MAX_CLUSTER, WGRAD_PARTIAL_SHARE = 192, 264, 8, 20
+COPIES = ("tma", "span", "segments")
+
+
+def wgrad_plan(m: int, n: int, k: int, rows_per_batch: int, heads=None, dy_aligned: bool = True,
+               a_aligned: bool = True) -> WgradPlan:
+    """The launch ``csrc/ln_linear_bwd.cu`` ``wgrad_plan`` picks for dW =
+    dY'^T A over M rows, dY (M, N) (head-major with ``heads``), A (M, K).
+    A block owns an output tile of up to 160 dY columns (a head's plane)
+    x 192 A columns, accumulated on three consumer warpgroups over a fixed
+    range of 64-row chunks. The slices (fp32 partials) depend on the shape
+    alone: at most M / (20 K), so that the partials stay within 10% of dY's
+    bytes, and enough to reach 264 blocks with a cluster of up to 8 blocks
+    a slice and tile that sum their tiles in distributed shared memory. An
+    operand with 16-byte aligned rows goes by TMA; otherwise as the span of
+    a chunk's whole rows where one tile takes them, else as one copy of
+    each row's segment, unpacked in shared memory."""
+    nt, _, n_tiles = _tiles(n, heads)
+    k_tiles = _cdiv(k, WGRAD_KT)
+    rows = rows_per_batch if heads is not None else m
+    chunks = (m // rows) * _cdiv(rows, 64)
+    tiles = n_tiles * k_tiles
+    slices = min(max(1, m // (WGRAD_PARTIAL_SHARE * k)), _cdiv(WGRAD_TARGET, tiles), chunks)
+    cluster = max(1, min(WGRAD_MAX_CLUSTER, _cdiv(WGRAD_TARGET, slices * tiles),
+                         chunks // slices))
+    a_copy = 0 if a_aligned else 1 if k_tiles == 1 else 2
+    dy_copy = 0 if heads is not None or dy_aligned else 1 if n_tiles == 1 else 2
+
+    def staged(copy, row_elems, tile):
+        return (_cdiv(64 * row_elems * 2 + 32, 128) * 128 if copy == 1
+                else _cdiv(64 * (tile + 16) * 2 + 32, 128) * 128 if copy == 2 else 0)
+
+    sub = 64 * 64
+    pstage = WGRAD_KT // 32 * sub + nt // 32 * sub
+    rstage = _cdiv(staged(a_copy, k, WGRAD_KT) + staged(dy_copy, n, nt), 1024) * 1024
+    tile = nt * (WGRAD_KT + 4) * 4
+    stages, copied, smem = 0, 0, 0
+    for ps in (4, 3, 2):
+        for rs in ((4, 3, 2) if rstage else (0,)):
+            need = 2048 + max(ps * pstage + rs * rstage, tile)
+            if not smem and need <= SMEM_LIMIT:
+                stages, copied, smem = ps, rs, need
+    return WgradPlan(nt, n_tiles, k_tiles, slices, cluster, stages, copied, smem, chunks,
+                     COPIES[a_copy], COPIES[dy_copy])
 
 
 class DxPlan(t.NamedTuple):
@@ -409,22 +577,28 @@ def ln_linear_wgrad(dy: Tensor, a: Tensor, *, heads=None, drop: t.Optional[Dropo
     """The weight-gradient half of ``ln_linear``'s backward: dW = dY'^T a
     (Nout, K) and, with ``bias``, db = colsum(dY') (Nout,), both float32,
     for dy (B, N, Nout) (head-major with ``heads``) under the keep mask
-    ``drop`` and the layer's input a (B, N, K). The kernel writes per-batch
-    partials; they are summed here."""
+    ``drop`` and the layer's input a (B, N, K). The kernel writes one fp32
+    partial per slice of the rows (``wgrad_plan``); they are summed here in
+    slice order, so that reruns agree bit for bit."""
     b, n, nout = _dy_rows(dy, heads)
     if a.ndim != 3 or tuple(a.shape[:2]) != (b, n):
         raise ValueError(f"ln_linear_wgrad: a {tuple(a.shape)} does not match dy's (B, N)")
+    if heads is not None and drop is not None and drop.active:
+        raise ValueError("ln_linear_wgrad: a head-major dy takes no keep mask")
     if dy.device.type == "cpu":
         return ln_linear_wgrad_plain(dy, a, heads=heads, drop=drop, bias=bias)
     bf, f32 = torch.bfloat16, torch.float32
     _build.require_cuda("ln_linear_wgrad", (bf, bf), dy, a)
-    if b > 65535:
-        raise ValueError("ln_linear_wgrad: batch exceeds the launch grid")
+    if heads is not None and dy.data_ptr() % 16:
+        raise ValueError("ln_linear_wgrad: a head-major dy starts 16-byte aligned")
     k = a.shape[2]
+    plan = wgrad_plan(b * n, nout, k, n, heads, heads is not None or _aligned(dy), _aligned(a))
+    if plan.slices > 65535:
+        raise ValueError("ln_linear_wgrad: slices exceed the launch grid")
     num_heads, head_dim = heads or (0, 0)
     head_pad = padded_head_dim(head_dim) if heads else 0
-    dw_part = torch.empty((b, nout, k), dtype=f32, device=dy.device)
-    db_part = torch.empty((b, nout), dtype=f32, device=dy.device) if bias else None
+    dw_part = torch.empty((plan.slices, nout, k), dtype=f32, device=dy.device)
+    db_part = torch.empty((plan.slices, nout), dtype=f32, device=dy.device) if bias else None
     rc = _build.library().v1t_ln_linear_wgrad(
         dy.data_ptr(), a.data_ptr(), dw_part.data_ptr(), _build.ptr(db_part), b * n, nout, k,
         n, num_heads, head_dim, head_pad, *drop_args(drop), _build.stream_of(dy),
