@@ -12,7 +12,9 @@ Phases, one line each as they go:
    (``dx_plan``) and ``ln_linear_wgrad`` (``wgrad_plan``) held against the
    library's, with each flagship use's plan (rows a block, tiles, ring
    depths, how often dY' is read, slices and clusters of the weight
-   gradient);
+   gradient), the row-1 attention core's launch (``attention_plan``) and
+   the sampling backward's (``sample_bwd_plan``: channels a block, bands)
+   at the flagship, full-resolution, fp32 and a banded map;
 3. every kernel against its plain PyTorch version at the flagship shapes
    (batch 64, 1654 tokens, emb 155, 4 heads of 155, MLP 488, a 29x57 core
    map, 7000 neurons), the training variants and the backward kernels with
@@ -24,8 +26,12 @@ Phases, one line each as they go:
    and weight gradient, the library's time for its product alone
    (``F.linear`` on the materialised LayerNorm output, ``torch.matmul`` of
    the materialised row-major dY'^T and A), and the weight gradient run
-   twice, bit for bit;
-   3b. the backward kernels (``attention_bwd`` with and without dropout),
+   twice, bit for bit; the row-1 core serving and training beside SDPA
+   and the parent's reading, and its row whose every key is masked (LSA at
+   N 1);
+   3b. the backward kernels (``attention_bwd`` with and without dropout;
+   the sampling backward timed at the flagship's, the full-resolution and
+   the float32 map),
    and the bf16 one-pass backward that ``attention_bwd`` and ``flash_bwd``
    share, timed through both at the flagship shape with its kernels
    profiled;
@@ -41,7 +47,8 @@ Phases, one line each as they go:
    and the bound), a rectangular case
    with padded keys and an LSE cotangent, an LSA case, rows whose every
    key is masked (LSA at N 1) and key counts that fill no tile, and head
-   widths 192 and 256; and the fused MLP's and the readout's kernels at the shapes
+   widths 192 and 256 timed at a shape of the sweep (batch 16 x 4 heads,
+   1654 tokens), forward and backward; and the fused MLP's and the readout's kernels at the shapes
    the composed paths give them (68,228 rows; a 137x249 and a float32 map);
 5. training: ``Trainer.train_step`` on the flagship model (dropout on,
    readout noise on), two mice of 7000 neurons, batch 64, two cycles with
@@ -113,6 +120,11 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 out
 
 B, N, E, H, F_HID, NEURONS = 64, 1654, 155, 4, 488, 7000
 MAP_H, MAP_W = 29, 57
+OW = -(-H * E // 8) * 8  # attention's output rows: H*E rounded up to 16 bytes (624)
+# the parent tree's readings (PR 10's chip_smoke.py on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md), printed beside this run's for orientation only
+PARENT_MS = {"attention serving": 2.303, "attention training": 3.358,
+             "bilinear_sample_cm_bwd": 2.946}
 T_DROP = 0.2544  # the flagship's transformer dropout (configs.py t_dropout)
 DEVICE = "cuda"
 MICE, CYCLES = ("A", "B"), 2
@@ -283,10 +295,11 @@ def check_kernels(gen: torch.Generator) -> tuple:
 
     qkv = ln_linear(x, wqkv, gamma=gamma, beta=beta, pro_row=row, heads=(H, E))
     o = attention(qkv, scale, E)
+    wp_o = F.pad(wp, (0, OW - H * E))  # against o's aligned rows, as fused_mha pads it
     hid = ln_linear(x, w1, gamma=gamma, beta=beta, bias=b1, gelu=True)
     uses = {
         "qkv": dict(x=x, w=wqkv, gamma=gamma, beta=beta, pro_row=row, heads=(H, E)),
-        "out_proj": dict(x=o, w=wp, bias=bp, residual=x, res_row=row),
+        "out_proj": dict(x=o, w=wp_o, bias=bp, residual=x, res_row=row),
         "fc1": dict(x=x, w=w1, gamma=gamma, beta=beta, bias=b1, gelu=True),
         "fc2": dict(x=hid, w=w2, bias=b2, residual=x),
     }
@@ -349,7 +362,8 @@ def check_kernels(gen: torch.Generator) -> tuple:
     plain_ms = cuda_ms(lambda: attention_plain(qkv, scale, E), iters=3)
     b_ms, b_by = bound(head_bytes(qkv, E) + nbytes(scale, got), 4.0 * B * H * N * N * E, "bf16")
     log(f"  attention (B {B}, H {H}, N {N}, D {E}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"sdpa_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        f"sdpa_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); kernel / sdpa {ms / lib_ms:.3f}, "
+        f"bound share {b_ms / ms:.3f}; the parent's reading {PARENT_MS['attention serving']} ms")
     rows.append(dict(
         name="attention", route="cuda", source="v1t_tpu_torch/csrc/attention.cu",
         replaces="v1t_tpu/ops/fused_mha.py:567 (_mha_fwd_kernel_dt2, attention core)",
@@ -368,7 +382,21 @@ def check_kernels(gen: torch.Generator) -> tuple:
     compare("attention[train] lse", lse, lse_ref, KERNEL_TOL)
     train_ms = cuda_ms(lambda: attention(qkv, scale, E, drop=drop_p, with_lse=True))
     rows[-1].update(train_ms=train_ms, train_max_abs_err=err)
-    log(f"  attention[train] kernel_ms {train_ms:.4f}")
+    log(f"  attention[train] kernel_ms {train_ms:.4f}; the parent's reading "
+        f"{PARENT_MS['attention training']} ms")
+    # a row whose every key is masked (LSA at N 1): o = v and the plain LSE
+    qkv1 = qkv[:, :, :, :1].contiguous()
+    (o1, lse1), (o1_ref, lse1_ref) = (fn(qkv1, scale, E, use_lsa=True, with_lse=True)
+                                      for fn in (attention, attention_plain))
+    compare("attention[N 1, lsa] o", o1, o1_ref, KERNEL_TOL)
+    torch.cuda.synchronize()
+    v1 = qkv1[2, :, :, 0, :E].reshape(B, H * E)
+    if not (torch.equal(o1[:, 0, :H * E], v1) and torch.equal(lse1, lse1_ref)
+            and torch.all(o1[..., H * E:] == 0)):
+        raise AssertionError("attention[N 1, lsa]: o is not v or the LSE is not the plain one")
+    log("  attention[N 1, lsa]: o equal to v, the LSE equal to the plain version's, "
+        "pad columns zero")
+    del qkv1, o1, lse1, o1_ref, lse1_ref
     # the keep masks bit for bit: with q = 0 every probability is 1/N, and
     # v[k] = e_(k mod D) makes o count the kept keys of each residue class:
     # exact small integers times one scale, equal only if the masks are
@@ -432,7 +460,8 @@ def check_kernels(gen: torch.Generator) -> tuple:
         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, library="F.grid_sample",
     ))
-    tensors = dict(x=x, row=row, gamma=gamma, beta=beta, wqkv=wqkv, wp=wp, bp=bp, w1=w1, b1=b1,
+    tensors = dict(x=x, row=row, gamma=gamma, beta=beta, wqkv=wqkv, wp=wp, wp_o=wp_o, bp=bp,
+                   w1=w1, b1=b1,
                    w2=w2, b2=b2, scale=scale, qkv=qkv, table=table, grid=grid,
                    drops=(drop_p, drop_o, drop1, drop2))
     return rows, tensors
@@ -522,7 +551,7 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
         "fc1": dict(dy=fc2_dx, w=t["w1"], x=x, gamma=t["gamma"], beta=t["beta"], dres=dout),
     }
     forward = {  # each projection's forward arguments, for the PyTorch yardstick
-        "out_proj": dict(x=o, w=t["wp"], bias=t["bp"], residual=x, res_row=t["row"]),
+        "out_proj": dict(x=o, w=t["wp_o"], bias=t["bp"], residual=x, res_row=t["row"]),
         "qkv": dict(x=x, w=t["wqkv"], gamma=t["gamma"], beta=t["beta"], pro_row=t["row"]),
         "fc2": dict(x=h, w=t["w2"], bias=t["b2"], residual=x),
         "fc1": dict(x=x, w=t["w1"], gamma=t["gamma"], beta=t["beta"], bias=t["b1"], gelu=True),
@@ -630,33 +659,61 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
                  "together as separate PyTorch calls", per_use=acc["per_use"],
         ))
 
-    # bilinear_sample_cm_bwd: d(table) by fp32 atomics, d(grid)
-    table, grid = t["table"], t["grid"]
-    ds = randn(B, E, NEURONS)
-    got, ref = (fn(table, grid, ds, MAP_H, MAP_W)
-                for fn in (bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain))
-    err = compare("bilinear_sample_cm_bwd d(table)", got[0], ref[0], KERNEL_TOL)
-    compare("bilinear_sample_cm_bwd d(grid)", got[1], ref[1], KERNEL_TOL)
-    ms = cuda_ms(lambda: bilinear_sample_cm_bwd(table, grid, ds, MAP_H, MAP_W))
-    plain_ms = cuda_ms(lambda: bilinear_sample_cm_bwd_plain(table, grid, ds, MAP_H, MAP_W),
-                       iters=3)
-    with torch.enable_grad():
-        table4 = table.reshape(B, E, MAP_H, MAP_W).detach().clone().requires_grad_()
-        grid4 = grid.reshape(B, 1, NEURONS, 2).to(bf).requires_grad_()
-        sampled = F.grid_sample(table4, grid4, mode="bilinear", padding_mode="zeros",
-                                align_corners=True)
-        ds4 = ds.reshape(B, E, 1, NEURONS)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(sampled, (table4, grid4), ds4,
-                                                     retain_graph=True))
-    b_ms, b_by = bound(nbytes(table, grid, ds, *got), 16.0 * B * NEURONS * E, "fp32")
-    log(f"  bilinear_sample_cm_bwd (B {B}, C {E}, {MAP_H}x{MAP_W}, P {NEURONS}): kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} grid_sample_backward_ms {lib_ms:.4f} "
-        f"bound_ms {b_ms:.4f} ({b_by})")
+    # bilinear_sample_cm_bwd: d(table) summed in shared memory, d(grid); at
+    # the flagship's map, the full-resolution one and the fp32 model's
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
+
+    maps = {"flagship 29x57": (B, MAP_H, MAP_W, bf), "full-res 137x249": (FR_B, FR_MAP_H, FR_MAP_W, bf),
+            "fp32 29x57": (B, MAP_H, MAP_W, f32)}
+    cases = {}
+    for label, (b, hh, ww, dtype) in maps.items():
+        if label.startswith("flagship"):
+            table, grid = t["table"], t["grid"]
+        else:
+            table = torch.randn(b, E, hh * ww, generator=gen).to(dev, dtype)
+            grid = (torch.rand(b, NEURONS, 2, generator=gen) * 2.4 - 1.2).to(dev)
+        ds = torch.randn(b, E, NEURONS, generator=gen).to(dev, dtype)
+        tol = KERNEL_TOL if dtype == bf else F32_KERNEL_TOL
+        got, ref = (fn(table, grid, ds, hh, ww)
+                    for fn in (bilinear_sample_cm_bwd, bilinear_sample_cm_bwd_plain))
+        err = compare(f"bilinear_sample_cm_bwd[{label}] d(table)", got[0], ref[0], tol)
+        compare(f"bilinear_sample_cm_bwd[{label}] d(grid)", got[1], ref[1], tol)
+        del ref
+        ms = cuda_ms(lambda: bilinear_sample_cm_bwd(table, grid, ds, hh, ww))
+        plain_ms = cuda_ms(lambda: bilinear_sample_cm_bwd_plain(table, grid, ds, hh, ww),
+                           iters=3)
+        with torch.enable_grad():
+            table4 = table.reshape(b, E, hh, ww).detach().clone().requires_grad_()
+            grid4 = grid.reshape(b, 1, NEURONS, 2).to(dtype).requires_grad_()
+            sampled = F.grid_sample(table4, grid4, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+            ds4 = ds.reshape(b, E, 1, NEURONS)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(sampled, (table4, grid4), ds4,
+                                                         retain_graph=True))
+        del table4, grid4, sampled, ds4
+        b_ms, b_by = bound(nbytes(table, grid, ds, *got), 16.0 * b * NEURONS * E, "fp32")
+        plan = sample_bwd_plan(E, hh, ww)
+        log(f"  bilinear_sample_cm_bwd[{label}] (B {b}, C {E}, {hh}x{ww}, P {NEURONS}, "
+            f"{str(dtype)[6:]}; {plan.channels} channels a block x {plan.chunks} chunks, "
+            f"{plan.bands} band(s), table {'staged' if plan.staged else 'in global memory'}, "
+            f"{plan.smem} bytes of shared memory a block): kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} grid_sample_backward_ms {lib_ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}); kernel / grid_sample {ms / lib_ms:.3f}, bound share "
+            f"{b_ms / ms:.3f}" + (f"; the parent's reading {PARENT_MS['bilinear_sample_cm_bwd']}"
+                                   " ms" if label.startswith("flagship") else ""))
+        cases[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=err[0], rel_err=err[1],
+                            plan=plan._asdict())
+        del got
+    flag = cases["flagship 29x57"]
     rows.append(dict(
         name="bilinear_sample_cm_bwd", route="cuda", source="v1t_tpu_torch/csrc/bilinear_sample.cu",
         replaces="v1t_tpu/ops/interp_matmul.py:116 (_bwd_kernel)",
-        max_abs_err=err[0], rel_err=err[1], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, library="autograd backward of F.grid_sample",
+        max_abs_err=flag["max_abs_err"], rel_err=flag["rel_err"], ms=flag["ms"],
+        plain_ms=flag["plain_ms"], bound_ms=flag["bound_ms"], bound_by=flag["bound_by"],
+        library_ms=flag["library_ms"], library="autograd backward of F.grid_sample",
+        note="times at the flagship's map; per_case holds the full-resolution and fp32 maps'",
+        per_case=cases,
     ))
     return rows
 
@@ -847,8 +904,9 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                                  n_real=1300, dlse=True)
     cases["lsa"] = check("lsa", 8, 4, N, N, E, bf, lsa=True, drp=drop)
     masked_rows()
-    for d in (192, 256):
-        cases[f"head_{d}"] = check(f"head width {d}", 8, 8, N, N, d, bf, drp=drop)
+    for d in (192, 256):  # the sweep's widest heads: emb 192 / 256, batch 16 x 4 heads
+        cases[f"head_{d}"] = check(f"head width {d}, batch 16", 16 * 4, 4, N, N, d, bf,
+                                   drp=drop, timed=True)
     full = cases["full_res"]
     rows = []
     for name, src, replaces, pre in (
@@ -1249,6 +1307,8 @@ def check_launch_plans(lib) -> None:
     depth, whether dY' stays in shared memory, how often each dY' element is
     read, the weight gradient's slices and clusters, shared memory a block."""
     from v1t_tpu_torch.ops.flash_attention import fwd_plan
+    from v1t_tpu_torch.ops.fused_mha import attention_plan
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
     from v1t_tpu_torch.ops.ln_linear import COPIES, dx_plan, linear_plan, wgrad_plan
 
     for dp in range(32, 257, 32):
@@ -1256,6 +1316,24 @@ def check_launch_plans(lib) -> None:
             if lib.v1t_flash_attention_smem(dp, f32) != fwd_plan(dtype, dp).smem:
                 raise AssertionError(f"fwd_plan({dtype}, {dp}) disagrees with the library")
     dp = -(-E // 32) * 32
+    plan = attention_plan(B, H, N, dp)
+    log(f"  attention (row 1's core, the bf16 flash forward in log2 units): {plan.items} items "
+        f"of {plan.tiles.queries} query rows over {plan.blocks} persistent blocks (at "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), key tiles of "
+        f"{plan.tiles.keys} in a ring of {plan.stages}, {lib.v1t_flash_attention_smem(dp, 0)} "
+        f"bytes of shared memory a block (the library's; the mirror's {plan.tiles.smem}); o "
+        f"rows of {OW} columns")
+    for label, (c, hh, ww) in {"flagship / fp32 29x57": (E, MAP_H, MAP_W),
+                               "full-res 137x249": (E, FR_MAP_H, FR_MAP_W),
+                               "300x300, 3 channels": (3, 300, 300)}.items():
+        plan = sample_bwd_plan(c, hh, ww)
+        got = [lib.v1t_bilinear_sample_cm_bwd_plan(c, hh, ww, f) for f in range(6)]
+        if got != list(plan):
+            raise AssertionError(f"sample_bwd_plan of {label} disagrees with the library: {got}")
+        log(f"  bilinear_sample_cm_bwd[{label}]: {plan.channels} channels a block x "
+            f"{plan.chunks} chunks, {plan.bands} band(s) of {plan.band_rows} rows, the table "
+            f"{'staged beside it' if plan.staged else 'in global memory'}, {plan.smem} bytes of "
+            f"shared memory a block")
     uses = {  # (K, stored reduction columns, rows 16-byte aligned, LayerNorm)
         "out_proj": (H * E, dp, E % 8 == 0, False),
         "qkv": (E, 3 * H * dp, True, True),
@@ -1274,7 +1352,7 @@ def check_launch_plans(lib) -> None:
     # residual) and (N, K, heads, dY aligned, A aligned)
     m, fr_m = B * N, FR_B * FR_N
     fwd = {"qkv": (3 * H * E, E, H, True, False, False),
-           "out_proj": (E, H * E, 0, False, H * E % 8 == 0, True),
+           "out_proj": (E, OW, 0, False, True, True),  # o's aligned rows, wp padded
            "fc1": (F_HID, E, 0, True, False, False),
            "fc2": (E, F_HID, 0, False, F_HID % 8 == 0, True)}
     for use, (n_, k, h, ln, al, res) in fwd.items():
@@ -1288,7 +1366,7 @@ def check_launch_plans(lib) -> None:
         log(f"  ln_linear[{use}] (K {k}, N {n_}): {'x streamed' if plan.stream else 'panel'}, "
             f"{plan.rows} rows a block, {plan.tiles} tiles of {plan.tile}, {plan.stages} stages, "
             f"{plan.smem} bytes of shared memory a block")
-    wg = {"out_proj": (E, H * E, 0, E % 8 == 0, H * E % 8 == 0),
+    wg = {"out_proj": (E, OW, 0, E % 8 == 0, True),
           "qkv": (3 * H * E, E, H, True, E % 8 == 0),
           "fc2": (E, F_HID, 0, E % 8 == 0, F_HID % 8 == 0),
           "fc1": (F_HID, E, 0, F_HID % 8 == 0, E % 8 == 0)}

@@ -394,8 +394,8 @@ def test_ln_linear_training_matches_plain(gen, rate, b, n, k, nout, opts):
     (1, 2, 1, 32, False), (2, 65, 3, 155, True), (1, 129, 2, 17, False),
     (2, 300, 1, 160, True), (1, 64, 2, 96, False), (3, 200, 2, 128, True),
     # the flagship's head width at lengths around the one pass's blocks of
-    # 128 keys and query tiles of 64 (LSA on one token would mask its only key)
-    (2, 1, 2, 155, False), (2, 63, 2, 155, True), (1, 63, 2, 155, False),
+    # 128 keys and query tiles of 64
+    (2, 1, 2, 155, False), (2, 1, 2, 155, True), (2, 63, 2, 155, True), (1, 63, 2, 155, False),
     (2, 65, 2, 155, False), (1, 129, 2, 155, True), (1, 1654, 2, 155, True),
     (1, 1654, 2, 155, False),
     (2, 150, 2, 192, True), (1, 130, 3, 256, False),  # on the flash kernels
@@ -478,6 +478,55 @@ def test_ln_linear_backward_matches_plain(gen, rate, b, n, k, nout, opts):
             _close(db, db_ref)
         else:
             assert db is None
+
+
+@pytest.mark.parametrize("b,h,d", [(2, 2, 155), (1, 4, 155), (3, 1, 32), (2, 3, 17)], ids=str)
+def test_attention_all_masked_row_matches_plain(gen, b, h, d):
+    """LSA at N 1 masks a row's only key: the row-1 kernel gives it P = 1,
+    o = v and the plain version's LSE (the key tile's zero fill past N
+    weighs nothing), serving and training, o's pad columns zero."""
+    x = _randn(gen, b, 1, 48)
+    qkv = ln_linear(x, _randn(gen, 3 * h * d, 48, scale=0.3), gamma=torch.ones(48, device="cuda"),
+                    beta=torch.zeros(48, device="cuda"), heads=(h, d))
+    scale = torch.full((h,), d ** -0.5, device="cuda")
+    o, lse = attention(qkv, scale, d, use_lsa=True, with_lse=True)
+    o_ref, lse_ref = attention_plain(qkv, scale, d, use_lsa=True, with_lse=True)
+    v = qkv[2, :, :, 0, :d].reshape(b, h * d)  # (B, H*D) of the row's only key
+    torch.cuda.synchronize()
+    assert torch.equal(o[:, 0, :h * d], v) and torch.equal(o_ref[:, 0, :h * d], v)
+    assert torch.all(o[..., h * d:] == 0)
+    assert torch.equal(lse, lse_ref)
+    assert torch.equal(attention(qkv, scale, d, use_lsa=True), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("b,c,height,width,p", [
+    (2, 3, 300, 300, 1001),  # two bands of 150 rows
+    (1, 2, 1000, 64, 777),  # two bands of 500 rows
+    (2, 37, 29, 57, 513),  # 5 chunks of 8 channels, the last of 5, the table staged
+], ids=lambda v: str(v))
+def test_bilinear_sample_cm_backward_bands_match_plain(gen, dtype, b, c, height, width, p):
+    """The sampling backward's launch plans past the flagship's: maps whose
+    float32 d(table) channel does not fit a block's shared memory go in row
+    bands (corners on both sides of a band's edge), and chunks of channels
+    that do not divide C; P no multiple of the block's 512 threads, points
+    outside the map (all corners, and some), bf16 and float32 tables."""
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
+
+    plan = sample_bwd_plan(c, height, width)
+    assert (plan.bands > 1) == (height * width * 4 > 232448)
+    table = _randn(gen, b, c, height * width, dtype=dtype)
+    grid = (torch.rand(b, p, 2, generator=gen) * 2.4 - 1.2).to("cuda")
+    grid[:, :4] = torch.tensor([[-1.5, 0.0], [0.0, 1.6], [1.0, 1.0], [-1.0, -1.0]], device="cuda")
+    # rows on either side of the first band's last row
+    y = (2.0 * (plan.band_rows - 1) + torch.rand(p - 4, generator=gen) * 2.0 - 1.0) / (height - 1)
+    grid[0, 4:, 1] = (y - 1.0).to("cuda")
+    dout = _randn(gen, b, c, p, dtype=dtype)
+    got = bilinear_sample_cm_bwd(table, grid, dout, height, width)
+    ref = bilinear_sample_cm_bwd_plain(table, grid, dout, height, width)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for g_, r_ in zip(got, ref):
+        _close(g_, r_, TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
 @pytest.mark.parametrize("b,c,height,width,p", [
@@ -709,16 +758,25 @@ def test_attention_backward_pads_stay_zero_for_the_dx_kernel(gen):
 
 
 def test_launch_plans_match_the_library(gen):
-    """ops/ln_linear.py dx_plan and ops/flash_attention.py fwd_plan mirror
-    the plans compiled into the kernels: the same shared memory a block."""
+    """ops/ln_linear.py dx_plan, ops/flash_attention.py fwd_plan and
+    ops/interp_matmul.py sample_bwd_plan mirror the plans compiled into the
+    kernels: the same shared memory a block (and the sampling backward's
+    channels, bands and chunks)."""
     from v1t_tpu_torch import _build
     from v1t_tpu_torch.ops.flash_attention import fwd_plan
     from v1t_tpu_torch.ops.ln_linear import dx_plan
+
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
 
     lib = _build.library()
     for dp in range(32, 257, 32):
         for dtype, f32 in ((torch.bfloat16, 0), (torch.float32, 1)):
             assert lib.v1t_flash_attention_smem(dp, f32) == fwd_plan(dtype, dp).smem
+    for c, height, width in ((155, 29, 57), (155, 137, 249), (3, 300, 300), (7, 1, 2),
+                             (2, 1000, 64), (37, 29, 57), (1, 3, 58112)):
+        plan = sample_bwd_plan(c, height, width)
+        assert [lib.v1t_bilinear_sample_cm_bwd_plan(c, height, width, f)
+                for f in range(6)] == list(plan)
     for k in (1, 32, 155, 160, 161, 320, 488, 620, 640, 2048):
         for ns in (32, 96, 160, 512, 640, 1920, 6144):
             for aligned in (0, 1):

@@ -140,6 +140,69 @@ def test_fused_mha_fp32_matches_composed(use_lsa, with_row, fold):
     _close(_port_mha(inp, torch.float32, use_lsa, with_row, fold), ref, F32_TOL, 1e-6)
 
 
+# heads whose concat is no multiple of 8 columns: 3 x 18 = 54, o's rows 56
+PAD_E, PAD_H = 18, 3
+# gradients against the interpreted kernel's vjp: the tolerance of
+# tests/test_torch_port_backward.py (bf16 roundings of dS and the
+# projections flip in other summation orders)
+GRAD_TOL = 2e-2
+
+
+@pytest.mark.parametrize("use_lsa", [False, True], ids=["no_lsa", "lsa"])
+def test_fused_mha_padded_o_rows_match_pallas_interpret(interpret, use_lsa):
+    """Where H*D (54) is no multiple of 8, attention writes o in rows of 56
+    with exact zeros past 54; the out-projection reads them against wp
+    zero-padded at the call, its weight gradient against the padded o, the
+    attention backward at o's stride: the sublayer's output and every
+    gradient match the JAX package's fused kernel (interpreted), and dWp
+    comes back in wp's shape, JAX's."""
+    from v1t_tpu_torch.ops.fused_mha import attention_plain, o_width
+
+    e, h = PAD_E, PAD_H
+    rng = np.random.default_rng(21)
+    inp = dict(
+        x=_bf16(rng.normal(size=(B, N, e))),
+        gamma=(1.0 + 0.1 * rng.normal(size=e)).astype(np.float32),
+        beta=(0.1 * rng.normal(size=e)).astype(np.float32),
+        wqkv=_bf16(0.2 * rng.normal(size=(3, h, e, e))),  # JAX layout (3, H, E, D)
+        wp=_bf16(0.15 * rng.normal(size=(h, e, e))),  # (H, D, E)
+        bp=_bf16(0.1 * rng.normal(size=e)),
+        scale=(e ** -0.5 * (1.0 + 0.2 * rng.random(h))).astype(np.float32),
+    )
+    dout = _bf16(rng.normal(size=(B, N, e)))
+    names = ("x", "gamma", "beta", "wqkv", "wp", "bp", "scale")
+    bf = ("x", "wqkv", "wp", "bp")
+    ref_out, vjp = jax.vjp(
+        lambda *a: jax_fused_mha(*a, use_lsa=use_lsa, fold_residual=True),
+        *[jnp.asarray(inp[k], jnp.bfloat16 if k in bf else jnp.float32) for k in names])
+    refs = dict(zip(names, vjp(jnp.asarray(dout, jnp.bfloat16))))
+
+    leaves = dict(
+        x=_t(inp["x"], torch.bfloat16), gamma=_t(inp["gamma"]), beta=_t(inp["beta"]),
+        wqkv=_t(inp["wqkv"].transpose(0, 1, 3, 2).reshape(3 * h * e, e), torch.bfloat16),
+        wp=_t(inp["wp"].reshape(h * e, e).T, torch.bfloat16), bp=_t(inp["bp"]),
+        scale=_t(inp["scale"]))
+    for leaf in leaves.values():
+        leaf.requires_grad_()
+    out = fused_mha(*leaves.values(), num_heads=h, use_lsa=use_lsa, fold_residual=True)
+    out.backward(_t(dout, torch.bfloat16))
+    _close(out.detach(), ref_out, BF16_TOL)
+    grads = {k: v.grad for k, v in leaves.items()}
+    assert tuple(grads["wp"].shape) == (e, h * e)
+    grads["wqkv"] = grads["wqkv"].float().reshape(3, h, e, e).permute(0, 1, 3, 2)
+    grads["wp"] = grads["wp"].float().t().reshape(h, e, e)
+    for name in names:
+        if name != "scale" or use_lsa:  # a fixed scale: no gradient in JAX's use
+            _close(grads[name], refs[name], GRAD_TOL)
+
+    qkv = ln_linear(leaves["x"].detach(), leaves["wqkv"].detach(), gamma=leaves["gamma"].detach(),
+                    beta=leaves["beta"].detach(), heads=(h, e))
+    for fn in (attention, attention_plain):
+        o = fn(qkv, leaves["scale"].detach(), e, use_lsa, with_lse=True)[0]
+        assert tuple(o.shape) == (B, N, o_width(h, e)) == (B, N, 56)
+        assert torch.all(o[..., h * e:] == 0)
+
+
 def _mlp_inputs(seed):
     rng = np.random.default_rng(seed)
     return dict(

@@ -339,3 +339,126 @@ def test_forward_plan_tiles_match_the_kernel_source():
     assert "load(Vs, vg, kt);" in body and "load(Ks, kg, kt + 1);" in body
     assert "cp_async16(" in body
     assert "const float2 b = *reinterpret_cast<const float2*>(vr + 32 * j);" in body
+
+
+@pytest.mark.parametrize("dp,smem", [(32, 42064), (64, 83024), (96, 123984), (128, 164944),
+                                     (160, 205904)])
+@pytest.mark.parametrize("b,h,n,items,blocks", [(64, 4, 1654, 13 * 256, 132), (2, 3, 1, 6, 6),
+                                                (1, 1, 128, 1, 1), (1, 2, 129, 4, 4)], ids=str)
+def test_attention_launch_plan(dp, smem, b, h, n, items, blocks):
+    """The row-1 core runs the bf16 flash forward's wgmma kernel,
+    persistent: min(items, 132 SMs) blocks walk items of 128 query rows of
+    one (batch, head) plane, key tiles of 64 in a TMA ring 3 deep; shared
+    memory 1024 bytes of alignment slack, two q panels, the ring's K and V
+    panels, 10 mbarriers (hand-computed, e.g. 205,904 bytes at DP 160:
+    1024 + (2 x 128 + 2 x 3 x 64) x 160 x 2 + 80)."""
+    from v1t_tpu_torch.ops.fused_mha import attention_plan
+
+    plan = attention_plan(b, h, n, dp)
+    assert (plan.items, plan.blocks, plan.stages) == (items, blocks, 3)
+    assert (plan.tiles.queries, plan.tiles.keys, plan.tiles.smem) == (128, 64, smem)
+    assert smem == 1024 + (2 * 128 + 2 * 3 * 64) * dp * 2 + 10 * 8 and smem <= SMEM
+
+
+def test_attention_launch_plan_rejects_flash_widths_and_large_grids():
+    from v1t_tpu_torch.ops.fused_mha import attention_plan
+
+    for dp in (192, 224, 256, 100):
+        with pytest.raises(ValueError):
+            attention_plan(2, 2, 100, dp)
+    attention_plan(16383, 4, 100, 160)
+    with pytest.raises(ValueError):
+        attention_plan(16384, 4, 100, 160)
+
+
+def test_attention_core_is_the_flash_forward_in_log2_units():
+    """attention.cu defines no kernel of its own (the mma.sync tile loop and
+    attention_tile.cuh are gone): it launches flash_attention.cu's wgmma
+    forward through wgmma_fwd::launch with the per-head scale, which the
+    kernel applies to the q panel in shared memory before its first
+    product; the forward's tiles are the ones fwd_plan mirrors."""
+    attn, flash = _source("attention.cu"), _source("flash_attention.cu")
+    assert "__global__" not in attn and "mma_16816" not in attn
+    assert "wgmma_fwd::launch(q, q + plane, q + 2 * plane" in attn
+    assert "(const float*)scale, o_row - H * D" in attn
+    assert "int wgmma_fwd::launch(" in flash
+    assert not any(p.endswith("attention_tile.cuh") for p in _build.sources())
+    body = _kernel_body(flash, "flash_fwd_wgmma_kernel")
+    assert "scale_q_rows<DP>(Qs + qb * Q_BYTES, 64 * c, q_scale[bh % ol.H] * LOG2E, D" in body
+    assert body.index("scale_q_rows<DP>") < body.index("issue_s(0);")
+    helper = _kernel_body(flash, "scale_q_rows")
+    assert "fence_async_smem();" in helper and "named_sync(1 + c, WG);" in helper
+    assert "constexpr int BQ = 128, WG = 128, FWD_THREADS = 3 * WG;" in flash
+    # persistent: min(items, SMs) blocks, items (query tile, plane), two q panels
+    assert "<<<items < sms ? items : sms, FWD_THREADS, bytes, stream>>>" in flash
+    assert "const int qt = w % q_tiles, bh = w / q_tiles, qb = it & 1;" in body
+    assert "(2 * BQ + 2 * fwd_stages<DP>() * fwd_bkv<DP>())" in flash
+    assert "constexpr int fwd_bkv() { return DP <= 160 ? 64 : 32; }" in flash
+    assert "constexpr int fwd_stages() { return DP <= 192 ? 3 : 2; }" in flash
+
+
+# (C, height, width) -> (channels a block, rows a band, chunks, bands, smem, staged)
+SAMPLE_BWD_CASES = {
+    "flagship 29x57": ((155, 29, 57), (8, 29, 20, 1, 8 * 29 * 57 * 8, True)),
+    "full-res 137x249": ((155, 137, 249), (1, 137, 155, 1, 137 * 249 * 4, False)),
+    "300x300, two bands": ((3, 300, 300), (1, 150, 3, 2, 150 * 300 * 4, False)),
+    "1x2, every channel": ((7, 1, 2), (7, 1, 1, 1, 7 * 2 * 8, True)),
+    "2000x100, 4 bands": ((2, 2000, 100), (1, 500, 2, 4, 500 * 100 * 4, False)),
+    "37 channels, 5 chunks": ((37, 29, 57), (8, 29, 5, 1, 8 * 29 * 57 * 8, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLE_BWD_CASES))
+def test_sample_bwd_launch_plan(case):
+    """d(table) of a block's channels stays in shared memory, their table
+    beside it where the map fits: the flagship's 29 x 57 map (13,224 bytes
+    a channel with its table slot) takes 8 channels a block within half a
+    SM (two blocks a SM), 155 split evenly over 20 chunks of 8; the
+    full-resolution 137 x 249 map (136,452 bytes of d(table) alone) one
+    channel a block, its table in global memory; a 300 x 300 map (360,000
+    bytes) two bands of 150 rows. The fp32 model's map is the flagship's:
+    d(table) is float32 and the table's slot 4 bytes in either dtype."""
+    from v1t_tpu_torch.ops.interp_matmul import BWD_MAX_SMEM, BWD_PAIR_SMEM, sample_bwd_plan
+
+    shape, want = SAMPLE_BWD_CASES[case]
+    plan = sample_bwd_plan(*shape)
+    assert tuple(plan) == want
+    c, height, width = shape
+    assert plan.channels * plan.chunks >= c > plan.channels * (plan.chunks - 1)
+    assert plan.band_rows * plan.bands >= height > plan.band_rows * (plan.bands - 1)
+    staged = height * width * 8
+    assert plan.staged == (staged <= BWD_MAX_SMEM)
+    assert plan.smem <= (BWD_PAIR_SMEM if staged <= BWD_PAIR_SMEM else BWD_MAX_SMEM)
+    assert 2 * (BWD_PAIR_SMEM + 1024) <= 233472 and BWD_MAX_SMEM == SMEM
+
+
+def test_sample_bwd_launch_plan_rejects_a_row_past_shared_memory():
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
+
+    assert sample_bwd_plan(1, 3, 58112).bands == 3
+    with pytest.raises(ValueError):
+        sample_bwd_plan(1, 3, 58113)
+
+
+def test_sample_bwd_plan_constants_match_the_kernel_source():
+    from v1t_tpu_torch.ops.interp_matmul import BWD_MAX_SMEM, BWD_PAIR_SMEM
+
+    src = _source("bilinear_sample.cu")
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (consts["BWD_MAX_SMEM"], consts["BWD_PAIR_SMEM"]) == (BWD_MAX_SMEM, BWD_PAIR_SMEM)
+
+
+def test_sample_bwd_kernel_adds_nothing_to_global_dtable():
+    """The backward adds d(table) only into shared memory and writes it once
+    in the table's dtype; its one global atomic is d(grid)'s, a float2 per
+    (b, p, chunk); the float32 scratch and cast are gone from the wrapper."""
+    src = _source("bilinear_sample.cu")
+    body = _kernel_body(src, "bilinear_sample_cm_bwd_kernel")
+    assert re.findall(r"atomicAdd\((\w+)", body) == ["a", "dgrid"]
+    assert "extern __shared__ float acc[];" in body and "T* __restrict__ dtable" in body
+    assert "store_f(db + (size_t)c * HW + (i - c * cells), acc[i]);" in body
+    assert "for (int i = threadIdx.x; i < nc * HW; i += BWD_THREADS) tab[i] = tb[i];" in body
+    wrapper = open(f"{_build.CSRC_DIR}/../ops/interp_matmul.py").read()
+    body = wrapper[wrapper.index("def bilinear_sample_cm_bwd("):]
+    body = body[:body.index("\nbilinear_sample_cm_bwd.launches")]
+    assert "torch.zeros" not in body and ".to(table.dtype)" not in body

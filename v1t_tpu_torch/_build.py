@@ -49,10 +49,11 @@ SIGNATURES = {
     "v1t_ln_linear_dx_smem": [_I] * 4,
     "v1t_ln_linear_wgrad": [_P] * 4 + [_I] * 7 + _DROP + [_P],
     "v1t_ln_linear_wgrad_plan": [_I] * 10,
-    "v1t_attention": [_P] * 4 + [_I] * 6 + _DROP + [_P],
-    "v1t_attention_bwd": [_P] * 11 + [_I] * 6 + _DROP + [_P],
+    "v1t_attention": [_P] * 4 + [_I] * 7 + _DROP + [_P],
+    "v1t_attention_bwd": [_P] * 11 + [_I] * 7 + _DROP + [_P],
     "v1t_bilinear_sample_cm": [_P] * 3 + [_I] * 6 + [_P],
     "v1t_bilinear_sample_cm_bwd": [_P] * 5 + [_I] * 6 + [_P],
+    "v1t_bilinear_sample_cm_bwd_plan": [_I] * 4,
     "v1t_flash_attention": [_P] * 5 + [_I] * 12 + _DROP + [_P],
     "v1t_flash_attention_bwd": [_P] * 13 + [_I] * 12 + _DROP + [_P],
     "v1t_flash_attention_smem": [_I, _I],

@@ -24,8 +24,9 @@
 // tensor-core time against ~0.25 ms of bytes. Bound by operations.
 //
 // Three kernels, one launch each, around one memset:
-// 1. prep: delta = rowsum(dO . o) per (b, h, row), dO copied from the
-//    out-projection's (B, N, H*D) layout into the head-major (B, H, N, DP)
+// 1. prep: delta = rowsum(dO . o) per (b, h, row) (o's rows o_row apart,
+//    the forward's aligned stride), dO copied from the out-projection's
+//    (B, N, H*D) layout into the head-major (B, H, N, DP)
 //    layout of q/k/v (zero-padded from D to DP), and q_s = bf16(q * scale *
 //    log2 e) written head-major; the float32 (B*H, N, DP) dq accumulator is
 //    zeroed.
@@ -52,19 +53,20 @@ constexpr float LN2 = 0.6931471805599453f;
 __global__ void __launch_bounds__(THREADS) attention_bwd_prep_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ scale, const bf16* __restrict__ o,
     const bf16* __restrict__ dout, bf16* __restrict__ qs, bf16* __restrict__ dohm,
-    float* __restrict__ delta, int B, int N, int H, int D, int DP) {
+    float* __restrict__ delta, int B, int N, int H, int D, int DP, int o_row) {
   // one warp per (b, h, row)
   const long long item = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (item >= (long long)B * H * N) return;
   const int row = (int)(item % N), bh = (int)(item / N), h = bh % H, b = bh / H;
   const size_t src = ((size_t)b * N + row) * H * D + (size_t)h * D;
+  const size_t osrc = ((size_t)b * N + row) * o_row + (size_t)h * D;
   const size_t hm = ((size_t)bh * N + row) * DP;  // head-major row of q, dO, q_s
   const float sc = scale[h] * LOG2E;
   float acc = 0.f;
   for (int d = lane; d < DP; d += 32) {
     const float g = d < D ? to_f(dout[src + d]) : 0.f;
-    if (d < D) acc += g * to_f(o[src + d]);
+    if (d < D) acc += g * to_f(o[osrc + d]);
     dohm[hm + d] = __float2bfloat16_rn(g);
     // q rounded after the scale, as the forward rounds it
     qs[hm + d] = __float2bfloat16_rn(d < D ? to_f(qkv[hm + d]) * sc : 0.f);
@@ -120,7 +122,8 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_convert_kernel(
 }  // namespace
 
 // Returns a CUDA error code (0 on success). qkv (3, B, H, N, DP) bf16 as
-// ln_linear wrote it for the forward; o and dout (B, N, H*D) bf16; lse
+// ln_linear wrote it for the forward; o (B, N, o_row) bf16 as the forward
+// wrote it (o_row >= H*D); dout (B, N, H*D) bf16; lse
 // (B, H, N) float32 from attention's training forward; scale (H,) float32.
 // Writes dqkv (3, B, H, N, DP) bf16 (zero past D) and adds each (b, h)'s
 // dscale partial into dscale (B, H) float32, which the caller zeroes.
@@ -131,10 +134,11 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_convert_kernel(
 extern "C" int v1t_attention_bwd(const void* qkv, const void* o, const void* dout,
                                  const void* lse, const void* scale, void* dqkv, void* dscale,
                                  void* qs, void* dohm, void* delta, void* dq_acc, int B, int N,
-                                 int H, int D, int DP, int lsa, unsigned seed, unsigned site,
-                                 unsigned threshold, float drop_scale, void* stream) {
+                                 int H, int D, int DP, int o_row, int lsa, unsigned seed,
+                                 unsigned site, unsigned threshold, float drop_scale,
+                                 void* stream) {
   if (DP % 32 || DP < 32 || DP > 160 || D > DP || B < 1 || H < 1 || N < 1 ||
-      (long long)B * H > 65535)
+      (long long)B * H > 65535 || o_row < H * D)
     return (int)cudaErrorInvalidValue;
   const Drop drop{seed, site, threshold, drop_scale};
   cudaStream_t s = (cudaStream_t)stream;
@@ -144,7 +148,7 @@ extern "C" int v1t_attention_bwd(const void* qkv, const void* o, const void* dou
   attention_bwd_prep_kernel<<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS,
                               0, s>>>((const bf16*)qkv, (const float*)scale, (const bf16*)o,
                                       (const bf16*)dout, (bf16*)qs, (bf16*)dohm, (float*)delta,
-                                      B, N, H, D, DP);
+                                      B, N, H, D, DP, o_row);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(dq_acc, 0, plane * sizeof(float), s);

@@ -14,7 +14,9 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
 - ``flash_fwd`` / ``flash_bwd``: the kernel launches on padded (B*H, N, DP)
   tensors (DP = D rounded up to 32, rows zero-padded), bf16 or float32.
   ``o`` is written as a (B, Nq, H, D) buffer, so that the heads' concat
-  before the output projection is a view. The forward returns the
+  before the output projection is a view (or into ``out``, such a view of
+  a buffer with wider rows; the backward then takes o and dO as two views
+  of one layout). The forward returns the
   natural-log LSE (B*H, Nq); the backward folds the LSE's cotangent into
   delta = rowsum(dO . o) - dlse, as the JAX backward does. ``fwd_plan``
   says which tiles the forward runs on; ``bwd_plan``
@@ -115,9 +117,10 @@ class FwdPlan(t.NamedTuple):
 
 def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     """The tiles ``csrc/flash_attention.cu`` runs the forward on at padded
-    head width DP: bf16, 128 queries (two consumer warpgroups of 64) against
-    key tiles of 64 up to DP 160 and 32 above, a TMA ring 3 deep up to DP
-    192 and 2 above; float32, 128 queries (8 rows a thread) up to DP 160 and
+    head width DP: bf16, items of 128 queries (two consumer warpgroups of
+    64) against key tiles of 64 up to DP 160 and 32 above, two q panels (a
+    persistent block's item and its next), a TMA ring 3 deep up to DP 192
+    and 2 above; float32, 128 queries (8 rows a thread) up to DP 160 and
     64 (4 rows) above, so that o fits the registers, key tiles of 64 whose K
     and V take turns in a two-stage cp.async ring, every tile's rows padded
     by 4 floats and 4 more every 8 rows."""
@@ -131,12 +134,32 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
 
         return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4)
     keys, stages = (64 if dp <= 160 else 32), (3 if dp <= 192 else 2)
-    return FwdPlan(128, keys, 1024 + (128 + 2 * stages * keys) * dp * 2 + (1 + 2 * stages) * 8)
+    return FwdPlan(128, keys, 1024 + (2 * 128 + 2 * stages * keys) * dp * 2 + (4 + 2 * stages) * 8)
+
+
+def _one_layout(*xs: Tensor) -> bool:
+    """(B, Nq, H, D) views whose strides agree wherever a size is above 1
+    (a size-1 dimension's stride is never used), D contiguous: one layout
+    the kernels address as (batch, head, row) strides."""
+    x0 = xs[0]
+    return all(x.shape == x0.shape and all(
+        sa == sb for sa, sb, n in zip(x.stride(), x0.stride(), x0.shape) if n > 1)
+        for x in xs) and (x0.shape[3] == 1 or x0.stride(3) == 1)
+
+
+def _check_out(out: Tensor, q: Tensor, heads: int, head_dim: int) -> Tensor:
+    bh, nq, _ = q.shape
+    if tuple(out.shape) != (bh // heads, nq, heads, head_dim) or out.dtype != q.dtype \
+            or out.device != q.device or not _one_layout(out):
+        raise ValueError(f"flash attention: out {tuple(out.shape)} {out.dtype} is not a "
+                         f"(B, Nq, H, D) view with contiguous rows like q's")
+    return out
 
 
 def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, head_dim: int, heads: int = 1, *,
                     n_real_k: t.Optional[int] = None, use_lsa: bool = False,
-                    drop: t.Optional[Dropout] = None, with_lse: bool = False):
+                    drop: t.Optional[Dropout] = None, with_lse: bool = False,
+                    out: t.Optional[Tensor] = None):
     """Plain PyTorch version of ``flash_fwd``, query rows in chunks: scores in
     float32 in base 2, the unnormalised probabilities (the keep mask applied,
     select only) rounded to the input dtype for P.V, rows divided by their sum
@@ -163,21 +186,24 @@ def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, head_dim: int, heads: int =
             inv = inv * drop.scale
         o_h[:, r0:r1] = ((p.to(dt).float() @ v32) * inv).to(dt)
         lse[:, r0:r1] = ((m + torch.log2(l.clamp_min(1e-37))) * LN2)[..., 0]
-    out = o_h.view(bh // heads, heads, nq, head_dim).transpose(1, 2).contiguous()
+    o = o_h.view(bh // heads, heads, nq, head_dim).transpose(1, 2)
+    out = o.contiguous() if out is None else _check_out(out, q, heads, head_dim).copy_(o)
     return (out, lse) if with_lse else out
 
 
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor, head_dim: int, heads: int = 1, *,
               n_real_k: t.Optional[int] = None, use_lsa: bool = False,
-              drop: t.Optional[Dropout] = None, with_lse: bool = False):
+              drop: t.Optional[Dropout] = None, with_lse: bool = False,
+              out: t.Optional[Tensor] = None):
     """softmax(q.k^T) v for q (BH, Nq, DP), k and v (BH, Nk, DP) (BH = B *
     heads planes, rows zero-padded from ``head_dim`` to DP, the scale already
-    in q), bf16 or float32 -> o (B, Nq, heads, head_dim) in q's dtype and,
-    with ``with_lse``, the (BH, Nq) float32 natural-log LSE. Keys at or past
+    in q), bf16 or float32 -> o (B, Nq, heads, head_dim) in q's dtype (into
+    ``out`` when given: such a view, rows contiguous) and, with
+    ``with_lse``, the (BH, Nq) float32 natural-log LSE. Keys at or past
     ``n_real_k`` are masked, with ``use_lsa`` (Nq == Nk) the diagonal too;
     ``drop`` masks the probabilities (element (bh, query, key))."""
     n_real_k = _check(q, k, v, head_dim, heads, n_real_k, use_lsa)
-    kwargs = dict(n_real_k=n_real_k, use_lsa=use_lsa, drop=drop, with_lse=with_lse)
+    kwargs = dict(n_real_k=n_real_k, use_lsa=use_lsa, drop=drop, with_lse=with_lse, out=out)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, head_dim, heads, **kwargs)
     _build.require_cuda("flash_attention", (q.dtype,) * 3, q, k, v)
@@ -187,7 +213,7 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, head_dim: int, heads: int = 1, *,
                          f"{MAX_HEAD_PAD} (ROADMAP queue 3 item 1)")
     if bh > 65535:
         raise ValueError("flash_attention: batch x heads exceeds the launch grid")
-    out = _out_buffer(q, heads, head_dim)
+    out = _out_buffer(q, heads, head_dim) if out is None else _check_out(out, q, heads, head_dim)
     train = with_lse or (drop is not None and drop.active)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device) if train else None
     rc = _build.library().v1t_flash_attention(
@@ -291,7 +317,8 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tenso
               n_real_k: t.Optional[int] = None, use_lsa: bool = False,
               drop: t.Optional[Dropout] = None, out=None):
     """The backward of ``flash_fwd``'s training forward: q, k, v as it took
-    them, its output o and cotangent do (B, Nq, heads, head_dim), its LSE and
+    them, its output o and cotangent do (B, Nq, heads, head_dim; two views
+    with the same strides, rows contiguous), its LSE and
     the LSE's cotangent dlse (BH, Nq) float32 (None: zero), its keep mask
     ``drop`` (regenerated) -> (dq (BH, Nq, DP), dk, dv (BH, Nk, DP)) in q's
     dtype, zero past head_dim; into ``out``'s three tensors when given."""
@@ -301,8 +328,10 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tenso
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, head_dim, heads, **kwargs)
     dt, f32 = q.dtype, torch.float32
-    _build.require_cuda("flash_attention_bwd", (dt, dt, dt, dt, dt, f32, f32),
-                        q, k, v, o, do, lse, dlse)
+    _build.require_cuda("flash_attention_bwd", (dt, dt, dt, f32, f32), q, k, v, lse, dlse)
+    if o.device != q.device or do.device != q.device or not _one_layout(o, do):
+        raise ValueError("flash_attention_bwd: o and do are not views of one layout with "
+                         "contiguous rows on q's device")
     bh, nq, dp = q.shape
     nk = k.shape[1]
     if dp > MAX_HEAD_PAD:

@@ -27,13 +27,21 @@ recomputes P from it; both dropout masks are regenerated from (seed, site)
 (``ops/dropout.py``), never stored. ``attention`` and ``attention_bwd``
 (``csrc/attention.cu``, ``csrc/attention_bwd.cu``) are defined below with
 their plain versions; ``ln_linear`` and its backward live in
-``ops/ln_linear.py``. ``attention.cu`` keeps q in registers and is built for
+``ops/ln_linear.py``. ``attention.cu`` runs the bf16 flash forward's wgmma
+kernel in its log2 mode (q scaled in shared memory, ``attention_plan``) at
 padded head widths up to 160; wider heads (192-256: the sweep's emb_dim
-reaches 256) run on the flash kernels of ``ops/flash_attention.py``, which
-read q from shared memory: q is scaled and rounded before them (as the JAX
-flash path does), the LSE converts between natural log and log2, dq =
-scale dq_s and dscale = sum q . dq_s; the plain versions compose the flash
-plain versions the same way.
+reaches 256) run on the flash kernels of ``ops/flash_attention.py`` as
+they are: q is scaled and rounded before them (as the JAX flash path
+does), the LSE converts between natural log and log2, dq = scale dq_s and
+dscale = sum q . dq_s; the plain versions compose the flash plain versions
+the same way.
+
+Every route writes o as (B, N, ``o_width``): the H*D columns rounded up to
+a multiple of 8, the pad columns zero, so that its rows are 16-byte
+aligned and the output projection streams them by TMA (620 -> 624 at the
+flagship). The out-projection takes ``wp`` zero-padded to that width at
+the call (exact zeros), its weight gradient the padded o (dWp sliced back
+to H*D columns), and the attention backward reads o at that stride.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ import torch
 from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, keep_mask
 from v1t_tpu_torch.ops.flash_attention import (
-    MAX_HEAD_PAD, BwdPlan, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+    MASKED, MAX_HEAD_PAD, BwdPlan, FwdPlan, flash_bwd, flash_bwd_plain, flash_fwd,
+    flash_fwd_plain, fwd_plan,
 )
 from v1t_tpu_torch.ops.ln_linear import (
     drop_args, ln_linear, ln_linear_bwd, ln_linear_bwd_plain, ln_linear_plain,
@@ -56,6 +65,12 @@ Tensor = torch.Tensor
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 KERNEL_HEAD_PADS = (32, 64, 96, 128, 160)  # padded head widths the kernel is built for
+
+
+def o_width(num_heads: int, head_dim: int) -> int:
+    """Columns of attention's output rows: H*D rounded up to a multiple of
+    8, so that bf16 rows are 16-byte aligned."""
+    return -(-num_heads * head_dim // 8) * 8
 
 
 def _check(qkv: Tensor, scale: Tensor, head_dim: int) -> None:
@@ -75,8 +90,8 @@ def _check(qkv: Tensor, scale: Tensor, head_dim: int) -> None:
 
 def _scaled_scores(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool):
     """q rounded after the scale (log2(e) folded in), the (B, H, N, N)
-    float32 scores in log2 units (LSA diagonal masked) and q, k, v in
-    float32, as the kernels compute them."""
+    float32 scores in log2 units (the LSA diagonal at the kernels' finite
+    masked score) and q, k, v in float32, as the kernels compute them."""
     dt = qkv.dtype
     n = qkv.shape[3]
     q, k, v = qkv[..., :head_dim].float()  # (B, H, N, D) each
@@ -84,7 +99,7 @@ def _scaled_scores(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool):
     s = q_s @ k.transpose(-1, -2)
     if use_lsa:
         eye = torch.eye(n, dtype=torch.bool, device=qkv.device)
-        s = s.masked_fill(eye, -torch.finfo(torch.float32).max)
+        s = s.masked_fill(eye, MASKED)
     return s, q, q_s, k, v
 
 
@@ -102,15 +117,22 @@ def _flash_operands(qkv: Tensor, scale: Tensor):
     return q_s, qkv[1].reshape(b * h, n, dp), qkv[2].reshape(b * h, n, dp)
 
 
+def _heads_view(y: Tensor, num_heads: int, head_dim: int) -> Tensor:
+    """The (B, N, H, D) view of the first H*D columns of (B, N, width) rows."""
+    return y[..., :num_heads * head_dim].unflatten(-1, (num_heads, head_dim))
+
+
 def _attention_flash(fwd, qkv, scale, head_dim, use_lsa, drop, with_lse):
     """``attention`` for padded head widths past attention.cu's, on the flash
-    forward ``fwd`` (the kernel or its plain version); the LSE in log2."""
+    forward ``fwd`` (the kernel or its plain version), written into o's
+    aligned rows; the LSE in log2."""
     _, b, h, n, _ = qkv.shape
-    out = fwd(*_flash_operands(qkv, scale), head_dim, h, use_lsa=use_lsa, drop=drop,
-              with_lse=with_lse)
-    if not with_lse:
-        return out.view(b, n, h * head_dim)
-    return out[0].view(b, n, h * head_dim), out[1].view(b, h, n) * LOG2E
+    o = torch.empty((b, n, o_width(h, head_dim)), dtype=qkv.dtype, device=qkv.device)
+    if o.shape[-1] != h * head_dim:
+        o[..., h * head_dim:].zero_()
+    res = fwd(*_flash_operands(qkv, scale), head_dim, h, use_lsa=use_lsa, drop=drop,
+              with_lse=with_lse, out=_heads_view(o, h, head_dim))
+    return (o, res[1].view(b, h, n) * LOG2E) if with_lse else o
 
 
 def _attention_bwd_flash(bwd, qkv, o, do, lse, scale, head_dim, use_lsa, drop):
@@ -119,7 +141,9 @@ def _attention_bwd_flash(bwd, qkv, o, do, lse, scale, head_dim, use_lsa, drop):
     _, b, h, n, dp = qkv.shape
     dqkv = torch.empty_like(qkv)
     q_s, k, v = _flash_operands(qkv, scale)
-    bwd(q_s, k, v, o.view(b, n, h, head_dim), do.view(b, n, h, head_dim),
+    if do.shape[-1] != o.shape[-1]:  # dO at o's aligned stride: one layout for both
+        do = torch.nn.functional.pad(do, (0, o.shape[-1] - do.shape[-1]))
+    bwd(q_s, k, v, _heads_view(o, h, head_dim), _heads_view(do, h, head_dim),
         (lse * LN2).view(b * h, n), head_dim, h, use_lsa=use_lsa, drop=drop,
         out=tuple(dqkv[i].view(b * h, n, dp) for i in range(3)))
     dscale = (qkv[0].float() * dqkv[0].float()).sum((0, 2, 3))
@@ -139,10 +163,10 @@ def attention_plain(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = F
     the unnormalised probabilities (with the keep mask applied, select only)
     round to the input dtype for P.V and rows are divided by their sum
     (taken before the mask) and by the keep rate at the end, as in the
-    kernel and in the TPU kernel it replaces. ``with_lse`` also returns the
-    (B, H, N) float32 log2-domain log-sum-exp. Past attention.cu's head
-    widths, the flash plain version, as the kernel path takes the flash
-    kernels there."""
+    kernel and in the TPU kernel it replaces; o in ``attention``'s aligned
+    rows, pad columns zero. ``with_lse`` also returns the (B, H, N) float32
+    log2-domain log-sum-exp. Past attention.cu's head widths, the flash
+    plain version, as the kernel path takes the flash kernels there."""
     if qkv.shape[-1] not in KERNEL_HEAD_PADS:
         return _attention_flash(flash_fwd_plain, qkv, scale, head_dim, use_lsa, drop, with_lse)
     dt = qkv.dtype
@@ -157,6 +181,7 @@ def attention_plain(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = F
         inv = inv * drop.scale
     o = (p.to(dt).float() @ v) * inv
     o = o.permute(0, 2, 1, 3).reshape(b, n, h * head_dim).to(dt)
+    o = torch.nn.functional.pad(o, (0, o_width(h, head_dim) - h * head_dim))
     if not with_lse:
         return o
     return o, (m + torch.log2(l.clamp_min(1e-37)))[..., 0]
@@ -166,7 +191,8 @@ def attention(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = False,
               drop: t.Optional[Dropout] = None, with_lse: bool = False):
     """qkv (3, B, H, N, DP) head-major as ``ln_linear(..., heads=(H, D))``
     writes it (rows zero-padded from D to DP), scale (H,) float32 ->
-    (B, N, H*D): softmax(scale_h q.k) v per head (LSA: diagonal masked).
+    (B, N, ``o_width(H, D)``), the heads' H*D columns then zeros:
+    softmax(scale_h q.k) v per head (LSA: diagonal masked).
     Training: ``drop`` masks the probabilities (element (b*H + h, query,
     key)); ``with_lse`` also returns the (B, H, N) log2-domain LSE that
     ``attention_bwd`` reads."""
@@ -178,14 +204,14 @@ def attention(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = False,
     _head_width_check("attention", dp, head_dim)
     if dp not in KERNEL_HEAD_PADS:  # wider heads: the flash kernels
         return _attention_flash(flash_fwd, qkv, scale, head_dim, use_lsa, drop, with_lse)
-    if b > 65535 or h > 65535:
-        raise ValueError("attention: batch or heads exceed the launch grid")
-    out = torch.empty((b, n, h * head_dim), dtype=qkv.dtype, device=qkv.device)
+    attention_plan(b, h, n, dp)  # raises past the launch grid
+    out = torch.empty((b, n, o_width(h, head_dim)), dtype=qkv.dtype, device=qkv.device)
     train = with_lse or (drop is not None and drop.active)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=qkv.device) if train else None
     rc = _build.library().v1t_attention(
         qkv.data_ptr(), scale.data_ptr(), out.data_ptr(), _build.ptr(lse),
-        b, n, h, head_dim, dp, int(use_lsa), *drop_args(drop), _build.stream_of(qkv),
+        b, n, h, head_dim, dp, out.shape[-1], int(use_lsa), *drop_args(drop),
+        _build.stream_of(qkv),
     )
     _build.check_launch("attention", rc)
     attention.launches += 1
@@ -193,6 +219,31 @@ def attention(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool = False,
 
 
 attention.launches = 0
+
+
+class AttentionPlan(t.NamedTuple):
+    items: int  # (query tile of 128 rows, plane) items: ceil(N / 128) x B*H
+    blocks: int  # persistent blocks, one a SM, each walking items b, b + blocks, ...
+    stages: int  # depth of the K / V ring
+    tiles: FwdPlan  # the bf16 flash forward's tiles and shared memory a block
+
+
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def attention_plan(b: int, h: int, n: int, dp: int) -> AttentionPlan:
+    """The launch ``attention`` makes on the card for qkv (3, B, H, N, DP) at
+    attention.cu's padded head widths: the bf16 flash forward's wgmma
+    kernel (``fwd_plan``: items of 128 queries on two consumer warpgroups,
+    key tiles of 64, a TMA ring 3 deep), persistent: min(items, SMs)
+    blocks on an H100. Wider heads run ``flash_fwd``."""
+    if dp not in KERNEL_HEAD_PADS:
+        raise ValueError(f"attention: padded head width {dp} runs on flash_fwd")
+    if b * h > 65535:
+        raise ValueError("attention: batch x heads exceeds the launch grid")
+    tiles = fwd_plan(torch.bfloat16, dp)
+    items = -(-n // tiles.queries) * b * h
+    return AttentionPlan(items, min(items, H100_SMS), 3, tiles)
 
 
 def attention_bwd_plain(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor,
@@ -209,7 +260,7 @@ def attention_bwd_plain(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: 
     _, b, h, n, dp = qkv.shape
     s, q, q_s, k, v = _scaled_scores(qkv, scale, head_dim, use_lsa)
     p = torch.exp2(s - lse[..., None])
-    heads = lambda y: y.float().reshape(b, n, h, head_dim).permute(0, 2, 1, 3)  # noqa: E731
+    heads = lambda y: _heads_view(y, h, head_dim).float().permute(0, 2, 1, 3)  # noqa: E731
     do_h, o_h = heads(do), heads(o)
     delta = (do_h * o_h).sum(-1, keepdim=True)
     dp_ = do_h @ v.transpose(-1, -2)
@@ -249,13 +300,14 @@ def attention_bwd(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor
                   head_dim: int, use_lsa: bool = False,
                   drop: t.Optional[Dropout] = None) -> t.Tuple[Tensor, Tensor]:
     """The backward of ``attention``'s training forward: qkv (3, B, H, N, DP)
-    and scale as the forward took them, its output o and cotangent do
-    (B, N, H*D), its LSE (B, H, N), its keep mask ``drop`` (regenerated) ->
+    and scale as the forward took them, its output o (B, N, ``o_width(H,
+    D)``) and the cotangent do of its H*D columns (B, N, H*D), its LSE
+    (B, H, N), its keep mask ``drop`` (regenerated) ->
     (dqkv (3, B, H, N, DP) zero past D, in qkv's dtype; dscale (H,)
     float32, the per-batch partials summed)."""
     _check(qkv, scale, head_dim)
     _, b, h, n, dp = qkv.shape
-    if tuple(o.shape) != (b, n, h * head_dim) or do.shape != o.shape:
+    if tuple(o.shape) != (b, n, o_width(h, head_dim)) or tuple(do.shape) != (b, n, h * head_dim):
         raise ValueError(f"attention_bwd: o {tuple(o.shape)} / do {tuple(do.shape)} do not "
                          f"match qkv {tuple(qkv.shape)}")
     if tuple(lse.shape) != (b, h, n) or lse.dtype != torch.float32:
@@ -277,7 +329,7 @@ def attention_bwd(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor
     rc = _build.library().v1t_attention_bwd(
         qkv.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), scale.data_ptr(),
         dqkv.data_ptr(), dscale.data_ptr(), qs.data_ptr(), dohm.data_ptr(), delta.data_ptr(),
-        dq_acc.data_ptr(), b, n, h, head_dim, dp, int(use_lsa), *drop_args(drop),
+        dq_acc.data_ptr(), b, n, h, head_dim, dp, o.shape[-1], int(use_lsa), *drop_args(drop),
         _build.stream_of(qkv),
     )
     _build.check_launch("attention_bwd", rc)
@@ -305,6 +357,8 @@ def _forward(cfg: _Cfg, x, bias_row, gamma, beta, wqkv, wp, bp, scale, train: bo
               heads=(cfg.num_heads, head_dim))
     o = attn(qkv, scale, head_dim, cfg.use_lsa, drop=cfg.drop_p, with_lse=train)
     o, lse = o if train else (o, None)
+    if o.shape[-1] != wp.shape[1]:  # o's aligned rows: wp's zero columns add exact zeros
+        wp = torch.nn.functional.pad(wp, (0, o.shape[-1] - wp.shape[1]))
     out = lin(
         o, wp, bias=bp, drop=cfg.drop_o,
         residual=x if cfg.fold_residual else None,
@@ -336,6 +390,7 @@ class _FusedMHA(torch.autograd.Function):
         # output projection: dO = mask(dout) Wp; dWp, dbp
         do = bwd(dout, wp, drop=cfg.drop_o)
         dwp, dbp = wgrad(dout, o, drop=cfg.drop_o, bias=True)
+        dwp = dwp[:, :wp.shape[1]]  # o's pad columns: no weight
         dqkv, dscale = attn_bwd(qkv, o, do, lse, scale, heads[1], cfg.use_lsa, cfg.drop_p)
         # QKV projection and LayerNorm: dz (+ the residual's cotangent)
         dx, ln_out, dgamma, dbeta, dbrow = bwd(

@@ -12,10 +12,14 @@ fp32 model's map, the full-resolution 137 x 249 one): one kernel path with
 no gate.
 
 The backward (``bilinear_sample_cm_bwd``, the JAX ``_interp_bwd`` ->
-``_bwd_kernel``) scatters d(table) with fp32 atomics and computes torch's
-piecewise-linear d(grid) in the same pass; ``sample_cm`` puts the pair
-behind a ``torch.autograd.Function`` with the JAX ``custom_vjp``'s
-cotangents (d(table) in the table's dtype, d(grid) float32).
+``_bwd_kernel``) adds d(table) into shared memory, a block a chunk of one
+image's channels with their table beside it (a map too large for that
+takes a block a channel, and one too large for a block a band of its rows:
+``sample_bwd_plan``), writes it once in the table's dtype and
+computes torch's piecewise-linear d(grid) in the same pass; ``sample_cm``
+puts the pair behind a ``torch.autograd.Function`` with the JAX
+``custom_vjp``'s cotangents (d(table) in the table's dtype, d(grid)
+float32).
 """
 
 from __future__ import annotations
@@ -74,6 +78,40 @@ def bilinear_sample_cm(table: Tensor, grid: Tensor, height: int, width: int) -> 
 
 bilinear_sample_cm.launches = 0
 
+BWD_MAX_SMEM, BWD_PAIR_SMEM = 232448, 115712  # a block's shared memory: alone, two a SM
+
+
+class SampleBwdPlan(t.NamedTuple):
+    channels: int  # channels a block
+    band_rows: int  # map rows a block (the whole map unless it is split in bands)
+    chunks: int  # chunks of the channels
+    bands: int  # bands of the map's rows
+    smem: int  # dynamic shared memory a block, bytes
+    staged: bool  # the table's channels in shared memory beside their d(table)
+
+
+def sample_bwd_plan(c: int, height: int, width: int) -> SampleBwdPlan:
+    """The launch ``csrc/bilinear_sample.cu`` ``sample_bwd_plan`` picks for
+    the backward of C channels of a height x width map (one grid of chunks x
+    bands per image): a channel's float32 d(table) and its table (a 4-byte
+    slot a cell) that fit half a SM's shared memory take as many channels a
+    block as fit there (two blocks a SM), split evenly over the chunks, or
+    a block's; past that the table stays in global memory and a channel's
+    d(table) takes a block, in even row bands where it does not fit one.
+    Raises where a single row does not fit."""
+    staged = height * width * 8
+    if staged <= BWD_MAX_SMEM:
+        most = min(c, (BWD_PAIR_SMEM if staged <= BWD_PAIR_SMEM else BWD_MAX_SMEM) // staged)
+        chunks = -(-c // most)
+        channels = -(-c // chunks)
+        return SampleBwdPlan(channels, height, chunks, 1, channels * staged, True)
+    rows = BWD_MAX_SMEM // (width * 4)
+    if rows < 1:
+        raise ValueError(f"bilinear_sample_cm_bwd: a map row of {width} does not fit")
+    bands = -(-height // rows)
+    band_rows = -(-height // bands)
+    return SampleBwdPlan(1, band_rows, c, bands, band_rows * width * 4, False)
+
 
 def bilinear_sample_cm_bwd_plain(table: Tensor, grid: Tensor, dout: Tensor, height: int,
                                  width: int) -> t.Tuple[Tensor, Tensor]:
@@ -111,7 +149,9 @@ def bilinear_sample_cm_bwd(table: Tensor, grid: Tensor, dout: Tensor, height: in
                            width: int) -> t.Tuple[Tensor, Tensor]:
     """The backward of ``bilinear_sample_cm``: table (B, C, H*W), grid
     (B, P, 2), dout (B, C, P) in the table's dtype -> (d(table) in the
-    table's dtype, d(grid) (B, P, 2) float32)."""
+    table's dtype, d(grid) (B, P, 2) float32). The kernel sums d(table) in
+    float32 in shared memory and rounds it once to the table's dtype, as
+    the plain version's float32 scatter and cast do."""
     _check(table, grid, height, width)
     if tuple(dout.shape) != (table.shape[0], table.shape[1], grid.shape[1]):
         raise ValueError(f"bilinear_sample_cm_bwd: dout {tuple(dout.shape)} does not match")
@@ -124,7 +164,8 @@ def bilinear_sample_cm_bwd(table: Tensor, grid: Tensor, dout: Tensor, height: in
     p = grid.shape[1]
     if b > 65535:
         raise ValueError("bilinear_sample_cm_bwd: batch exceeds the launch grid")
-    dtable = torch.zeros((b, c, hw), dtype=f32, device=table.device)
+    sample_bwd_plan(c, height, width)  # raises where no launch fits
+    dtable = torch.empty_like(table)
     dgrid = torch.empty((b, p, 2), dtype=f32, device=table.device)
     rc = _build.library().v1t_bilinear_sample_cm_bwd(
         table.data_ptr(), grid.data_ptr(), dout.data_ptr(), dtable.data_ptr(),
@@ -133,7 +174,7 @@ def bilinear_sample_cm_bwd(table: Tensor, grid: Tensor, dout: Tensor, height: in
     )
     _build.check_launch("bilinear_sample_cm_bwd", rc)
     bilinear_sample_cm_bwd.launches += 1
-    return dtable.to(table.dtype), dgrid
+    return dtable, dgrid
 
 
 bilinear_sample_cm_bwd.launches = 0
