@@ -6,9 +6,11 @@
 Phases, one line each as they go:
 1. the card's name and power limit;
 2. the build of the CUDA kernels (one ``nvcc`` per source, in parallel,
-   into ``v1t_tpu_torch/_build``), each kernel's registers and spills, the
-   flash kernels' shared memory a block, and the launch plans of the flash
-   forward, of ``ln_linear`` (``linear_plan``), ``ln_linear_dx``
+   into ``v1t_tpu_torch/_build``), each kernel's registers and spills (none
+   allowed in the bf16 flash kernels' wide instantiations, padded head
+   widths 192-256), the flash kernels' shared memory a block, and the
+   launch plans of the flash forward and backward (``fwd_plan``,
+   ``bwd_plan``), of ``ln_linear`` (``linear_plan``), ``ln_linear_dx``
    (``dx_plan``) and ``ln_linear_wgrad`` (``wgrad_plan``) held against the
    library's, with each flagship use's plan (rows a block, tiles, ring
    depths, how often dY' is read, slices and clusters of the weight
@@ -47,8 +49,10 @@ Phases, one line each as they go:
    and the bound), a rectangular case
    with padded keys and an LSE cotangent, an LSA case, rows whose every
    key is masked (LSA at N 1) and key counts that fill no tile, and head
-   widths 192 and 256 timed at a shape of the sweep (batch 16 x 4 heads,
-   1654 tokens), forward and backward; and the fused MLP's and the readout's kernels at the shapes
+   widths 192, 224 and 256 (the wide tiles) timed at a shape of the sweep
+   (batch 16 x 4 heads, 1654 tokens), the forward serving and training and
+   the backward with and without dropout, beside the bound, SDPA and the
+   parent design's readings; and the fused MLP's and the readout's kernels at the shapes
    the composed paths give them (68,228 rows; a 137x249 and a float32 map);
 5. training: ``Trainer.train_step`` on the flagship model (dropout on,
    readout noise on), two mice of 7000 neurons, batch 64, two cycles with
@@ -63,8 +67,14 @@ Phases, one line each as they go:
    5c. the flagship at ``precision="fp32"`` (batch 64, two mice): 1 serving
    batch and 2 train steps on the composed path (flash kernels in float32,
    the readout kernel on a float32 map), held against the plain path;
+   5d. the sweep's widest core (the flagship at emb 256: 4 heads of 256,
+   batch 64, two mice): 1 serving batch and one cycle of 2 train steps,
+   the attention on the bf16 flash kernels' wide tiles (per step the
+   forward 4 times and the backward's prep, one pass and convert 4 times
+   each), held against the plain path at phase 5's tolerances;
 6. where the time goes: one serving batch and one training step under
-   ``torch.profiler``;
+   ``torch.profiler`` (and one step of each composed path, and phase 5d's
+   serving batch);
 7. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -125,6 +135,12 @@ OW = -(-H * E // 8) * 8  # attention's output rows: H*E rounded up to 16 bytes (
 # HBM3 at 700 W, PERF.md), printed beside this run's for orientation only
 PARENT_MS = {"attention serving": 2.303, "attention training": 3.358,
              "bilinear_sample_cm_bwd": 2.946}
+# the parent design's readings of the bf16 flash kernels at the sweep shape
+# (B 16 x H 4, N 1654: the two mma.sync backward passes and the forward on
+# 32-key tiles, this script on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+# row 8w): the backward with and without dropout, the forward serving
+PARENT_WIDE_MS = {192: dict(bwd=5.051, bwd_no_dropout=3.430, serving=0.350),
+                  256: dict(bwd=5.689, bwd_no_dropout=4.051, serving=0.717)}
 T_DROP = 0.2544  # the flagship's transformer dropout (configs.py t_dropout)
 DEVICE = "cuda"
 MICE, CYCLES = ("A", "B"), 2
@@ -154,6 +170,16 @@ FULLRES_LAUNCHES_PER_STEP = {
 F32_LAUNCHES_PER_STEP = {
     "ln_linear": 0, "attention": 0, "bilinear_sample_cm": 1, "ln_linear_bwd": 0,
     "ln_linear_wgrad": 0, "attention_bwd": 0, "bilinear_sample_cm_bwd": 1,
+    "flash_attention": 4, "flash_attention_bwd": 4,
+}
+# the sweep's widest core (emb 256: heads padded to 256, past the fused
+# core's 160), written down before its first run: the fused projections,
+# MLP and readout as in the flagship, the attention core on the flash
+# kernels (flash_attention_bwd: its prep, one pass and dq convert)
+SWEEP_EMB = 256
+SWEEP_LAUNCHES_PER_STEP = {
+    "ln_linear": 16, "attention": 0, "bilinear_sample_cm": 1, "ln_linear_bwd": 16,
+    "ln_linear_wgrad": 16, "attention_bwd": 0, "bilinear_sample_cm_bwd": 1,
     "flash_attention": 4, "flash_attention_bwd": 4,
 }
 
@@ -844,6 +870,12 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                 f"{bwd0_ms:.4f}) plain_ms {plain_bwd_ms:.4f} sdpa_backward_ms {lib_bwd_ms:.4f} "
                 f"bound_ms {bb_ms:.4f} ({bb_by}); no dropout / sdpa {bwd0_ms / lib_bwd_ms:.3f}, "
                 f"bound share {bb_ms / bwd0_ms:.3f}")
+            if d > 160 and dtype == bf:
+                parent = PARENT_WIDE_MS.get(d)
+                log(f"  the parent design at head width {d}: "
+                    + (f"backward {parent['bwd']} ms (no dropout {parent['bwd_no_dropout']}), "
+                       f"forward serving {parent['serving']} ms, training not measured "
+                       "(PERF.md row 8w)" if parent else "not measured"))
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
         return case
@@ -904,9 +936,14 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                                  n_real=1300, dlse=True)
     cases["lsa"] = check("lsa", 8, 4, N, N, E, bf, lsa=True, drp=drop)
     masked_rows()
-    for d in (192, 256):  # the sweep's widest heads: emb 192 / 256, batch 16 x 4 heads
+    for d in (192, 224, 256):  # the sweep's widest heads (the wide tiles), batch 16 x 4 heads
         cases[f"head_{d}"] = check(f"head width {d}, batch 16", 16 * 4, 4, N, N, d, bf,
                                    drp=drop, timed=True)
+        masks_bit_identical(f"head width {d}", 8, N, d, bf)
+    # phase 5d's grid (batch 64 x 4 heads at head width 256): each block of
+    # the persistent forward walks ~4x the items it does at batch 16
+    cases["head_256_batch_64"] = check("head width 256, batch 64", 64 * 4, 4, N, N, 256, bf,
+                                       drp=drop)
     full = cases["full_res"]
     rows = []
     for name, src, replaces, pre in (
@@ -930,7 +967,10 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                 + (("no_dropout_ms",) if pre else ("serving_ms",))},
             note="times at the full-resolution shape (BH 8, N 34114, D 155, bf16, dropout "
                  "on; ms_like_for_like without dropout, as the library call runs); per_case "
-                 "holds the fp32 flagship's", per_case=cases))
+                 "holds the fp32 flagship's and, at head widths 192, 224 and 256 (the wide "
+                 "tiles; B*H 64, N 1654), ms is the training forward (dropout, LSE); "
+                 "head_256_batch_64 is the check at phase 5d's B*H 256, untimed",
+            per_case=cases))
     return rows
 
 
@@ -1051,7 +1091,7 @@ def flagship_model(config, card):
 
     model = build_model(config, card, seed=0, device=DEVICE)
     gen = torch.Generator().manual_seed(1)
-    redrawn = [(readout.features, E) for readout in model.readouts.values()]
+    redrawn = [(readout.features, config.emb_dim) for readout in model.readouts.values()]
     for block in model.core.transformer.blocks:
         for mlp in block.b_mlp.models.values():
             redrawn += [(mlp[0].weight, mlp[0].in_features), (mlp[3].weight, mlp[3].in_features)]
@@ -1243,12 +1283,13 @@ def training_path(card_text: str) -> tuple:
 
 def composed_path(label: str, config, image_shape, serve_batches: int, cycles: int,
                   per_step: dict, tol: dict, card_text: str) -> dict:
-    """A composed path's serving and training (phases 5b, 5c)."""
+    """A composed path's serving and training (phases 5b, 5c, 5d)."""
     per_batch = {name: 0 if "bwd" in name or "wgrad" in name else n
                  for name, n in per_step.items()}
-    serving, _, images_per_s = serve(f"{label} serving", config, image_shape, serve_batches,
-                                     {k: v * serve_batches for k, v in per_batch.items()},
-                                     tol, card_text)
+    serving, serve_one, images_per_s = serve(f"{label} serving", config, image_shape,
+                                             serve_batches,
+                                             {k: v * serve_batches for k, v in per_batch.items()},
+                                             tol, card_text)
     torch.cuda.empty_cache()
     launches, train_one, runs = train(f"{label} training", config, image_shape, cycles,
                                       per_step, tol, card_text, warm=False)
@@ -1256,7 +1297,8 @@ def composed_path(label: str, config, image_shape, serve_batches: int, cycles: i
         f"{runs['kernel']['images_per_s']:.3f} train images/s (plain "
         f"{runs['plain']['images_per_s']:.3f}) ({card_text})")
     return dict(serving_launches=serving, launches=launches, train_one=train_one,
-                images_per_s=images_per_s, train_images_per_s=runs["kernel"]["images_per_s"],
+                serve_one=serve_one, images_per_s=images_per_s,
+                train_images_per_s=runs["kernel"]["images_per_s"],
                 plain_train_images_per_s=runs["plain"]["images_per_s"])
 
 
@@ -1270,9 +1312,10 @@ def core_map(model, batch) -> torch.Tensor:
         return model.core(images, "A", behaviors, pupils)
 
 
-def where_the_time_goes(label: str, fn, phase: str = "6") -> None:
+def where_the_time_goes(label: str, fn, phase: str = "6"):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time; returns the busy ms and
+    the kernels' names (None where the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     log(f"phase {phase}: where the time goes, {label} under torch.profiler")
@@ -1293,20 +1336,22 @@ def where_the_time_goes(label: str, fn, phase: str = "6") -> None:
               if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
     if not events:
         log("  the profiler saw no device time: not measured")
-        return
+        return None
     busy_ms = sum(device_us(e) for e in events) / 1e3
     log(f"  device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled call)")
     for e in sorted(events, key=device_us, reverse=True)[:16]:
         log(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return busy_ms, [e.key for e in events]
 
 
 def check_launch_plans(lib) -> None:
     """The host's mirrors of the plans compiled into the kernels
-    (``fwd_plan``, ``dx_plan``, ``linear_plan``, ``wgrad_plan``) against the
-    library's, and the plan of each flagship use: rows a block, tiles, ring
-    depth, whether dY' stays in shared memory, how often each dY' element is
-    read, the weight gradient's slices and clusters, shared memory a block."""
-    from v1t_tpu_torch.ops.flash_attention import fwd_plan
+    (``fwd_plan``, ``bwd_plan``, ``dx_plan``, ``linear_plan``, ``wgrad_plan``)
+    against the library's, the bf16 flash kernels' wide tiles, and the plan
+    of each flagship use: rows a block, tiles, ring depth, whether dY' stays
+    in shared memory, how often each dY' element is read, the weight
+    gradient's slices and clusters, shared memory a block."""
+    from v1t_tpu_torch.ops.flash_attention import bwd_plan, fwd_plan
     from v1t_tpu_torch.ops.fused_mha import attention_plan
     from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
     from v1t_tpu_torch.ops.ln_linear import COPIES, dx_plan, linear_plan, wgrad_plan
@@ -1315,6 +1360,14 @@ def check_launch_plans(lib) -> None:
         for dtype, f32 in ((torch.bfloat16, 0), (torch.float32, 1)):
             if lib.v1t_flash_attention_smem(dp, f32) != fwd_plan(dtype, dp).smem:
                 raise AssertionError(f"fwd_plan({dtype}, {dp}) disagrees with the library")
+            if lib.v1t_flash_attention_bwd_smem(dp, f32) != bwd_plan(dtype, 1, 1, dp).smem:
+                raise AssertionError(f"bwd_plan({dtype}, {dp}) disagrees with the library")
+    for dp in (192, 224, 256):
+        f, b = fwd_plan(torch.bfloat16, dp), bwd_plan(torch.bfloat16, B * H, N, dp)
+        log(f"  bf16 flash at DP {dp} (the wide tiles): forward {f.queries} query rows a block, "
+            f"{f.q_panels} q panel(s), key tiles of {f.keys} in K and V rings {f.stages} deep, "
+            f"{f.smem} bytes a block; backward {' -> '.join(b.kernels)}, {b.keys} keys a block, "
+            f"a float32 dq accumulator {b.dq_acc}, {b.smem} bytes a block")
     dp = -(-E // 32) * 32
     plan = attention_plan(B, H, N, dp)
     log(f"  attention (row 1's core, the bf16 flash forward in log2 units): {plan.items} items "
@@ -1407,6 +1460,7 @@ def main() -> int:
     so_path = _build.build()
     _build.library()
     log(f"  kernels ready in {time.perf_counter() - start:.1f} s ({so_path})")
+    wide = {}  # the bf16 flash kernels' wide instantiations: (registers, spill stores)
     try:  # each kernel's registers and spills (ptxas -v), one line each
         with open(so_path + ".log") as f:
             entry, spills = "", ""
@@ -1421,16 +1475,34 @@ def main() -> int:
                     spills = line.split(":", 1)[-1].strip()
                 elif "registers" in line:
                     log(f"  {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
+                    m = re.match(r"(flash_fwd_wgmma_kernel|flash_bwd_one_pass_kernel)"
+                                 r"ILi(192|224|256)E(?:Lb([01])E)?", entry)
+                    if m:
+                        name = ("forward " + ("training" if m.group(3) == "1" else "serving")
+                                if m.group(1).startswith("flash_fwd") else "backward one pass")
+                        regs = re.search(r"Used (\d+) registers", line)
+                        stores = re.search(r"(\d+) bytes spill stores", spills)
+                        wide[(int(m.group(2)), name)] = (int(regs.group(1)) if regs else None,
+                                                        int(stores.group(1)) if stores else 0)
     except FileNotFoundError:
         pass
     lib = _build.library()
+    log("  the bf16 flash kernels' wide tiles (padded head widths 192-256), ptxas's registers "
+        "a thread (the forward's: its launch allotment; setmaxnreg gives its consumers 240) / "
+        "spill stores / shared memory a block: " + "; ".join(
+            f"DP {dp} {name} {r} / {sp} B / "
+            f"{(lib.v1t_flash_attention_smem if 'forward' in name else lib.v1t_flash_attention_bwd_smem)(dp, 0)} B"
+            for (dp, name), (r, sp) in sorted(wide.items())))
+    if len(wide) != 9 or any(sp for _, sp in wide.values()):
+        raise AssertionError(f"the wide instantiations' ptxas report: {wide} (9 expected, "
+                             "no spill)")
     widths = range(32, 257, 32)
     log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
         "forward " + ", ".join(f"{dp}: {lib.v1t_flash_attention_smem(dp, 0)}" for dp in widths)
         + "; the float32 forward "
         + ", ".join(f"{dp}: {lib.v1t_flash_attention_smem(dp, 1)}" for dp in widths)
-        + "; the bf16 backward (the one pass of flash_bwd and attention_bwd to 160, dq / dkdv "
-        "above) " + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 0)}" for dp in widths)
+        + "; the bf16 backward's one pass (of flash_bwd, and of attention_bwd to 160) "
+        + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 0)}" for dp in widths)
         + "; the float32 backward's one pass "
         + ", ".join(f"{dp}: {lib.v1t_flash_attention_bwd_smem(dp, 1)}" for dp in widths))
     check_launch_plans(lib)
@@ -1463,14 +1535,37 @@ def main() -> int:
     fp32 = composed_path("fp32", flagship_config(precision="fp32"), (1, 36, 64), 1, 1,
                          F32_LAUNCHES_PER_STEP, F32_TOL, text)
     torch.cuda.empty_cache()
+    log(f"phase 5d: the sweep's widest core (emb {SWEEP_EMB}, {H} heads of {SWEEP_EMB}) on the "
+        "bf16 flash kernels' wide tiles")
+    sweep = composed_path("sweep-widest", flagship_config(emb_dim=SWEEP_EMB), (1, 36, 64), 1, 1,
+                          SWEEP_LAUNCHES_PER_STEP, dict(model=MODEL_TOL, core=CORE_TOL,
+                                                        loss=LOSS_TOL, grad=GRAD_TOL), text)
+    torch.cuda.empty_cache()
     where_the_time_goes("one serving batch of 64", serve_one)
     where_the_time_goes(f"one training step of {B} (forward, backward, AdamW update)", train_one)
     where_the_time_goes(f"one full-resolution training step of {FR_B}", full["train_one"])
     where_the_time_goes(f"one fp32 training step of {B}", fp32["train_one"])
+    sweep_device = {}
+    for kind, fn in (("serving", sweep["serve_one"]), ("training", sweep["train_one"])):
+        seen = where_the_time_goes(f"one sweep-widest {kind} {'batch' if kind == 'serving' else 'step'}"
+                                   f" of {B} (emb {SWEEP_EMB})", fn)
+        if seen is None:
+            continue
+        sweep_device[kind] = seen[0]
+        # the flash kernels' wide instantiations ran, and no row-1 or row-2 core
+        names = " ".join(seen[1])
+        want = [f"flash_fwd_wgmma_kernel<{SWEEP_EMB}"] + (
+            [f"flash_bwd_one_pass_kernel<{SWEEP_EMB}>", "flash_bwd_prep_kernel",
+             "flash_bwd_dq_convert_kernel"] if kind == "training" else [])
+        missing = [w for w in want if w not in names]
+        if missing or "attention_bwd_" in names:
+            raise AssertionError(f"sweep-widest {kind}: kernels {missing} missing from the "
+                                 f"profile, or attention_bwd's ran")
     paths = {"training": train_launches, "full_res_training": full["launches"],
-             "fp32_training": fp32["launches"], "serving": serving_launches,
-             "full_res_serving": full["serving_launches"],
-             "fp32_serving": fp32["serving_launches"]}
+             "fp32_training": fp32["launches"], "sweep_widest_training": sweep["launches"],
+             "serving": serving_launches, "full_res_serving": full["serving_launches"],
+             "fp32_serving": fp32["serving_launches"],
+             "sweep_widest_serving": sweep["serving_launches"]}
     for row in rows:
         # launches: the path each kernel serves first (the flash kernels: the
         # full-resolution training run); every path's count beside it
@@ -1485,6 +1580,10 @@ def main() -> int:
         f"{full['plain_train_images_per_s']:.3f}); fp32: {fp32['images_per_s']:.1f} images/s "
         f"serving, {fp32['train_images_per_s']:.2f} train images/s (plain "
         f"{fp32['plain_train_images_per_s']:.2f}) ({text})")
+    log(f"sweep-widest (emb {SWEEP_EMB}): {sweep['images_per_s']:.1f} images/s serving, "
+        f"{sweep['train_images_per_s']:.1f} train images/s (plain "
+        f"{sweep['plain_train_images_per_s']:.2f}); device ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sweep_device.items()) + f" ({text})")
     log(text)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -235,6 +235,14 @@ def test_float32_model_runs_on_the_card(gen):
     (2, 2, 65, 65, 65, 160, True, 0.0),
     (2, 2, 257, 385, 300, 155, False, 0.25),
     (1, 1, 140, 140, 140, 224, False, 0.25),
+    # the wide tiles (padded head widths 192-256: one q panel in the
+    # forward, blocks of 64 keys in the backward) at ragged lengths,
+    # rectangular with padded keys, LSA and dropout
+    (1, 1, 65, 200, 130, 192, False, 0.0),
+    (2, 1, 190, 300, 250, 200, False, 0.5),
+    (2, 2, 333, 77, 70, 256, False, 0.25),
+    (2, 2, 257, 257, 257, 256, True, 0.5),
+    (4, 4, 1000, 1000, 1000, 230, True, 0.0),
 ], ids=lambda v: str(v))
 def test_flash_attention_matches_plain(gen, dtype, bh, heads, nq, nk, n_real, d, lsa, rate):
     """Forward (o, LSE) and backward (dq, dk, dv, with an LSE cotangent)."""
@@ -317,10 +325,11 @@ def test_flash_backward_float32_reruns_agree(gen):
     assert torch.equal(second[1], first[1]) and torch.equal(second[2], first[2])
 
 
-@pytest.mark.parametrize("e,h", [(192, 2), (256, 8)], ids=str)
+@pytest.mark.parametrize("e,h", [(192, 2), (200, 4), (256, 8)], ids=str)
 def test_fused_mha_wide_heads_match_plain(gen, e, h):
-    """The sublayer at the sweep's widest heads (192 and 256; 8 of 256 is an
-    out-projection K of 2048), forward and backward, dropout on."""
+    """The sublayer at the sweep's widest heads (192, 200 and 256, padded to
+    192, 224 and 256; 8 of 256 is an out-projection K of 2048), forward and
+    backward, dropout on."""
     b, n = 2, 150
     x = _randn(gen, b, n, e).requires_grad_()
     gamma = 1.0 + _randn(gen, e, scale=0.1, dtype=torch.float32)
@@ -399,6 +408,7 @@ def test_ln_linear_training_matches_plain(gen, rate, b, n, k, nout, opts):
     (2, 65, 2, 155, False), (1, 129, 2, 155, True), (1, 1654, 2, 155, True),
     (1, 1654, 2, 155, False),
     (2, 150, 2, 192, True), (1, 130, 3, 256, False),  # on the flash kernels
+    (1, 100, 2, 200, True), (2, 1, 2, 256, True),
 ], ids=lambda v: str(v))
 def test_attention_training_and_backward_match_plain(gen, rate, b, n, h, d, lsa):
     x = _randn(gen, b, n, 48)
@@ -759,11 +769,11 @@ def test_attention_backward_pads_stay_zero_for_the_dx_kernel(gen):
 
 def test_launch_plans_match_the_library(gen):
     """ops/ln_linear.py dx_plan, ops/flash_attention.py fwd_plan and
-    ops/interp_matmul.py sample_bwd_plan mirror the plans compiled into the
-    kernels: the same shared memory a block (and the sampling backward's
-    channels, bands and chunks)."""
+    bwd_plan and ops/interp_matmul.py sample_bwd_plan mirror the plans
+    compiled into the kernels: the same shared memory a block (and the
+    sampling backward's channels, bands and chunks)."""
     from v1t_tpu_torch import _build
-    from v1t_tpu_torch.ops.flash_attention import fwd_plan
+    from v1t_tpu_torch.ops.flash_attention import bwd_plan, fwd_plan
     from v1t_tpu_torch.ops.ln_linear import dx_plan
 
     from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
@@ -772,6 +782,7 @@ def test_launch_plans_match_the_library(gen):
     for dp in range(32, 257, 32):
         for dtype, f32 in ((torch.bfloat16, 0), (torch.float32, 1)):
             assert lib.v1t_flash_attention_smem(dp, f32) == fwd_plan(dtype, dp).smem
+            assert lib.v1t_flash_attention_bwd_smem(dp, f32) == bwd_plan(dtype, 1, 1, dp).smem
     for c, height, width in ((155, 29, 57), (155, 137, 249), (3, 300, 300), (7, 1, 2),
                              (2, 1000, 64), (37, 29, 57), (1, 3, 58112)):
         plan = sample_bwd_plan(c, height, width)
@@ -868,19 +879,42 @@ def test_ln_linear_wgrad_reruns_agree(gen, use):
         assert (f_ is None and s_ is None) or torch.equal(f_, s_)
 
 
+@pytest.mark.parametrize("lsa", [False, True], ids=["no_lsa", "lsa"])
+@pytest.mark.parametrize("n", [129, 1000])
+@pytest.mark.parametrize("d", [155, 192, 200, 256])
+def test_flash_bf16_keep_mask_matches_plain(gen, d, n, lsa):
+    """The bf16 forward's keep mask bit for bit, at the narrow tiles (D 155)
+    and the wide ones (padded 192, 224, 256): q = 0 makes every probability
+    1 / N (1 / (N - 1) under LSA) and v[k] = e_(k mod D) makes o count the
+    kept keys of each residue class, exact small integers times one scale."""
+    bh, heads, dp = 4, 2, -(-d // 32) * 32
+    zero = torch.zeros(bh, n, dp, dtype=torch.bfloat16, device="cuda")
+    onehot = torch.zeros_like(zero)
+    keys = torch.arange(n, device="cuda")
+    onehot[:, keys, keys % d] = 1.0
+    kw = dict(use_lsa=lsa, drop=_drop(0.25, site=13), with_lse=True)
+    got = flash_fwd(zero, zero, onehot, d, heads, **kw)[0]
+    ref = flash_fwd_plain(zero, zero, onehot, d, heads, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("d", [155, 200, 256])
 @pytest.mark.parametrize("nq,nk,n_real,lsa", [
     (1, 1, 1, True),  # the row's one key is masked: P spreads over the masked keys
     (3, 3, 3, True), (1, 1, 1, False),
     (70, 70, 70, True), (130, 200, 150, False),  # Nk no multiple of the key tile
 ], ids=str)
-def test_flash_bf16_masked_rows_match_plain(gen, nq, nk, n_real, lsa):
+def test_flash_bf16_masked_rows_match_plain(gen, nq, nk, n_real, lsa, d):
     """The bf16 flash forward and one-pass backward where a row's every key
-    is masked (LSA at N 1) and where Nk fills no key tile: keys past Nk weigh
-    nothing, masked keys keep the plain version's masked score. At N 1 the
-    row's P is 1 whatever its score, so dS = P (dP - delta) vanishes but for
-    rounding: dq and dk are held to the kernel tolerance of dv's scale."""
-    bh, heads, d = 4, 2, 155
-    q, k, v = (torch.zeros(bh, m, 160, dtype=torch.bfloat16, device="cuda") for m in (nq, nk, nk))
+    is masked (LSA at N 1) and where Nk fills no key tile, at the narrow
+    tiles (D 155) and the wide ones (padded 224 and 256): keys past Nk weigh
+    nothing, masked keys keep the plain version's masked score; at N 1 with
+    LSA o is v and the LSE the plain one, bit for bit. At N 1 the row's P is
+    1 whatever its score, so dS = P (dP - delta) vanishes but for rounding:
+    dq and dk are held to the kernel tolerance of dv's scale."""
+    bh, heads, dp = 4, 2, -(-d // 32) * 32
+    q, k, v = (torch.zeros(bh, m, dp, dtype=torch.bfloat16, device="cuda") for m in (nq, nk, nk))
     for x in (q, k, v):
         x[..., :d] = _randn(gen, bh, x.shape[1], d) * d ** -0.25
     kw = dict(n_real_k=n_real, use_lsa=lsa)
@@ -888,6 +922,9 @@ def test_flash_bf16_masked_rows_match_plain(gen, nq, nk, n_real, lsa):
     o_ref, lse_ref = flash_fwd_plain(q, k, v, d, heads, with_lse=True, **kw)
     _close(o, o_ref)
     _close(lse, lse_ref, F32_TOL)
+    if nq == 1 and lsa:
+        assert torch.equal(o.permute(0, 2, 1, 3).reshape(bh, 1, d), v[..., :d])
+        assert torch.equal(lse, lse_ref)
     do = _randn(gen, *o.shape)
     got = flash_bwd(q, k, v, o_ref, do, lse_ref, d, heads, **kw)
     ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, d, heads, **kw)

@@ -69,6 +69,11 @@ def _leaf(a, dtype):
     ("float32", True, (2, 2, 256, 16)),
     ("bfloat16", False, (2, 2, 300, 24)),
     ("bfloat16", True, (1, 3, 400, 40)),
+    # the wide tiles' head widths (padded 224 and 256), N no multiple of 64
+    ("bfloat16", False, (1, 2, 100, 200)),
+    ("bfloat16", True, (1, 1, 130, 256)),
+    ("float32", True, (1, 2, 100, 200)),
+    ("float32", False, (1, 1, 130, 256)),
 ], ids=str)
 def test_flash_attention_forward_and_vjp_match_jax(interpret, dtype, use_lsa, shape):
     b, h, n, d = shape
@@ -168,18 +173,27 @@ def test_flash_dropout_keeps_the_rate_and_scales_kept_probabilities():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("nq", [1, 63, 257, 34114])
 def test_backward_launch_plan(dtype, dp, nq):
-    """bf16 at DP <= 160 takes the one-pass kernel and a float32 (BH, Nq, DP)
-    dq accumulator, whatever the ragged length; wider bf16 takes the dq and
-    dkdv passes; float32 takes the one FFMA pass at every width, which adds
-    dq into the output itself: neither allocates an accumulator."""
+    """bf16 takes the one-pass kernel and a float32 (BH, Nq, DP) dq
+    accumulator at every width, whatever the ragged length: blocks of 128
+    keys up to DP 160 and 64 above (hand-computed shared memory, e.g.
+    231,448 bytes at DP 256: 1024 + K and V 2 x 64 x 256 x 2 + a 2-stage q
+    / dO ring 2 x (2 x 64 x 256 x 2 + 512) + P and dS 2 x 64 x 64 x 2 + a
+    float32 dq box of 16 x 32 for each of 8 warps + 24);
+    float32 takes the one FFMA pass at every width, which adds dq into the
+    output itself and allocates no accumulator (blocks of 64 keys, 32 above
+    DP 160). Every block fits an H100's 232,448 bytes."""
     plan = fa.bwd_plan(TORCH[dtype], 8, nq, dp)
-    one_pass = dtype == "bfloat16" and dp <= fa.ONE_PASS_MAX_DP
     if dtype == "float32":
-        assert plan.kernels == ("prep", "one_pass_f32")
+        assert plan.kernels == ("prep", "one_pass_f32") and plan.dq_acc is None
+        assert plan.keys == (64 if dp <= 160 else 32)
     else:
-        assert plan.kernels == (("prep", "one_pass", "dq_convert") if one_pass
-                                else ("prep", "dq", "dkdv"))
-    assert plan.dq_acc == ((8, nq, dp) if one_pass else None)
+        assert plan.kernels == ("prep", "one_pass", "dq_convert")
+        assert plan.dq_acc == (8, nq, dp)
+        assert plan.keys == (128 if dp <= fa.WIDE_DP else 64)
+        if dp == 256:
+            assert plan.smem == 1024 + 2 * 64 * 256 * 2 + 2 * (2 * 64 * 256 * 2 + 512) \
+                + 2 * 64 * 64 * 2 + 8 * 16 * 32 * 4 + 24 == 231448
+    assert plan.smem <= 232448
 
 
 @pytest.mark.parametrize("dp", [0, 16, 100, 288])
@@ -243,15 +257,25 @@ def test_attention_backward_runs_the_flash_one_pass():
 
 
 def test_backward_dispatch_width_matches_the_kernel_source():
-    """The wrapper's rule and the one compiled into the backward kernel
-    agree on where the one pass stops."""
+    """The wrapper's plan and the tiles compiled into the backward kernel
+    agree: where the wide tiling starts, the keys a block on either side,
+    the query tiles and the ring; bf16 launches the one pass at every width
+    and the two mma.sync passes it replaced are gone."""
     import re
 
     from v1t_tpu_torch import _build
 
     src = open(f"{_build.CSRC_DIR}/flash_attention_bwd.cu").read()
-    assert int(re.search(r"constexpr int ONE_PASS_MAX_DP = (\d+);", src).group(1)) \
-        == fa.ONE_PASS_MAX_DP
+    assert int(re.search(r"constexpr int WIDE_DP = (\d+);", src).group(1)) == fa.WIDE_DP
+    assert "constexpr int bwd_keys() { return wide<DP>() ? 64 : 128; }" in src
+    # above WIDE_DP dq leaves through a float32 box a warp
+    assert "dq_stage_bytes() { return wide<DP>() ? 8 * DQ_BOX_BYTES : 0; }" in src
+    assert "constexpr int QB = 64, BWG = 128, BWD_THREADS = 2 * BWG, BWD_STAGES = 2;" in src
+    assert "constexpr int f32_keys() { return DP <= 160 ? 64 : 32; }" in src
+    assert "ONE_PASS_MAX_DP" not in src
+    assert "flash_bwd_dq_kernel" not in src and "flash_bwd_dkdv_kernel" not in src
+    for dp in (192, 224, 256):
+        assert f"case {dp}: return launch_one_pass<{dp}>(" in src
 
 
 def test_generated_wgmma_header_is_current():

@@ -312,13 +312,22 @@ def test_projection_plan_constants_match_the_kernel_sources():
 @pytest.mark.parametrize("dp", [32, 64, 96, 128, 160, 192, 224, 256])
 def test_forward_launch_plan(dtype, dp):
     """float32: 128 queries a block (8 rows a thread) up to DP 160 and 64
-    above, key tiles of 64; bf16: 128 queries, key tiles of 64 up to DP 160
-    and 32 above. Both fit a block's shared memory."""
+    above, key tiles of 64; bf16: 128 queries, key tiles of 64, two q panels
+    and a ring 3 deep up to DP 160, one q panel above with the ring as deep
+    as fits, 3 to DP 224 and 2 at 256, and barriers for K and V apart
+    (hand-computed shared memory: 1024 + (128 + 2 x stages x 64) x DP x 2 +
+    (4 + 4 x stages) x 8 bytes, 197,760 / 230,528 / 197,728 at DP 192 / 224
+    / 256). All fit a block's shared memory."""
     plan = fa.fwd_plan(dtype, dp)
     if dtype == torch.float32:
         assert (plan.queries, plan.keys) == ((128 if dp <= 160 else 64), 64)
     else:
-        assert (plan.queries, plan.keys) == (128, 64 if dp <= 160 else 32)
+        wide = {192: (3, 197760), 224: (3, 230528), 256: (2, 197728)}
+        assert (plan.queries, plan.keys) == (128, 64)
+        assert (plan.q_panels, plan.stages) == ((2, 3) if dp <= 160 else (1, wide[dp][0]))
+        if dp > 160:
+            assert plan.smem == wide[dp][1] == 1024 + (128 + 2 * plan.stages * 64) * dp * 2 + (
+                4 + 4 * plan.stages) * 8
     assert plan.smem <= SMEM
 
 
@@ -330,6 +339,17 @@ def test_forward_launch_plan_rejects_unbuilt_widths(dp):
 
 def test_forward_plan_tiles_match_the_kernel_source():
     src = _source("flash_attention.cu")
+    # bf16: key tiles of 64 at every width; one q panel above WIDE_DP, the
+    # ring as deep as fits
+    assert "constexpr int BKV = 64;" in src
+    assert f"constexpr bool fwd_wide() {{ return DP > {fa.WIDE_DP}; }}" in src
+    assert "constexpr int fwd_q_panels() { return fwd_wide<DP>() ? 1 : 2; }" in src
+    assert "constexpr int fwd_stages() { return DP <= 224 ? 3 : 2; }" in src
+    assert "(fwd_q_panels<DP>() * BQ + 2 * fwd_stages<DP>() * BKV)" in src
+    assert "(4 + 2 * fwd_stages<DP>() * (fwd_wide<DP>() ? 2 : 1)) * 8" in src
+    # above WIDE_DP the consumers take 240 registers a thread (the producer 24)
+    assert "producer_regs() { return fwd_wide<DP>() ? 24 : 40; }" in src
+    assert "consumer_regs() { return fwd_wide<DP>() ? 240 : 232; }" in src
     assert "constexpr int F32_KB = 64, F32_THREADS = 256;" in src
     assert "constexpr int f32_rows() { return DP <= 160 ? 8 : 4; }" in src
     assert "constexpr int f32_queries() { return 16 * f32_rows<DP>(); }" in src
@@ -389,12 +409,12 @@ def test_attention_core_is_the_flash_forward_in_log2_units():
     helper = _kernel_body(flash, "scale_q_rows")
     assert "fence_async_smem();" in helper and "named_sync(1 + c, WG);" in helper
     assert "constexpr int BQ = 128, WG = 128, FWD_THREADS = 3 * WG;" in flash
-    # persistent: min(items, SMs) blocks, items (query tile, plane), two q panels
+    # persistent: min(items, SMs) blocks, items (query tile, plane), q panels
     assert "<<<items < sms ? items : sms, FWD_THREADS, bytes, stream>>>" in flash
-    assert "const int qt = w % q_tiles, bh = w / q_tiles, qb = it & 1;" in body
-    assert "(2 * BQ + 2 * fwd_stages<DP>() * fwd_bkv<DP>())" in flash
-    assert "constexpr int fwd_bkv() { return DP <= 160 ? 64 : 32; }" in flash
-    assert "constexpr int fwd_stages() { return DP <= 192 ? 3 : 2; }" in flash
+    assert "const int qt = w % q_tiles, bh = w / q_tiles, qb = QP == 2 ? it & 1 : 0;" in body
+    assert "(fwd_q_panels<DP>() * BQ + 2 * fwd_stages<DP>() * BKV)" in flash
+    assert "constexpr int fwd_q_panels() { return fwd_wide<DP>() ? 1 : 2; }" in flash
+    assert "constexpr int fwd_stages() { return DP <= 224 ? 3 : 2; }" in flash
 
 
 # (C, height, width) -> (channels a block, rows a band, chunks, bands, smem, staged)

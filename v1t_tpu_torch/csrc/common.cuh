@@ -34,11 +34,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a 32-bit load of two adjacent bf16 from shared memory (even element index)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 // round a float to bf16 and back: the rounding points of the plain versions
@@ -72,16 +67,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed: lane i addresses
-// row i % 8 of matrix i / 8 and receives, of each matrix, the elements
-// (rows 2t, 2t+1; column g) — the mma B fragment of a row-major [k][n] tile
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 // four 8x8 bf16 matrices from shared memory, not transposed: lane i
 // addresses row i % 8 of matrix i / 8 and receives, of each matrix, the
 // elements (row g; columns 2t, 2t+1)
@@ -90,11 +75,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-// the two warps of a dk/dv pair p (warps p and p + 4) meet at barrier 1 + p
-__device__ __forceinline__ void pair_barrier(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -195,29 +175,4 @@ __device__ __forceinline__ void keep_frag_rows(const Drop& d, uint32_t plane, in
   keep[1] = (odd ? got1 : own1) < d.threshold;
   keep[2] = (odd ? own0 : got0) < d.threshold;
   keep[3] = (odd ? own1 : got1) < d.threshold;
-}
-
-// The same for a transposed fragment, where the mask's col runs along the
-// fragment's rows: c[j] is element (mask row = col0 + 2t + j, mask col =
-// row0 + g), c[2 + j] (col0 + 2t + j, row0 + g + 8). The four lanes that
-// share t and g / 4 hold the same four (mask row, column group) pairs: each
-// computes one and the others fetch the word they need in three shuffles.
-__device__ __forceinline__ void keep_frag_cols(const Drop& d, uint32_t plane, int row0,
-                                               int col0, int lane, bool keep[4]) {
-  const int g = lane >> 2, t = lane & 3, i = g & 3;
-  // pair p: mask row col0 + 2t + (p & 1), mask column group of row0 + g (+8 if p >= 2)
-  const uint4 w = keep_words(d, plane, (uint32_t)(col0 + 2 * t + (i & 1)),
-                             (uint32_t)(row0 + (g & ~3) + 8 * (i >> 1)) >> 2);
-  // round r: receive from the lane that computed pair (i + r) % 4 its word i
-  uint32_t v[4];
-  v[0] = word_of(w, i);
-#pragma unroll
-  for (int r = 1; r < 4; ++r)
-    v[r] = __shfl_sync(0xffffffffu, word_of(w, (i - r) & 3), (lane & ~12) | (((i + r) & 3) << 2));
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int r = (p - i) & 3;
-    const uint32_t word = r == 0 ? v[0] : r == 1 ? v[1] : r == 2 ? v[2] : v[3];
-    keep[p] = word < d.threshold;
-  }
 }

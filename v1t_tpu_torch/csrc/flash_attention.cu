@@ -22,13 +22,36 @@
 // Persistent: one block of three warpgroups a SM walks items of 128 query
 // rows of one plane (block b takes items b, b + gridDim.x, ...). In
 // warpgroup 0 one thread starts TMA copies: each item's q panel, into one
-// of two panels (the next item's q lands while this one's last tiles and
-// epilogue run), then its key and value tiles of 64 (32 above DP 160) into
-// a ring of 3 stages (2 above DP 192) that runs on across items, each stage
-// an mbarrier that the copies complete and another that the consumers
+// of two panels up to DP 160 (the next item's q lands while this one's
+// last tiles and epilogue run), then its key and value tiles of 64 into a
+// ring of 3 stages (2 at DP 256) that runs on across items, each stage an
+// mbarrier that the copies complete and another that the consumers
 // release; the warpgroup gives up its registers (setmaxnreg 40 / 232).
+// Above DP 160 (fwd_wide; o alone is DP / 2 fp32 a thread, 128 at DP 256)
+// the block changes in four ways, each for what readings on an H100 showed:
+// (1) one q panel, so that key tiles of 64 fit beside it (a second panel
+// cost 32-key tiles: twice the barriers, rescales and waits per key); the
+// next item's first key tiles go into the ring before its q, which is
+// copied once the epilogue has left the panel; (2) K and V in rings of
+// their own, each stage released when its product ends, K_j after S_j
+// (early in step j - 1), V_j after P_j v_j: with one (K, V) stage a tile,
+// the stage of tile j freed at the end of step j while step j + 1 opens
+// with S of tile j + 2, and at DP 256, where 2 stages fit, every tile
+// waited for its copy; (3) one set of P fragments, not two: P_j v_j goes as
+// two commit groups (keys 0-31, 32-63) and tile j + 1's P is written into
+// each half's fragments once that half's product is complete, the keep
+// mask drawn one Philox at a time into a 32-bit mask (a loop not unrolled)
+// while both run, and o rescaled only when its row max moved (a factor of
+// 1 is exact); (4) setmaxnreg 24 / 240. ptxas allocates each region up to
+// its setmaxnreg bound: at 40 / 232 the consumers spilled at DP 192-256. A
+// producer warp instead (9 warps) held ptxas to 168 a thread (3 warps on
+// one of an SM's four 16K-register files) and spilled more; no producer (8
+// warps, 255 a thread), the copies started by a consumer thread, tied the
+// two warpgroups together and ran slower.
 // (At the flagship's 26 key tiles an item, against 534 at full resolution,
-// an item's start and end weigh: here they overlap the next item's copies.)
+// an item's start and end weigh: here they overlap the next item's copies.
+// The wide block at DP 160 ran row 1's core 6-10% slower on an H100 80GB
+// HBM3 at 700 W, full resolution within 1%: tools/ab_forward_pipelines.py.)
 // Warpgroups 1 and 2 own 64 rows each: S = q k^T is wgmma m64n64k16 with q
 // and k from shared memory, o += P v is m64nDPk16 with P from registers.
 // The accumulator's layout is mma.sync m16n8's C fragment per warp, so the
@@ -70,7 +93,8 @@
 // Bound on the H100: 4 * BH * Nq * Nk * D FLOP (two products) over ~3 x
 // BH * N * D * dtype bytes: at the full-resolution shape (BH 8, N 34,114,
 // D 155, bf16) 5.77 TFLOP, ~5.8 ms of bf16 tensor-core time against 0.03 ms
-// of bytes; at the fp32 flagship (BH 256, N 1654) 0.434 TFLOP, 6.5 ms at
+// of bytes; at the sweep's widest heads (BH 64, N 1654, D 256) 0.179 TFLOP,
+// 0.181 ms; at the fp32 flagship (BH 256, N 1654) 0.434 TFLOP, 6.5 ms at
 // the 67 TFLOP/s fp32 rate. Bound by operations.
 // The training kernel's keep mask (2.3e9 Philox draws at full resolution)
 // runs on the integer pipe of the consumer warps and hides only in part
@@ -95,23 +119,35 @@ constexpr float MASKED = -1e30f;
 // ---------------------------------------------------------------------------
 // bf16 (wgmma, warp-specialised)
 
-// A block of three warpgroups owns BQ = 128 query rows of one (batch, head):
-// warpgroup 0 loads, warpgroups 1 and 2 each own 64 of the rows.
+// A block owns BQ = 128 query rows of one (batch, head), in two consumer
+// warpgroups of 64 rows. Up to DP 160 a third warpgroup, the first, loads;
+// above (fwd_wide), one consumer thread.
 constexpr int BQ = 128, WG = 128, FWD_THREADS = 3 * WG;
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
+constexpr int BKV = 64;  // keys a tile
 template <int DP>
-__host__ __device__ constexpr int fwd_bkv() { return DP <= 160 ? 64 : 32; }
+__host__ __device__ constexpr bool fwd_wide() { return DP > 160; }
 template <int DP>
-__host__ __device__ constexpr int fwd_stages() { return DP <= 192 ? 3 : 2; }
+__host__ __device__ constexpr int fwd_q_panels() { return fwd_wide<DP>() ? 1 : 2; }
+// setmaxnreg: the producer's registers a thread, and the consumers' (at most
+// 512 a thread across one warp of each warpgroup on each of an SM's four
+// register files)
+template <int DP>
+__host__ __device__ constexpr int producer_regs() { return fwd_wide<DP>() ? 24 : 40; }
+template <int DP>
+__host__ __device__ constexpr int consumer_regs() { return fwd_wide<DP>() ? 240 : 232; }
+template <int DP>
+__host__ __device__ constexpr int fwd_stages() { return DP <= 224 ? 3 : 2; }
 
-// two Q panels [BQ][DP] (an item's and the next one's), then per stage a K
-// and a V panel [BKV][DP], then the mbarriers; 1024 bytes of slack to align
-// the base
+// fwd_q_panels Q panels [BQ][DP] (an item's and the next one's), then per
+// stage a K and a V panel [BKV][DP], then the mbarriers (a pair per stage,
+// above DP 160 one for K and one for V); 1024 bytes of slack to align the
+// base
 template <int DP>
 constexpr int bf16_smem_bytes() {
-  return 1024 + (2 * BQ + 2 * fwd_stages<DP>() * fwd_bkv<DP>()) * DP * (int)sizeof(bf16) +
-         (4 + 2 * fwd_stages<DP>()) * 8;
+  return 1024 +
+         (fwd_q_panels<DP>() * BQ + 2 * fwd_stages<DP>() * BKV) * DP * (int)sizeof(bf16) +
+         (4 + 2 * fwd_stages<DP>() * (fwd_wide<DP>() ? 2 : 1)) * 8;
 }
 
 // q_s = bf16(q sc) in place over the 64 rows of the Q panel from row0 (a
@@ -151,18 +187,21 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
     int Nq, int Nk, int n_real, int D, RowLayout ol, int lsa, Drop drop,
     const float* __restrict__ q_scale, int o_pad, int q_tiles, int items) {
   using namespace hopper;
-  constexpr int BKV = fwd_bkv<DP>(), STAGES = fwd_stages<DP>();
+  constexpr bool WIDE = fwd_wide<DP>();
+  constexpr int QP = fwd_q_panels<DP>(), STAGES = fwd_stages<DP>();
   constexpr int Q_BYTES = BQ * DP * 2, KV_BYTES = BKV * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  unsigned char* Qs = base;                     // [2] Q panels
-  unsigned char* Ks = Qs + 2 * Q_BYTES;         // [STAGES] K panels
+  unsigned char* Qs = base;                     // [QP] Q panels
+  unsigned char* Ks = Qs + QP * Q_BYTES;        // [STAGES] K panels
   unsigned char* Vs = Ks + STAGES * KV_BYTES;   // [STAGES] V panels
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * KV_BYTES);  // [2] q landed
-  uint64_t* q_empty = q_full + 2;               // [2] consumers done with a q panel
-  uint64_t* full = q_empty + 2;                 // [STAGES] K and V landed
-  uint64_t* empty = full + STAGES;              // [STAGES] consumers done
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * KV_BYTES);  // [QP] q landed
+  uint64_t* q_empty = q_full + 2;               // [QP] consumers done with a q panel
+  uint64_t* full = q_empty + 2;                 // [STAGES] K and V (WIDE: K) landed
+  uint64_t* empty = full + STAGES;              // [STAGES] consumers done with them
+  uint64_t* v_full = empty + STAGES;            // WIDE: [STAGES] V landed
+  uint64_t* v_empty = v_full + STAGES;          // WIDE: [STAGES] consumers done with V
 
   // persistent: block b takes items b, b + gridDim.x, ...; item w is query
   // tile w % q_tiles of plane w / q_tiles, so that the blocks running side
@@ -178,27 +217,46 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
     for (int s = 0; s < STAGES; ++s) {
       bar_init(&full[s], 1);
       bar_init(&empty[s], 2 * WG);
+      if (WIDE) {
+        bar_init(&v_full[s], 1);
+        bar_init(&v_empty[s], 2 * WG);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (wg == 0) {  // producer: one thread starts the TMA copies of every tile
-    regs_dec<PRODUCER_REGS>();
+    regs_dec<producer_regs<DP>()>();
     if (threadIdx.x == 0) {
       int tile = 0;
       for (int it = 0, w = blockIdx.x; w < items; ++it, w += gridDim.x) {
-        const int qt = w % q_tiles, bh = w / q_tiles, qb = it & 1;
-        // q panel qb was item it - 2's: free once its consumers are done
-        if (it >= 2) bar_wait(&q_empty[qb], (uint32_t)(((it >> 1) - 1) & 1));
-        bar_expect(&q_full[qb], Q_BYTES);
-        tma_panel<DP>(Qs + qb * Q_BYTES, &qmap, bh, qt * BQ, BQ, &q_full[qb]);
+        const int qt = w % q_tiles, bh = w / q_tiles, qb = QP == 2 ? it & 1 : 0;
+        auto load_q = [&]() {
+          // q panel qb was item it - QP's: free once its consumers are done
+          if (it >= QP) bar_wait(&q_empty[qb], (uint32_t)(((QP == 2 ? it >> 1 : it) - 1) & 1));
+          bar_expect(&q_full[qb], Q_BYTES);
+          tma_panel<DP>(Qs + qb * Q_BYTES, &qmap, bh, qt * BQ, BQ, &q_full[qb]);
+        };
+        if (!WIDE || it == 0) load_q();
         for (int j = 0; j < ntiles; ++j, ++tile) {
           const int s = tile % STAGES;
           if (tile >= STAGES) bar_wait(&empty[s], (uint32_t)((tile / STAGES - 1) & 1));
-          bar_expect(&full[s], 2 * KV_BYTES);
-          tma_panel<DP>(Ks + s * KV_BYTES, &kmap, bh, j * BKV, BKV, &full[s]);
-          tma_panel<DP>(Vs + s * KV_BYTES, &vmap, bh, j * BKV, BKV, &full[s]);
+          if constexpr (WIDE) {
+            bar_expect(&full[s], KV_BYTES);
+            tma_panel<DP>(Ks + s * KV_BYTES, &kmap, bh, j * BKV, BKV, &full[s]);
+            if (tile >= STAGES) bar_wait(&v_empty[s], (uint32_t)((tile / STAGES - 1) & 1));
+            bar_expect(&v_full[s], KV_BYTES);
+            tma_panel<DP>(Vs + s * KV_BYTES, &vmap, bh, j * BKV, BKV, &v_full[s]);
+            // one q panel: an item's first key tiles go into the rings
+            // (their stages free as the last item's products end) before
+            // its q, which waits for the last item's epilogue
+            if (it > 0 && j + 1 == (ntiles < STAGES ? ntiles : STAGES)) load_q();
+          } else {
+            bar_expect(&full[s], 2 * KV_BYTES);
+            tma_panel<DP>(Ks + s * KV_BYTES, &kmap, bh, j * BKV, BKV, &full[s]);
+            tma_panel<DP>(Vs + s * KV_BYTES, &vmap, bh, j * BKV, BKV, &full[s]);
+          }
         }
       }
     }
@@ -206,7 +264,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
   }
 
   // consumers: warpgroup c owns rows 64 c .. 64 c + 63 of each item's tile
-  regs_inc<CONSUMER_REGS>();
+  regs_inc<consumer_regs<DP>()>();
   const int c = wg - 1, lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t k_s = smem_u32(Ks), v_s = smem_u32(Vs);
@@ -215,7 +273,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
   const float s_log2 = q_scale != nullptr ? 1.f : LOG2E;
   int tile0 = 0;
   for (int it = 0, w = blockIdx.x; w < items; ++it, w += gridDim.x, tile0 += ntiles) {
-    const int qt = w % q_tiles, bh = w / q_tiles, qb = it & 1;
+    const int qt = w % q_tiles, bh = w / q_tiles, qb = QP == 2 ? it & 1 : 0;
     const int row0 = qt * BQ + 64 * c + 16 * warp;  // this warp's 16 rows
     const int r0 = row0 + g, r1 = r0 + 8;
     const uint32_t q_s = smem_u32(Qs + qb * Q_BYTES);
@@ -238,9 +296,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
       mma_commit();
     };
 
-    // the online softmax of tile j's scores (complete in s): the new running
-    // max and sum, P into pf as bf16 A fragments; returns the rescale of o
-    auto softmax = [&](int j, uint32_t (&pf)[BKV / 16][4], float& a0, float& a1) {
+    // the online softmax of tile j's scores (complete in s), in two parts:
+    // the new running max, the rescale of o and l (and the scores' factor
+    // scale); then P of the 8-key groups ni0 .. ni1 - 1 into pf as bf16 A
+    // fragments, their row sums into l
+    auto softmax_max = [&](int j, float& scale, float& a0, float& a1) {
       fence_regs(s);
       // only a tile that holds keys at or past n_real, or the block's
       // diagonal under LSA, is masked element by element (a uniform branch);
@@ -249,7 +309,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
       // with every key masked (LSA at N 1) would count them in its sum
       const bool edge = (j + 1) * BKV > n_real ||
                         (lsa && j * BKV < qt * BQ + BQ && (j + 1) * BKV > qt * BQ);
-      float scale = s_log2;  // p = 2^(s scale - m) in one FFMA
+      scale = s_log2;  // p = 2^(s scale - m) in one FFMA
       if (edge) {
         scale = 1.f;
 #pragma unroll
@@ -281,8 +341,13 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
       m1 = mx1;
       l0 *= a0;
       l1 *= a1;
+    };
+    // keep_bits: WIDE's keep mask of the tile, bit 4 ni + e for element e of
+    // group ni (keep_mask); otherwise the mask is drawn here
+    auto softmax_p = [&](int j, uint32_t (&pf)[BKV / 16][4], float scale, int ni0, int ni1,
+                         uint32_t keep_bits) {
 #pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
+      for (int ni = ni0; ni < ni1; ++ni) {
         float p00 = ex2(fmaf(s[4 * ni + 0], scale, -m0));
         float p01 = ex2(fmaf(s[4 * ni + 1], scale, -m0));
         float p10 = ex2(fmaf(s[4 * ni + 2], scale, -m1));
@@ -291,7 +356,12 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
         l1 += p10 + p11;
         if (TRAIN && drop.on()) {  // select only: 1/keep folds into 1/l
           bool keep[4];
-          keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);
+          if constexpr (WIDE) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) keep[e] = (keep_bits >> (4 * ni + e)) & 1u;
+          } else {
+            keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);
+          }
           p00 = keep[0] ? p00 : 0.f;
           p01 = keep[1] ? p01 : 0.f;
           p10 = keep[2] ? p10 : 0.f;
@@ -302,32 +372,68 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
         pf[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(p10, p11);
       }
     };
+    auto softmax = [&](int j, uint32_t (&pf)[BKV / 16][4], float& a0, float& a1) {
+      float scale;
+      softmax_max(j, scale, a0, a1);
+      softmax_p(j, pf, scale, 0, BKV / 8, 0u);
+    };
+    // WIDE: the keep mask of tile j's elements, one Philox draw at a time (a
+    // loop that is not unrolled), so that the draws of several groups do not
+    // hold registers together
+    auto keep_mask = [&](int j) {
+      uint32_t bits = 0u;
+      if (TRAIN && drop.on()) {
+#pragma unroll 1
+        for (int ni = 0; ni < BKV / 8; ++ni) {
+          bool keep[4];
+          keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);
+          bits |= ((uint32_t)keep[0] | (uint32_t)keep[1] << 1 | (uint32_t)keep[2] << 2 |
+                   (uint32_t)keep[3] << 3) << (4 * ni);
+        }
+      }
+      return bits;
+    };
 
     // FlashAttention-3's intra-warpgroup pipeline: S of tile j + 1 and o +=
     // P_j v_j are issued together, and tile j + 1's softmax (exp2, Philox)
     // runs while P_j v_j is on the tensor cores; o is rescaled only when no
     // product is in flight. The last tile has no successor and its own step,
     // so that every wait retires a known commit group.
-    auto pv = [&](int j, uint32_t (&pf)[BKV / 16][4]) {
+    // o += P v of the keys 16 ks0 .. 16 ks1 - 1 of tile j (one commit group)
+    auto pv_part = [&](int j, uint32_t (&pf)[BKV / 16][4], int ks0, int ks1) {
+      if constexpr (WIDE) {
+        if (ks0 == 0)
+          bar_wait(&v_full[(tile0 + j) % STAGES], (uint32_t)(((tile0 + j) / STAGES) & 1));
+      }
       fence_regs(o);
       mma_fence();
 #pragma unroll
-      for (int ks = 0; ks < BKV / 16; ++ks)
+      for (int ks = ks0; ks < ks1; ++ks)
         wgmma::Mma<DP>::template rs<1>(o, pf[ks],
                                        desc_mn(v_s + ((tile0 + j) % STAGES) * KV_BYTES, BKV, 0,
                                                ks), 1);
       mma_commit();
     };
+    auto pv = [&](int j, uint32_t (&pf)[BKV / 16][4]) { pv_part(j, pf, 0, BKV / 16); };
+    // the stages of tile j: WIDE releases K_j once S_j is complete and V_j
+    // once P_j v_j is; otherwise both once P_j v_j is
+    auto release_k = [&](int j) {
+      if constexpr (WIDE) bar_arrive(&empty[(tile0 + j) % STAGES]);
+    };
+    auto release_v = [&](int j) {
+      bar_arrive(WIDE ? &v_empty[(tile0 + j) % STAGES] : &empty[(tile0 + j) % STAGES]);
+    };
     auto step = [&](int j, uint32_t (&pf)[BKV / 16][4], uint32_t (&pf_next)[BKV / 16][4]) {
       issue_s(j + 1);
       pv(j, pf);
       mma_wait<1>();
+      release_k(j + 1);
       float a0, a1;
       softmax(j + 1, pf_next, a0, a1);
       mma_wait<0>();
       fence_regs(o);
       fence_frags(pf);
-      bar_arrive(&empty[(tile0 + j) % STAGES]);
+      release_v(j);
 #pragma unroll
       for (int i = 0; i < DP / 8; ++i) {
         o[4 * i + 0] *= a0;
@@ -341,30 +447,75 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
       mma_wait<0>();
       fence_regs(o);
       fence_frags(pf);
-      bar_arrive(&empty[(tile0 + j) % STAGES]);  // the next item's tiles refill it
+      release_v(j);  // the next item's tiles refill it
+    };
+    // WIDE keeps one set of P fragments (o is DP / 2 fp32 a thread): P_j v_j
+    // goes as two commit groups, of keys 0-31 and 32-63, and tile j + 1's P
+    // is written into each half's fragments once that half's product is
+    // complete (the row max and the keep mask while both run). o is
+    // rescaled only when its row max moved (a factor of 1 is exact).
+    auto step_wide = [&](int j, uint32_t (&pf)[BKV / 16][4]) {
+      issue_s(j + 1);
+      pv_part(j, pf, 0, BKV / 32);
+      pv_part(j, pf, BKV / 32, BKV / 16);
+      const uint32_t bits = keep_mask(j + 1);
+      mma_wait<2>();
+      release_k(j + 1);
+      float scale, a0, a1;
+      softmax_max(j + 1, scale, a0, a1);
+      mma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < BKV / 32; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(pf[i][k])::"memory");
+      softmax_p(j + 1, pf, scale, 0, BKV / 16, bits);
+      mma_wait<0>();
+      fence_regs(o);
+      fence_frags(pf);
+      release_v(j);
+      softmax_p(j + 1, pf, scale, BKV / 16, BKV / 8, bits);
+      if (a0 != 1.f || a1 != 1.f) {
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          o[4 * i + 0] *= a0;
+          o[4 * i + 1] *= a0;
+          o[4 * i + 2] *= a1;
+          o[4 * i + 3] *= a1;
+        }
+      }
     };
 
     uint32_t pa[BKV / 16][4], pb[BKV / 16][4];
-    bar_wait(&q_full[qb], (uint32_t)((it >> 1) & 1));
+    bar_wait(&q_full[qb], (uint32_t)((QP == 2 ? it >> 1 : it) & 1));
     if (q_scale != nullptr)
       scale_q_rows<DP>(Qs + qb * Q_BYTES, 64 * c, q_scale[bh % ol.H] * LOG2E, D,
                        threadIdx.x % WG, c);
     issue_s(0);
     mma_wait<0>();
-    {
-      float a0, a1;
-      softmax(0, pa, a0, a1);
-    }
-    int j = 0;
-    for (; j + 2 < ntiles; j += 2) {
-      step(j, pa, pb);
-      step(j + 1, pb, pa);
-    }
-    if (j + 1 < ntiles) {
-      step(j, pa, pb);
-      last(j + 1, pb);
-    } else {
+    release_k(0);
+    if constexpr (WIDE) {
+      float scale, a0, a1;
+      softmax_max(0, scale, a0, a1);
+      softmax_p(0, pa, scale, 0, BKV / 8, keep_mask(0));
+      int j = 0;
+      for (; j + 1 < ntiles; ++j) step_wide(j, pa);
       last(j, pa);
+    } else {
+      {
+        float a0, a1;
+        softmax(0, pa, a0, a1);
+      }
+      int j = 0;
+      for (; j + 2 < ntiles; j += 2) {
+        step(j, pa, pb);
+        step(j + 1, pb, pa);
+      }
+      if (j + 1 < ntiles) {
+        step(j, pa, pb);
+        last(j + 1, pb);
+      } else {
+        last(j, pa);
+      }
     }
     // the four lanes of a quad hold partial sums of the same rows
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -422,7 +573,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
       }
     }
     // the panel's reads are done (ordered before the async proxy's next
-    // write into it): the producer may refill it for item it + 2
+    // write into it): the producer may refill it for item it + QP
     fence_async_smem();
     bar_arrive(&q_empty[qb]);
   }
@@ -660,8 +811,8 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* 
   CUtensorMap qmap, kmap, vmap;
   int rc;
   if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, BQ)) != 0 ||
-      (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, fwd_bkv<DP>())) != 0 ||
-      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, fwd_bkv<DP>())) != 0)
+      (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, BKV)) != 0 ||
+      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, BKV)) != 0)
     return rc;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<DP, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

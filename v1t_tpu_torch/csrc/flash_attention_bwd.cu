@@ -20,27 +20,37 @@
 // key masked (LSA at N 1) spreads P over them as the plain version does;
 // keys past Nk and queries past Nq (the tiles' zero fill) weigh nothing.
 //
-// bf16 at DP <= 160: one pass, the design of the TPU's _merged_bwd_kernel
-// and of FlashAttention-3, on wgmma (hopper.cuh), between two small kernels:
+// bf16: one pass, the design of the TPU's _merged_bwd_kernel and of
+// FlashAttention-3, on wgmma (hopper.cuh), between two small kernels:
 // 1. prep: delta per (bh, row) and dO copied from o's strided layout into a
 //    head-major (BH, Nq, DP) one, zero-padded from D to DP, so that the main
 //    kernel streams it like q; the float32 dq accumulator is zeroed.
-// 2. one pass: a block of two warpgroups owns 128 keys and loops over query
-//    tiles of 64. One thread starts TMA copies of the block's K and V panels
-//    once and of the tiles' q and dO into a 2-stage ring (mbarriers), 64
-//    threads copy lse and delta with cp.async. Warpgroup c owns keys 64 c ..
-//    64 c + 63: S = q k^T and dP = dO v^T with the tile's queries as wgmma's
-//    M (m64nSKk16, both operands in shared memory, SK = 32 keys at a time
-//    from DP 128 on, else 64), so that the keep mask maps onto the accumulator as in
-//    the forward: one Philox draw per element per backward. Z P and dS = P
-//    (Z dP - delta) go to shared memory as bf16, the A operands (read
-//    transposed) of dV += (Z P)^T dO and dK += dS^T q (m64nDPk16,
-//    accumulators in registers: DP fp32 a thread); then dq = dS k over the
-//    block's 128 keys, the DP columns split between the two warpgroups at a
-//    32-column boundary, added to the float32 accumulator four columns an
-//    atomic. Five N^2 products. No producer warpgroup: its registers
-//    (setmaxnreg) would leave the consumers fewer than the 255 a thread of a
-//    256-thread block has, and dK, dV, S and dP need ~200.
+// 2. one pass: a block of two warpgroups owns a block of keys and loops
+//    over query tiles of 64. One thread starts TMA copies of the block's K
+//    and V panels once and of the tiles' q and dO into a 2-stage ring
+//    (mbarriers), 64 threads copy lse and delta with cp.async. S = q k^T and
+//    dP = dO v^T take the tile's queries as wgmma's M (m64nSKk16, both
+//    operands in shared memory), so that the keep mask maps onto the
+//    accumulator as in the forward: one Philox draw per element per
+//    backward. Z P and dS = P (Z dP - delta) go to shared memory as bf16,
+//    the A operands (read transposed) of dV += (Z P)^T dO and dK += dS^T q
+//    (accumulators in registers); then dq = dS k over the block's keys, the
+//    DP columns split between the two warpgroups at a 32-column boundary,
+//    added to the float32 accumulator four columns an atomic. Five N^2
+//    products. No producer warpgroup: its registers (setmaxnreg) would leave
+//    the consumers fewer than the 255 a thread of a 256-thread block has.
+//    Up to DP 160 (WIDE_DP) a block owns 128 keys and warpgroup c keys 64 c
+//    .. 64 c + 63, for S and dP (SK = 32 keys at a time from DP 128 on, else
+//    64) and for dK and dV (m64nDPk16: DP fp32 a thread each). Above, dK and
+//    dV of 64 keys would be 2 DP fp32 registers a thread beside S and dP:
+//    a block owns 64 keys, warpgroup c computes S and dP of keys 32 c .. 32
+//    c + 31 (m64n32k16) and, after a barrier of the block, dK and dV of all
+//    64 keys for its half of the columns (m64n(DP/2)k16 at the dq split:
+//    64 + 64 fp32 at DP 256). No product is computed twice; q and dO are
+//    streamed once per 64 keys instead of 128, and dq's partial sums, twice
+//    as many, leave through a float32 box a warp in shared memory that
+//    TMA's bulk reduce-add adds into the accumulator (whole lines instead
+//    of 16-byte atomics).
 // 3. convert: the accumulator rounded to bf16 into dq. The key blocks add
 //    into it in no fixed order, so dq's float32 sums, and on rare ties its
 //    bf16 rounding, may differ from run to run.
@@ -48,14 +58,7 @@
 // exp2(s_log2 (q.k - lse)) and dk = dk_scale dS^T q. This file launches it
 // with s_log2 = log2 e and dk_scale = 1; attention_bwd.cu, whose q_s and LSE
 // are in log2 units, with 1 and ln 2, between its own prep and convert.
-// bf16 at DP 192-256: dK and dV of 64 keys would take 192-256 fp32
-// registers a thread beside S and dP, so these widths keep two passes on
-// mma.sync m16n8k16: dq by 8 warps of 16 rows with q and dO in shared
-// memory, key tiles of 32; dkdv by 4 pairs of warps over 16 keys each, the P
-// warp computing S^T, P^T and the keep mask and handing P^T over through
-// shared memory (the keep bit as its sign), the dS warp dP^T and dS^T; query
-// tiles of 32. 7 N^2 products.
-// The dispatch on DP is the wrapper's (ops/flash_attention.py bwd_plan).
+// The tiling at each DP is mirrored by ops/flash_attention.py bwd_plan.
 //
 // float32 (FFMA, not TF32: the fp32 path's users want float32 arithmetic):
 // prep, dq zeroed, then one pass over key blocks with the five products on
@@ -81,10 +84,16 @@
 //
 // Bound on the H100: 10 * BH * Nq * Nk * D FLOP (five products): 14.4 TFLOP
 // at the full-resolution shape (BH 8, N 34,114, D 155) = 14.6 ms of bf16
-// tensor-core time; 1.09 TFLOP at the fp32 flagship (BH 256, N 1654) = 16.2
+// tensor-core time; 0.448 TFLOP at the sweep's widest heads (BH 64, N 1654,
+// D 256) = 0.453 ms; 1.09 TFLOP at the fp32 flagship (BH 256, N 1654) = 16.2
 // ms at the fp32 rate. Bound by operations.
-// Not yet: dq's partial sums go out as atomics, not as TMA's bulk
-// reduce-add (its staging tile does not fit beside the panels at DP 160);
+// Not yet: up to DP 160 dq's partial sums go out as atomics (the staging
+// boxes do not fit beside the panels at DP 160); above, the bulk adds are
+// still the pass's largest cost on an H100 (a variant without any dq sums,
+// not kept, ran far faster), and neither a query order staggered by key
+// block nor the next tile's S and dP issued before them (ptxas then waited
+// for the products and spilled) helped; with one box a warp, a box's next
+// 32 columns wait until its last add has read it;
 // the one pass's products and its P / dS arithmetic do not overlap within a
 // warpgroup; the float32 pass's two halves wait for each other twice a tile.
 #include "hopper.cuh"
@@ -119,10 +128,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_prep_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16, DP <= 160: one pass on wgmma (hopper.cuh)
+// bf16: one pass on wgmma (hopper.cuh)
 
-constexpr int ONE_PASS_MAX_DP = 160;
-constexpr int KB = 128, QB = 64, BWG = 128, BWD_THREADS = 2 * BWG, BWD_STAGES = 2;
+constexpr int QB = 64, BWG = 128, BWD_THREADS = 2 * BWG, BWD_STAGES = 2;
+constexpr int WIDE_DP = 160;  // above: 64 keys a block, dK and dV split by columns
+
+template <int DP>
+__host__ __device__ constexpr bool wide() { return DP > WIDE_DP; }
+
+// keys a block
+template <int DP>
+__host__ __device__ constexpr int bwd_keys() { return wide<DP>() ? 64 : 128; }
 
 // dq's columns per consumer warpgroup: the first half of the DP / 32
 // sub-tiles (rounded up) for the first, as many from there for the second;
@@ -132,29 +148,54 @@ constexpr int KB = 128, QB = 64, BWG = 128, BWD_THREADS = 2 * BWG, BWD_STAGES = 
 template <int DP>
 __host__ __device__ constexpr int dq_cols() { return 32 * ((DP / 32 + 1) / 2); }
 
+// dK's and dV's columns per consumer warpgroup: all of them, or above
+// WIDE_DP the dq split
+template <int DP>
+__host__ __device__ constexpr int kv_cols() { return wide<DP>() ? dq_cols<DP>() : DP; }
+
+// dq's columns a product: above WIDE_DP with 128 columns a warpgroup (DP
+// 224, 256), two products of 64, the second after the first's atomics, so
+// that dq's registers beside dK's and dV's (64 + 64) stay within 255
+template <int DP>
+__host__ __device__ constexpr int dq_step() {
+  return wide<DP>() && dq_cols<DP>() > 96 ? dq_cols<DP>() / 2 : dq_cols<DP>();
+}
+
 // keys of one S / dP product: from DP 128 on, dK and dV take DP fp32
 // registers a thread, and S and dP of 64 keys (64 more) spill
 template <int DP>
 __host__ __device__ constexpr int sdp_keys() { return DP >= 128 ? 32 : 64; }
 
+// above WIDE_DP, dq's partial sums leave through shared memory: a float32
+// box of [16 rows][32 columns] for each of the 8 warps, added to the
+// accumulator by TMA's bulk reduce-add
+constexpr int DQ_BOX_BYTES = 16 * 32 * 4;
+template <int DP>
+__host__ __device__ constexpr int dq_stage_bytes() { return wide<DP>() ? 8 * DQ_BOX_BYTES : 0; }
+
 // K and V panels [KB][DP]; per stage q and dO panels [QB][DP] and the
-// tile's lse and delta rows; P and dS panels [QB][KB]; the mbarriers
+// tile's lse and delta rows; P and dS panels [QB][KB]; the dq boxes; the
+// mbarriers
 template <int DP>
 constexpr int one_pass_smem_bytes() {
+  constexpr int KB = bwd_keys<DP>();
   return 1024 + 2 * KB * DP * 2 + BWD_STAGES * (2 * QB * DP * 2 + 2 * QB * 4) +
-         2 * QB * KB * 2 + (1 + BWD_STAGES) * 8;
+         2 * QB * KB * 2 + dq_stage_bytes<DP>() + (1 + BWD_STAGES) * 8;
 }
 
 template <int DP>
 __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
-    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq_acc,
+    const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq_acc,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Nq, int Nk, int n_real, int D, int lsa,
     Drop drop, float s_log2, float dk_scale) {
   using namespace hopper;
+  constexpr int KB = bwd_keys<DP>(), WK = KB / 2;  // WK: a warpgroup's keys of S and dP
   constexpr int KV_BYTES = KB * DP * 2, QP_BYTES = QB * DP * 2, PS_BYTES = QB * KB * 2;
-  constexpr int DQC = dq_cols<DP>(), SK = sdp_keys<DP>();
+  constexpr int DQC = dq_cols<DP>(), DQS = dq_step<DP>(), KVC = kv_cols<DP>();
+  constexpr int SK = sdp_keys<DP>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -166,8 +207,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
   unsigned char* dSs = Ps + PS_BYTES;                 // dS [QB][KB]
   float* Ls = reinterpret_cast<float*>(dSs + PS_BYTES);  // [STAGES][QB] lse
   float* Dl = Ls + BWD_STAGES * QB;                      // [STAGES][QB] delta
+  // above WIDE_DP, [8 warps] dq boxes (1024-byte aligned: every region
+  // before them is a multiple of 1024 bytes)
+  unsigned char* dq_boxes = reinterpret_cast<unsigned char*>(Dl + BWD_STAGES * QB);
 
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Dl + BWD_STAGES * QB);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dq_boxes + dq_stage_bytes<DP>());
   uint64_t* full = kv_full + 1;  // [STAGES] q and dO landed
 
   const int tid = threadIdx.x, kb = blockIdx.x, bh = blockIdx.y;
@@ -204,17 +248,20 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
   }
   load_tile(0);
 
-  // warpgroup c owns keys 64 c .. 64 c + 63 of the block for S, dP, dK and
-  // dV, and dq's columns DQC c .. DQC c + DQC - 1 (those below DP) of every
-  // query tile
+  // warpgroup c owns keys WK c .. WK c + WK - 1 of the block for S and dP;
+  // the rows (keys) krow0 .. krow0 + 63 and columns kvcol0 .. kvcol0 + KVC
+  // - 1 of dK and dV (its 64 keys, every column; above WIDE_DP the block's
+  // keys, its half of the columns); and dq's columns DQC c .. DQC c + DQC -
+  // 1 (those below DP) of every query tile
   const int c = tid / BWG, lane = tid & 31, warp = (tid / 32) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int kcol0 = 64 * c;  // the warpgroup's keys within the block
+  const int kcol0 = WK * c;
+  const int krow0 = wide<DP>() ? 0 : 64 * c, kvcol0 = wide<DP>() ? KVC * c : 0;
   const uint32_t k_s = smem_u32(Ks), v_s = smem_u32(Vs), q_s = smem_u32(Qs),
                  do_s = smem_u32(dOs), p_s = smem_u32(Ps), ds_s = smem_u32(dSs);
-  float dk_acc[DP / 2], dv_acc[DP / 2];
+  float dk_acc[KVC / 2], dv_acc[KVC / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < KVC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   bar_wait(kv_full, 0u);
   for (int it = 0; it < ntiles; ++it) {
@@ -238,7 +285,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
     // group's keys at a time; P and dS from them, the keep mask drawn once
     // per element (rows are queries, as in the forward)
 #pragma unroll 1
-    for (int h = 0; h < 64 / SK; ++h) {
+    for (int h = 0; h < WK / SK; ++h) {
       const int key0 = kcol0 + h * SK;  // within the block
       float s[SK / 2], dp[SK / 2];
       mma_fence();
@@ -293,58 +340,106 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_one_pass_kernel(
     fence_async_smem();
     __syncthreads();  // the whole tile's P and dS are in shared memory
 
-    // dv += (Z P)^T dO, dk += dS^T q (M = the group's keys, K = the tile's
-    // queries), dq[:, cols] = dS k (M = queries, K = the block's 128 keys)
-    float dq[DQC / 2];
-    mma_fence();
+    // dv += (Z P)^T dO, dk += dS^T q (M = the group's 64 keys, N = its
+    // columns, K = the tile's queries), dq[:, cols] = dS k (M = queries, K =
+    // the block's keys), DQS of the group's DQC columns at a time
+    float dq[DQS / 2];
+    auto dq_product = [&](int part) {
 #pragma unroll
-    for (int ks = 0; ks < QB / 16; ++ks)
-      wgmma::Mma<DP>::template ss<1, 1>(dv_acc, desc_mn(p_s, QB, kcol0 / 32, ks),
-                                        desc_mn(dot_s, QB, 0, ks), 1);
-#pragma unroll
-    for (int ks = 0; ks < QB / 16; ++ks)
-      wgmma::Mma<DP>::template ss<1, 1>(dk_acc, desc_mn(ds_s, QB, kcol0 / 32, ks),
-                                        desc_mn(qt_s, QB, 0, ks), 1);
-#pragma unroll
-    for (int ks = 0; ks < KB / 16; ++ks)
-      wgmma::Mma<DQC>::template ss<0, 1>(dq, desc_k(ds_s, QB, 0, ks),
-                                         desc_mn(k_s, KB, c * DQC / 32, ks), ks > 0);
-    mma_commit();
-    mma_wait<0>();
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
-    fence_regs(dq);
-
+      for (int ks = 0; ks < KB / 16; ++ks)
+        wgmma::Mma<DQS>::template ss<0, 1>(dq, desc_k(ds_s, QB, 0, ks),
+                                           desc_mn(k_s, KB, (c * DQC + part * DQS) / 32, ks),
+                                           ks > 0);
+    };
     // dq's partial sums into the float32 accumulator, four columns an
     // atomic: lanes t and t ^ 1 swap halves so that an even lane holds
     // (row g, columns 2t .. 2t + 3) and an odd one (row g + 8, columns
     // 2t - 2 .. 2t + 1). The key blocks add in no fixed order. Columns D ..
     // DP - 1 add zeros (k is zero there); columns past DP are dropped.
-    const int odd = t & 1, col0 = c * DQC + 2 * (t - odd);
-    const int row = odd ? r1 : r0;
-    float* acc_row = dq_acc + ((size_t)bh * Nq + row) * DP + col0;
+    // Above WIDE_DP, where blocks of 64 keys double these adds, each warp
+    // writes its 16 rows into its box 32 columns at a time and lane 0 adds
+    // the box with TMA's bulk reduce-add (whole lines, not 16-byte atomics;
+    // rows past Nq and columns past DP dropped, boxes from D on not sent).
+    auto dq_add = [&](int part) {
+      if constexpr (wide<DP>()) {
+        unsigned char* box = dq_boxes + (c * 4 + warp) * DQ_BOX_BYTES;
 #pragma unroll
-    for (int i = 0; i < DQC / 8; ++i) {
-      const float send0 = odd ? dq[4 * i + 0] : dq[4 * i + 2];
-      const float send1 = odd ? dq[4 * i + 1] : dq[4 * i + 3];
-      const float got0 = __shfl_xor_sync(0xffffffffu, send0, 1);
-      const float got1 = __shfl_xor_sync(0xffffffffu, send1, 1);
-      const float4 add = odd ? make_float4(got0, got1, dq[4 * i + 2], dq[4 * i + 3])
-                             : make_float4(dq[4 * i + 0], dq[4 * i + 1], got0, got1);
-      if (row < Nq && col0 + 8 * i < DP)
-        atomicAdd(reinterpret_cast<float4*>(acc_row + 8 * i), add);
+        for (int b = 0; b < DQS / 32; ++b) {
+          const int col0 = c * DQC + part * DQS + 32 * b;
+          if (col0 >= D) break;
+          if (lane == 0) bulk_wait_read<0>();  // the box's last add has read it
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(box + f32_box_at(g + 8 * h, 8 * i + 2 * t)) =
+                  make_float2(dq[4 * (4 * b + i) + 2 * h], dq[4 * (4 * b + i) + 2 * h + 1]);
+          fence_async_smem();
+          __syncwarp();
+          if (lane == 0) {
+            tma_reduce_add(box, &dqmap, col0, it * QB + 16 * warp, bh);
+            bulk_commit();
+          }
+        }
+        return;
+      }
+      const int odd = t & 1, col0 = c * DQC + part * DQS + 2 * (t - odd);
+      const int row = odd ? r1 : r0;
+      float* acc_row = dq_acc + ((size_t)bh * Nq + row) * DP + col0;
+#pragma unroll
+      for (int i = 0; i < DQS / 8; ++i) {
+        const float send0 = odd ? dq[4 * i + 0] : dq[4 * i + 2];
+        const float send1 = odd ? dq[4 * i + 1] : dq[4 * i + 3];
+        const float got0 = __shfl_xor_sync(0xffffffffu, send0, 1);
+        const float got1 = __shfl_xor_sync(0xffffffffu, send1, 1);
+        const float4 add = odd ? make_float4(got0, got1, dq[4 * i + 2], dq[4 * i + 3])
+                               : make_float4(dq[4 * i + 0], dq[4 * i + 1], got0, got1);
+        if (row < Nq && col0 + 8 * i < DP)
+          atomicAdd(reinterpret_cast<float4*>(acc_row + 8 * i), add);
+      }
+    };
+    mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < QB / 16; ++ks)
+      wgmma::Mma<KVC>::template ss<1, 1>(dv_acc, desc_mn(p_s, QB, krow0 / 32, ks),
+                                         desc_mn(dot_s, QB, kvcol0 / 32, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < QB / 16; ++ks)
+      wgmma::Mma<KVC>::template ss<1, 1>(dk_acc, desc_mn(ds_s, QB, krow0 / 32, ks),
+                                         desc_mn(qt_s, QB, kvcol0 / 32, ks), 1);
+    dq_product(0);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+    dq_add(0);
+#pragma unroll 1
+    for (int part = 1; part < DQC / DQS; ++part) {
+      mma_fence();
+      dq_product(part);
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(dq);
+      dq_add(part);
     }
   }
 
-  // dk and dv of the group's 64 keys: accumulator rows are keys
+  if constexpr (wide<DP>()) {
+    if (lane == 0) bulk_wait<0>();  // this warp's dq adds are complete
+  }
+
+  // dk and dv of the group's 64 keys and KVC columns: accumulator rows are
+  // keys; columns past DP (the second group's above WIDE_DP) are dropped
   const float dv_scale = drop.on() ? drop.scale : 1.f;
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i)
+  for (int i = 0; i < KVC / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int key = kb * KB + kcol0 + 16 * warp + g + 8 * (e >> 1);
-      const int col = 8 * i + 2 * t + (e & 1);
-      if (key < Nk) {
+      const int key = kb * KB + krow0 + 16 * warp + g + 8 * (e >> 1);
+      const int col = kvcol0 + 8 * i + 2 * t + (e & 1);
+      if (key < Nk && (!wide<DP>() || col < DP)) {
         const size_t at = ((size_t)bh * Nk + key) * DP + col;
         dk[at] = __float2bfloat16_rn(col < D ? dk_acc[4 * i + e] * dk_scale : 0.f);
         dv[at] = __float2bfloat16_rn(col < D ? dv_acc[4 * i + e] * dv_scale : 0.f);
@@ -362,339 +457,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_convert_kernel(
   packed.x = pack_bf16(x.x, x.y);
   packed.y = pack_bf16(x.z, x.w);
   reinterpret_cast<uint2*>(dq)[i] = packed;
-}
-
-// ---------------------------------------------------------------------------
-// bf16, DP 192-256: two passes on mma.sync (dq, then dk and dv), where the
-// one pass's dK and dV accumulators (DP fp32 registers a thread) do not fit
-
-constexpr int BQ = 128;  // dq: query rows per block
-constexpr int CK = 64;   // dkdv: keys per block
-
-constexpr int DQ_BKV = 32;  // dq: keys per tile
-constexpr int KV_CQ = 32;   // dkdv: queries per tile
-
-template <int DP>
-constexpr int dq_smem_bytes() {
-  return (2 * BQ + 2 * 2 * DQ_BKV) * (DP + 8) * (int)sizeof(bf16);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dohm, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int Nq, int Nk, int n_real, int D,
-    int lsa, Drop drop) {
-  constexpr int BKV = DQ_BKV, LD = DP + 8, CHUNKS = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* dOs = Qs + BQ * LD;                      // [BQ][LD]
-  bf16* Ks = dOs + BQ * LD;                      // [2][BKV][LD]
-  bf16* Vs = Ks + 2 * BKV * LD;                  // [2][BKV][LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const bf16* qg = q + (size_t)bh * Nq * DP;
-  const bf16* dog = dohm + (size_t)bh * Nq * DP;
-  const bf16* kg = k + (size_t)bh * Nk * DP;
-  const bf16* vg = v + (size_t)bh * Nk * DP;
-
-  for (int i = tid; i < BQ * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = qt * BQ + r;
-    const bool valid = row < Nq;
-    const size_t off = valid ? (size_t)row * DP + c : 0;
-    cp_async16(Qs + r * LD + c, qg + off, valid);
-    cp_async16(dOs + r * LD + c, dog + off, valid);
-  }
-  auto load_tile = [&](int kt, int stage) {
-    bf16* kd = Ks + stage * BKV * LD;
-    bf16* vd = Vs + stage * BKV * LD;
-    for (int i = tid; i < BKV * CHUNKS; i += THREADS) {
-      const int j = i / CHUNKS, c = (i % CHUNKS) * 8, key = kt * BKV + j;
-      const bool valid = key < Nk;
-      const size_t off = valid ? (size_t)key * DP + c : 0;
-      cp_async16(kd + j * LD + c, kg + off, valid);
-      cp_async16(vd + j * LD + c, vg + off, valid);
-    }
-    cp_async_commit();
-  };
-  const int ntiles = (Nk + BKV - 1) / BKV;
-  load_tile(0, 0);  // commits the q and dO rows with it
-
-  const int row0 = qt * BQ + warp * 16;
-  const int r0 = row0 + g, r1 = r0 + 8;
-  const float* lrow = lse + (size_t)bh * Nq;
-  const float* drow = delta + (size_t)bh * Nq;
-  const float lse0 = r0 < Nq ? __fmul_rn(lrow[r0], LOG2E) : 0.f;
-  const float lse1 = r1 < Nq ? __fmul_rn(lrow[r1], LOG2E) : 0.f;
-  const float del0 = r0 < Nq ? drow[r0] : 0.f, del1 = r1 < Nq ? drow[r1] : 0.f;
-  const bf16* qw = Qs + (warp * 16 + g) * LD + 2 * t;
-  const bf16* dw = dOs + (warp * 16 + g) * LD + 2 * t;
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int di = 0; di < DP / 8; ++di)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[di][j] = 0.f;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < ntiles) {
-      load_tile(kt + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt_s = Ks + stage * BKV * LD;
-    const bf16* vt_s = Vs + stage * BKV * LD;
-
-    float s[BKV / 8][4], dp[BKV / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[ni][j] = dp[ni][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t qa[4] = {ld_pair(qw + kk * 16), ld_pair(qw + kk * 16 + 8 * LD),
-                              ld_pair(qw + kk * 16 + 8), ld_pair(qw + kk * 16 + 8 * LD + 8)};
-      const uint32_t da[4] = {ld_pair(dw + kk * 16), ld_pair(dw + kk * 16 + 8 * LD),
-                              ld_pair(dw + kk * 16 + 8), ld_pair(dw + kk * 16 + 8 * LD + 8)};
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-        const bf16* pk = kt_s + (ni * 8 + g) * LD + kk * 16 + 2 * t;
-        const bf16* pv = vt_s + (ni * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t kb[2] = {ld_pair(pk), ld_pair(pk + 8)};
-        const uint32_t vb[2] = {ld_pair(pv), ld_pair(pv + 8)};
-        mma_16816(s[ni], qa, kb);
-        mma_16816(dp[ni], da, vb);
-      }
-    }
-
-    uint32_t dsf[BKV / 16][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-      bool keep[4] = {true, true, true, true};
-      if (drop.on()) keep_frag_rows(drop, (uint32_t)bh, row0, kt * BKV + ni * 8, lane, keep);
-      float ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kt * BKV + ni * 8 + 2 * t + (j & 1);
-        const int row = (j >> 1) ? r1 : r0;
-        const bool masked = key >= n_real || (lsa && key == row);
-        const float l = (j >> 1) ? lse1 : lse0;
-        const float e2 = exp2f((masked ? MASKED : s[ni][j] * LOG2E) - l);
-        const float p = key >= Nk || row >= Nq ? 0.f : e2;
-        const float z = drop.on() ? (keep[j] ? drop.scale : 0.f) : 1.f;
-        ds[j] = p * (z * dp[ni][j] - ((j >> 1) ? del1 : del0));
-      }
-      dsf[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    // dq += dS k: per 16-key step, one ldmatrix.x4.trans feeds two d-tiles
-#pragma unroll
-    for (int ks = 0; ks < BKV / 16; ++ks) {
-#pragma unroll
-      for (int di = 0; di < DP / 8; di += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, kt_s + (ks * 16 + (lane & 15)) * LD + di * 8 + (lane >> 4) * 8);
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_16816(acc[di], dsf[ks], b0);
-        mma_16816(acc[di + 1], dsf[ks], b1);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
-
-  bf16* dqg = dq + (size_t)bh * Nq * DP;
-#pragma unroll
-  for (int di = 0; di < DP / 8; ++di)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = (j >> 1) ? r1 : r0;
-      const int col = di * 8 + 2 * t + (j & 1);
-      if (row < Nq) dqg[(size_t)row * DP + col] = __float2bfloat16_rn(col < D ? acc[di][j] : 0.f);
-    }
-}
-
-template <int DP>
-constexpr int dkdv_smem_bytes() {
-  return (2 * CK + 2 * 2 * KV_CQ) * (DP + 8) * (int)sizeof(bf16) +
-         (2 * 2 * KV_CQ + CK * (KV_CQ + 4)) * (int)sizeof(float);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dohm, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Nq,
-    int Nk, int n_real, int D, int lsa, Drop drop) {
-  constexpr int CQ = KV_CQ, LD = DP + 8, CHUNKS = DP / 8, PLD = CQ + 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [CK][LD]
-  bf16* Vs = Ks + CK * LD;                        // [CK][LD]
-  bf16* Qs = Vs + CK * LD;                        // [2][CQ][LD]
-  bf16* dOs = Qs + 2 * CQ * LD;                   // [2][CQ][LD]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * CQ * LD);  // [2][CQ], lse * log2 e
-  float* Dl = Ls + 2 * CQ;                                   // [2][CQ]
-  float* Ps = Dl + 2 * CQ;                                   // [CK][PLD], P^T per pair
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kb = blockIdx.x, bh = blockIdx.y;
-  const bf16* qg = q + (size_t)bh * Nq * DP;
-  const bf16* dog = dohm + (size_t)bh * Nq * DP;
-  const bf16* kg = k + (size_t)bh * Nk * DP;
-  const bf16* vg = v + (size_t)bh * Nk * DP;
-  const float* lrow = lse + (size_t)bh * Nq;
-  const float* drow = delta + (size_t)bh * Nq;
-  const bool p_warp = warp < 4;  // else the pair's dS warp
-  const int pair = warp & 3;
-  const int krow0 = pair * 16;   // the pair's 16 keys within the block
-  const int key0 = kb * CK + krow0;
-  float* p_pair = Ps + krow0 * PLD;
-
-  for (int i = tid; i < CK * CHUNKS; i += THREADS) {
-    const int j = i / CHUNKS, c = (i % CHUNKS) * 8, key = kb * CK + j;
-    const bool valid = key < Nk;
-    const size_t off = valid ? (size_t)key * DP + c : 0;
-    cp_async16(Ks + j * LD + c, kg + off, valid);
-    cp_async16(Vs + j * LD + c, vg + off, valid);
-  }
-  auto load_tile = [&](int qtile, int stage) {
-    bf16* qd = Qs + stage * CQ * LD;
-    bf16* dd = dOs + stage * CQ * LD;
-    for (int i = tid; i < CQ * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = qtile * CQ + r;
-      const bool valid = row < Nq;
-      const size_t off = valid ? (size_t)row * DP + c : 0;
-      cp_async16(qd + r * LD + c, qg + off, valid);
-      cp_async16(dd + r * LD + c, dog + off, valid);
-    }
-    if (tid < CQ) {
-      const int row = qtile * CQ + tid;
-      Ls[stage * CQ + tid] = row < Nq ? __fmul_rn(lrow[row], LOG2E) : 0.f;
-      Dl[stage * CQ + tid] = row < Nq ? drow[row] : 0.f;
-    }
-    cp_async_commit();
-  };
-  const int ntiles = (Nq + CQ - 1) / CQ;
-  load_tile(0, 0);  // commits the k/v rows with it
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int di = 0; di < DP / 8; ++di)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[di][j] = 0.f;
-
-  for (int qt = 0; qt < ntiles; ++qt) {
-    const int stage = qt & 1;
-    if (qt + 1 < ntiles) {
-      load_tile(qt + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* q_s = Qs + stage * CQ * LD;
-    const bf16* do_s = dOs + stage * CQ * LD;
-    const float* l_s = Ls + stage * CQ;
-    const float* d_s = Dl + stage * CQ;
-
-    // the P warp: S^T (16 keys x CQ queries) = k q^T; the dS warp:
-    // dP^T = v dO^T. c[j]: key key0 + g (+8 for j >= 2), query
-    // qt * CQ + ni * 8 + 2t + (j & 1)
-    float c[CQ / 8][4];
-#pragma unroll
-    for (int ni = 0; ni < CQ / 8; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[ni][j] = 0.f;
-    const bf16* arows = (p_warp ? Ks : Vs) + (krow0 + g) * LD + 2 * t;
-    const bf16* bsrc = p_warp ? q_s : do_s;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const bf16* pa = arows + kk * 16;
-      const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * LD), ld_pair(pa + 8),
-                             ld_pair(pa + 8 * LD + 8)};
-#pragma unroll
-      for (int ni = 0; ni < CQ / 8; ++ni) {
-        const bf16* pb = bsrc + (ni * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t bb[2] = {ld_pair(pb), ld_pair(pb + 8)};
-        mma_16816(c[ni], a, bb);
-      }
-    }
-
-    // P^T goes to the dS warp through shared memory, with the keep bit as
-    // its sign (P >= 0; a dropped P of 0 contributes 0 either way)
-    uint32_t af[CQ / 16][4];
-#pragma unroll
-    for (int ni = 0; ni < CQ / 8; ++ni) {
-      bool keep[4] = {true, true, true, true};
-      if (p_warp && drop.on())
-        keep_frag_cols(drop, (uint32_t)bh, key0, qt * CQ + ni * 8, lane, keep);
-      float val[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = ni * 8 + 2 * t + (j & 1), row = qt * CQ + qc;
-        float* slot = p_pair + (g + (j >> 1) * 8) * PLD + qc;
-        if (p_warp) {
-          const int key = key0 + g + (j >> 1) * 8;
-          const bool masked = key >= n_real || (lsa && key == row);
-          const float e2 = exp2f((masked ? MASKED : c[ni][j] * LOG2E) - l_s[qc]);
-          const float p = key >= Nk || row >= Nq ? 0.f : e2;
-          *slot = keep[j] ? p : -p;
-          val[j] = keep[j] ? p : 0.f;  // the 1/keep scale is applied to dv at the end
-        }
-      }
-      if (p_warp) {
-        af[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(val[0], val[1]);
-        af[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(val[2], val[3]);
-      }
-    }
-    pair_barrier(pair);  // P^T of this tile is in p_pair
-    if (!p_warp) {
-#pragma unroll
-      for (int ni = 0; ni < CQ / 8; ++ni) {
-        float val[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qc = ni * 8 + 2 * t + (j & 1);
-          const float pk = p_pair[(g + (j >> 1) * 8) * PLD + qc];
-          const float z = drop.on() ? (pk > 0.f ? drop.scale : 0.f) : 1.f;
-          val[j] = fabsf(pk) * (z * c[ni][j] - d_s[qc]);
-        }
-        af[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(val[0], val[1]);
-        af[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(val[2], val[3]);
-      }
-    }
-    // dv += (Z P)^T dO, or dk += dS^T q: B from the query tile, transposed
-    bsrc = p_warp ? do_s : q_s;
-#pragma unroll
-    for (int ks = 0; ks < CQ / 16; ++ks) {
-#pragma unroll
-      for (int di = 0; di < DP / 8; di += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bsrc + (ks * 16 + (lane & 15)) * LD + di * 8 + (lane >> 4) * 8);
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_16816(acc[di], af[ks], b0);
-        mma_16816(acc[di + 1], af[ks], b1);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
-
-  const float out_scale = p_warp && drop.on() ? drop.scale : 1.f;
-  bf16* dst = (p_warp ? dv : dk) + (size_t)bh * Nk * DP;
-#pragma unroll
-  for (int di = 0; di < DP / 8; ++di)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = key0 + g + (j >> 1) * 8;
-      const int col = di * 8 + 2 * t + (j & 1);
-      if (key < Nk)
-        dst[(size_t)key * DP + col] = __float2bfloat16_rn(col < D ? acc[di][j] * out_scale : 0.f);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -969,16 +731,18 @@ int launch_one_pass(const void* q, const void* k, const void* v, const void* doh
   const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_one_pass_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap qmap, kmap, vmap, dmap;
+  constexpr int KB = bwd_keys<DP>();
+  CUtensorMap qmap, kmap, vmap, dmap, dqmap{};  // dqmap: above WIDE_DP only
   int rc;
   if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, QB)) != 0 ||
       (rc = hopper::make_panel_map(&dmap, dohm, BH, Nq, DP, QB)) != 0 ||
       (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, KB)) != 0 ||
-      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, KB)) != 0)
+      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, KB)) != 0 ||
+      (wide<DP>() && (rc = hopper::make_f32_map(&dqmap, dq_acc, BH, Nq, DP, 16)) != 0))
     return rc;
   flash_bwd_one_pass_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), BWD_THREADS, bytes, stream>>>(
-      qmap, kmap, vmap, dmap, lse, delta, dq_acc, dk, dv, Nq, Nk, n_real, D, lsa, drop, s_log2,
-      dk_scale);
+      qmap, kmap, vmap, dmap, dqmap, lse, delta, dq_acc, dk, dv, Nq, Nk, n_real, D, lsa, drop,
+      s_log2, dk_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1013,36 +777,17 @@ int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
       (const bf16*)o, (const bf16*)dout, (const float*)dlse, (bf16*)dohm, (float*)delta, BH, Nq,
       D, DP, ol);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if constexpr (DP <= ONE_PASS_MAX_DP) {
-    if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
-    const long long n4 = rows * DP / 4;
-    err = cudaMemsetAsync(dq_acc, 0, (size_t)n4 * 16, stream);
-    if (err != cudaSuccess) return (int)err;
-    const int rc = one_pass::launch(q, k, v, dohm, (const float*)lse, (const float*)delta,
-                                    (float*)dq_acc, (bf16*)dk, (bf16*)dv, BH, Nq, Nk, n_real, D,
-                                    DP, lsa, drop, LOG2E, 1.f, stream);
-    if (rc != 0) return rc;
-    flash_bwd_dq_convert_kernel<<<(unsigned)((n4 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-        (const float4*)dq_acc, (bf16*)dq, n4);
-    return (int)cudaGetLastError();
-  } else {
-    constexpr int dq_bytes = dq_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_kernel<DP><<<dim3((Nq + BQ - 1) / BQ, BH), THREADS, dq_bytes, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dohm, (const float*)lse,
-        (const float*)delta, (bf16*)dq, Nq, Nk, n_real, D, lsa, drop);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    constexpr int kv_bytes = dkdv_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkdv_kernel<DP><<<dim3((Nk + CK - 1) / CK, BH), THREADS, kv_bytes, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dohm, (const float*)lse,
-        (const float*)delta, (bf16*)dk, (bf16*)dv, Nq, Nk, n_real, D, lsa, drop);
-    return (int)cudaGetLastError();
-  }
+  if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
+  const long long n4 = rows * DP / 4;
+  err = cudaMemsetAsync(dq_acc, 0, (size_t)n4 * 16, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = one_pass::launch(q, k, v, dohm, (const float*)lse, (const float*)delta,
+                                  (float*)dq_acc, (bf16*)dk, (bf16*)dv, BH, Nq, Nk, n_real, D,
+                                  DP, lsa, drop, LOG2E, 1.f, stream);
+  if (rc != 0) return rc;
+  flash_bwd_dq_convert_kernel<<<(unsigned)((n4 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      (const float4*)dq_acc, (bf16*)dq, n4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1059,6 +804,9 @@ int one_pass::launch(const void* q, const void* k, const void* v, const void* do
     case 96: return launch_one_pass<96>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
     case 128: return launch_one_pass<128>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
     case 160: return launch_one_pass<160>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 192: return launch_one_pass<192>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 224: return launch_one_pass<224>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
+    case 256: return launch_one_pass<256>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1070,7 +818,7 @@ int one_pass::launch(const void* q, const void* k, const void* v, const void* do
 // lse (BH, Nq) float32 natural log from the forward; dlse (BH, Nq) float32
 // or null. Writes dq (BH, Nq, DP), dk and dv (BH, Nk, DP), zero past D.
 // dohm (BH, Nq, DP) in the dtype and delta (BH, Nq) float32 are scratch,
-// and dq_acc (BH, Nq, DP) float32 for bf16 at DP <= 160 (null otherwise).
+// and dq_acc (BH, Nq, DP) float32 for bf16 (null for float32).
 // threshold > 0 regenerates the forward's keep mask of (seed, site).
 extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
@@ -1102,17 +850,14 @@ extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void*
 namespace {
 template <int DP>
 int bwd_smem(bool f32) {
-  if (f32) return f32_smem_bytes<DP>();
-  if constexpr (DP <= ONE_PASS_MAX_DP) return one_pass_smem_bytes<DP>();
-  else return dq_smem_bytes<DP>() > dkdv_smem_bytes<DP>() ? dq_smem_bytes<DP>()
-                                                           : dkdv_smem_bytes<DP>();
+  return f32 ? f32_smem_bytes<DP>() : one_pass_smem_bytes<DP>();
 }
 }  // namespace
 
 // Dynamic shared memory of a block of the backward's main kernel at padded
-// head width dp: in bf16 the one pass (which attention_bwd.cu launches too)
-// or, above ONE_PASS_MAX_DP, the larger of dq and dkdv; with f32 the float32
-// pass. 0 for a width it is not built for.
+// head width dp: in bf16 the one pass (which attention_bwd.cu launches too
+// up to DP 160), with f32 the float32 pass. 0 for a width it is not built
+// for.
 extern "C" int v1t_flash_attention_bwd_smem(int dp, int f32) {
   const bool f = f32 != 0;
   switch (dp) {

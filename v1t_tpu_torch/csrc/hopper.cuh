@@ -1,8 +1,8 @@
 // Hopper building blocks of the flash kernels (flash_attention.cu,
 // flash_attention_bwd.cu) and the projections' (ln_linear.cu,
 // ln_linear_bwd.cu): shared-memory panels in the layout wgmma reads, their
-// descriptors, TMA and bulk copies into them, mbarriers, warpgroup fences
-// and register hand-over.
+// descriptors, TMA and bulk copies into them (and bulk reduce-adds out of
+// float32 boxes), mbarriers, warpgroup fences and register hand-over.
 //
 // A panel holds R rows of DP bf16 (DP a multiple of 32) as DP / 32
 // sub-tiles of [R][32], each 64-byte row swizzled as the 64-byte swizzle
@@ -97,16 +97,16 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 
 // --- TMA -----------------------------------------------------------------
 
-// Tensor map of a (planes, rows, cols) bf16 array, rows ld elements apart
-// (ld * 2 and the base 16-byte aligned), planes rows * ld apart, whose
-// boxes are one sub-tile, [box_rows][32] columns with the 64-byte swizzle,
-// so that a box lands as the panels above lay it out; rows and columns past
-// the end read as zeros. cuTensorMapEncodeTiled lives in libcuda: its
-// address comes from the runtime (cudaGetDriverEntryPointByVersion), so
-// that the library links against the CUDA runtime alone. Returns a CUDA
-// error code.
-inline int make_map(CUtensorMap* map, const void* base, int planes, int rows, int cols, int ld,
-                    int box_rows) {
+// Tensor map of a (planes, rows, cols) array of `type`, elem_bytes an
+// element, rows ld elements apart (ld * elem_bytes and the base 16-byte
+// aligned), planes rows * ld apart, whose boxes are [box_rows][32] columns
+// in `swizzle`; rows and columns past the end read as zeros, and are not
+// written. cuTensorMapEncodeTiled lives in libcuda: its address comes from
+// the runtime (cudaGetDriverEntryPointByVersion), so that the library
+// links against the CUDA runtime alone. Returns a CUDA error code.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                      CUtensorMapSwizzle swizzle, const void* base, int planes, int rows,
+                      int cols, int ld, int box_rows) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -123,14 +123,36 @@ inline int make_map(CUtensorMap* map, const void* base, int planes, int rows, in
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)rows * ld * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * elem_bytes, (cuuint64_t)rows * ld * elem_bytes};
   const cuuint32_t box[3] = {32u, (cuuint32_t)box_rows, 1u};
   const cuuint32_t elem[3] = {1u, 1u, 1u};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a bf16 array in sub-tiles: boxes of [box_rows][32] land as the panels
+// above lay them out (the 64-byte swizzle)
+inline int make_map(CUtensorMap* map, const void* base, int planes, int rows, int cols, int ld,
+                    int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_64B, base,
+                    planes, rows, cols, ld, box_rows);
+}
+
+// a float32 (planes, rows, cols) array whose boxes are [box_rows][32] with
+// the 128-byte swizzle: in shared memory, 128-byte rows whose 16-byte chunk
+// c lies at chunk c ^ (row & 7) (the box 1024-byte aligned), for bulk
+// reductions into it (f32_box_at)
+inline int make_f32_map(CUtensorMap* map, const void* base, int planes, int rows, int cols,
+                        int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, CU_TENSOR_MAP_SWIZZLE_128B, base,
+                    planes, rows, cols, cols, box_rows);
+}
+
+// byte offset of element (r, c) of such a float32 box
+__device__ __forceinline__ uint32_t f32_box_at(int r, int c) {
+  return (uint32_t)(r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4);
 }
 
 // a (planes, rows, DP) array of rows zero-padded to DP
@@ -171,6 +193,35 @@ __device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* m
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Add a float32 box of shared memory into the array of a make_f32_map
+// map at (col, row, plane), elements past the array's end dropped; one
+// bulk-async group per commit. The shared box may be written again once
+// bulk_wait_read says the group has read it.
+__device__ __forceinline__ void tma_reduce_add(const void* box, const CUtensorMap* map, int col,
+                                               int row, int plane) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(box)), "r"(col), "r"(row),
+      "r"(plane)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk-async groups but the last PENDING have read their
+// shared memory (bulk_wait: and completed)
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // A contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte

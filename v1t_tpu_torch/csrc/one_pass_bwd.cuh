@@ -10,7 +10,7 @@
 namespace one_pass {
 
 // One launch over q (BH, Nq, DP), k, v (BH, Nk, DP), dO head-major (BH, Nq,
-// DP) bf16 and lse, delta (BH, Nq) float32, DP = 32, 64, ..., 160: P =
+// DP) bf16 and lse, delta (BH, Nq) float32, DP = 32, 64, ..., 256: P =
 // exp2(s_log2 (q.k - lse)) (s_log2 = log2 e for natural units, 1 for log2
 // ones); adds dq's partial sums dS k into dq_acc (BH, Nq, DP) float32, which
 // the caller zeroes; writes dk = dk_scale dS^T q and dv (BH, Nk, DP) bf16,

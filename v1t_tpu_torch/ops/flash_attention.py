@@ -19,10 +19,11 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   of one layout). The forward returns the
   natural-log LSE (B*H, Nq); the backward folds the LSE's cotangent into
   delta = rowsum(dO . o) - dlse, as the JAX backward does. ``fwd_plan``
-  says which tiles the forward runs on; ``bwd_plan``
-  says which backward kernels run: in bf16 up to ``ONE_PASS_MAX_DP`` one
-  wgmma pass that adds dq into a float32 accumulator, above it dq and dkdv
-  passes; in float32 one FFMA pass that adds dq into the output itself.
+  says which tiles the forward runs on; ``bwd_plan`` says which backward
+  kernels run and on which tiles: in bf16 one wgmma pass that adds dq into
+  a float32 accumulator (above ``WIDE_DP`` on blocks of 64 keys, dK and dV
+  split by columns); in float32 one FFMA pass that adds dq into the output
+  itself.
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -54,7 +55,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 MASKED = -1e30  # the kernels' masked score (log2 units)
 MAX_HEAD_PAD = 256  # padded head widths the kernels are built for: 32, 64, ..., 256
-ONE_PASS_MAX_DP = 160  # bf16 backward: one wgmma pass up to here, two mma.sync passes above
+WIDE_DP = 160  # the bf16 kernels' tiles change above this padded head width
 PLAIN_CHUNK_ELEMENTS = 1 << 26  # the plain versions' (B*H, chunk, Nk) float32 scores
 
 
@@ -113,17 +114,19 @@ class FwdPlan(t.NamedTuple):
     queries: int  # query rows a block
     keys: int  # keys a tile
     smem: int  # dynamic shared memory a block, bytes
+    q_panels: int  # q panels a block holds
+    stages: int  # depth of the K / V ring
 
 
 def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     """The tiles ``csrc/flash_attention.cu`` runs the forward on at padded
     head width DP: bf16, items of 128 queries (two consumer warpgroups of
-    64) against key tiles of 64 up to DP 160 and 32 above, two q panels (a
-    persistent block's item and its next), a TMA ring 3 deep up to DP 192
-    and 2 above; float32, 128 queries (8 rows a thread) up to DP 160 and
-    64 (4 rows) above, so that o fits the registers, key tiles of 64 whose K
-    and V take turns in a two-stage cp.async ring, every tile's rows padded
-    by 4 floats and 4 more every 8 rows."""
+    64) against key tiles of 64 in a TMA ring 3 deep (2 at DP 256), two q
+    panels up to ``WIDE_DP`` (a persistent block's item and its next) and
+    one above, where K and V have barriers of their own; float32, 128 queries (8 rows a thread) up to DP 160 and 64
+    (4 rows) above, so that o fits the registers, one q tile, key tiles of
+    64 whose K and V take turns in a two-stage cp.async ring, every tile's
+    rows padded by 4 floats and 4 more every 8 rows."""
     if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
         raise ValueError(f"flash_attention: padded head width {dp}")
     if dtype == torch.float32:
@@ -132,9 +135,12 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
         def tile(rows):
             return rows * (dp + 4) + 4 * -(-rows // 8)
 
-        return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4)
-    keys, stages = (64 if dp <= 160 else 32), (3 if dp <= 192 else 2)
-    return FwdPlan(128, keys, 1024 + (2 * 128 + 2 * stages * keys) * dp * 2 + (4 + 2 * stages) * 8)
+        return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4, 1, 2)
+    wide = dp > WIDE_DP
+    q_panels, stages = (1 if wide else 2), (3 if dp <= 224 else 2)
+    bars = 4 + 2 * stages * (2 if wide else 1)  # q; K and V (wide: K, V apart)
+    smem = 1024 + (q_panels * 128 + 2 * stages * 64) * dp * 2 + bars * 8
+    return FwdPlan(128, 64, smem, q_panels, stages)
 
 
 def _one_layout(*xs: Tensor) -> bool:
@@ -246,23 +252,34 @@ def _check_bwd(q: Tensor, o: Tensor, do: Tensor, lse: Tensor, dlse: t.Optional[T
 class BwdPlan(t.NamedTuple):
     kernels: t.Tuple[str, ...]  # the launches of one flash_bwd call, in order
     dq_acc: t.Optional[t.Tuple[int, int, int]]  # float32 scratch shape, or None
+    keys: int  # keys a block of the main pass
+    smem: int  # its dynamic shared memory a block, bytes
 
 
 def bwd_plan(dtype: torch.dtype, bh: int, nq: int, dp: int) -> BwdPlan:
-    """Which kernels ``flash_bwd`` launches for these operands, and the
-    float32 dq accumulator it allocates: bf16 at DP <= ``ONE_PASS_MAX_DP``
-    takes the one-pass wgmma kernel, which adds dq's partial sums into a
-    (BH, Nq, DP) float32 buffer that a last kernel rounds to bf16; bf16 above
-    it (dK and dV would not fit the registers) takes dq and dkdv passes;
-    float32 takes one FFMA pass that adds dq's partial sums into dq itself.
-    The same rule is compiled into ``csrc/flash_attention_bwd.cu``."""
+    """Which kernels ``flash_bwd`` launches for these operands, the float32
+    dq accumulator it allocates and the main pass's tiles: bf16 takes the
+    one-pass wgmma kernel, which adds dq's partial sums into a (BH, Nq, DP)
+    float32 buffer that a last kernel rounds to bf16 (blocks of 128 keys up
+    to ``WIDE_DP``, 64 above, where dK and dV are split by columns between
+    the warpgroups; query tiles of 64 in a 2-stage ring, with P and dS
+    panels); float32 takes one FFMA pass that adds dq's partial sums into dq
+    itself (blocks of 64 keys up to DP 160, 32 above; query tiles of 32,
+    every row padded by 4 floats). The same tiles are compiled into
+    ``csrc/flash_attention_bwd.cu``."""
     if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
         raise ValueError(f"flash_attention_bwd: padded head width {dp}")
     if dtype == torch.float32:
-        return BwdPlan(("prep", "one_pass_f32"), None)
-    if dp <= ONE_PASS_MAX_DP:
-        return BwdPlan(("prep", "one_pass", "dq_convert"), (bh, nq, dp))
-    return BwdPlan(("prep", "dq", "dkdv"), None)
+        keys, qt = (64 if dp <= 160 else 32), 32
+        smem = (2 * keys * (dp + 4) + 2 * 2 * qt * (dp + 4) + 2 * qt * (keys + 4)
+                + 2 * 2 * qt) * 4
+        return BwdPlan(("prep", "one_pass_f32"), None, keys, smem)
+    wide = dp > WIDE_DP
+    keys, qb, stages = (64 if wide else 128), 64, 2
+    dq_boxes = 8 * 16 * 32 * 4 if wide else 0  # a float32 box of 16 x 32 a warp
+    smem = (1024 + 2 * keys * dp * 2 + stages * (2 * qb * dp * 2 + 2 * qb * 4)
+            + 2 * qb * keys * 2 + dq_boxes + (1 + stages) * 8)
+    return BwdPlan(("prep", "one_pass", "dq_convert"), (bh, nq, dp), keys, smem)
 
 
 def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tensor,

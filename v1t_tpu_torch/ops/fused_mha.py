@@ -53,7 +53,7 @@ import torch
 from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, keep_mask
 from v1t_tpu_torch.ops.flash_attention import (
-    MASKED, MAX_HEAD_PAD, BwdPlan, FwdPlan, flash_bwd, flash_bwd_plain, flash_fwd,
+    MASKED, MAX_HEAD_PAD, BwdPlan, FwdPlan, bwd_plan, flash_bwd, flash_bwd_plain, flash_fwd,
     flash_fwd_plain, fwd_plan,
 )
 from v1t_tpu_torch.ops.ln_linear import (
@@ -243,7 +243,7 @@ def attention_plan(b: int, h: int, n: int, dp: int) -> AttentionPlan:
         raise ValueError("attention: batch x heads exceeds the launch grid")
     tiles = fwd_plan(torch.bfloat16, dp)
     items = -(-n // tiles.queries) * b * h
-    return AttentionPlan(items, min(items, H100_SMS), 3, tiles)
+    return AttentionPlan(items, min(items, H100_SMS), tiles.stages, tiles)
 
 
 def attention_bwd_plain(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor,
@@ -293,7 +293,8 @@ def attention_bwd_plan(b: int, h: int, n: int, dp: int) -> BwdPlan:
         raise ValueError(f"attention_bwd: padded head width {dp} runs on flash_bwd")
     if b * h > 65535:
         raise ValueError("attention_bwd: batch x heads exceeds the launch grid")
-    return BwdPlan(("prep", "one_pass", "convert"), (b * h, n, dp))
+    return bwd_plan(torch.bfloat16, b * h, n, dp)._replace(
+        kernels=("prep", "one_pass", "convert"))
 
 
 def attention_bwd(qkv: Tensor, o: Tensor, do: Tensor, lse: Tensor, scale: Tensor,
