@@ -15,8 +15,10 @@ Phases, one line each as they go:
    library's, with each flagship use's plan (rows a block, tiles, ring
    depths, how often dY' is read, slices and clusters of the weight
    gradient), the row-1 attention core's launch (``attention_plan``) and
-   the sampling backward's (``sample_bwd_plan``: channels a block, bands)
-   at the flagship, full-resolution, fp32 and a banded map;
+   the sampling forward's (``sample_fwd_plan``: channels a block, one
+   shared-memory word a cell; chunks) and backward's (``sample_bwd_plan``:
+   channels a block, bands) at the flagship, sweep-widest, full-resolution,
+   fp32 and a map past a block's shared memory;
 3. every kernel against its plain PyTorch version at the flagship shapes
    (batch 64, 1654 tokens, emb 155, 4 heads of 155, MLP 488, a 29x57 core
    map, 7000 neurons), the training variants and the backward kernels with
@@ -30,10 +32,11 @@ Phases, one line each as they go:
    the materialised row-major dY'^T and A), and the weight gradient run
    twice, bit for bit; the row-1 core serving and training beside SDPA
    and the parent's reading, and its row whose every key is masked (LSA at
-   N 1);
+   N 1); the sampling forward also at the sweep-widest map (C 256), its
+   two launches bit for bit, beside the parent design's reading;
    3b. the backward kernels (``attention_bwd`` with and without dropout;
-   the sampling backward timed at the flagship's, the full-resolution and
-   the float32 map),
+   the sampling backward, and the forward beside it, timed at the
+   flagship's, the full-resolution and the float32 map),
    and the bf16 one-pass backward that ``attention_bwd`` and ``flash_bwd``
    share, timed through both at the flagship shape with its kernels
    profiled;
@@ -131,10 +134,11 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 out
 B, N, E, H, F_HID, NEURONS = 64, 1654, 155, 4, 488, 7000
 MAP_H, MAP_W = 29, 57
 OW = -(-H * E // 8) * 8  # attention's output rows: H*E rounded up to 16 bytes (624)
-# the parent tree's readings (PR 10's chip_smoke.py on an NVIDIA H100 80GB
-# HBM3 at 700 W, PERF.md), printed beside this run's for orientation only
+# readings of each kernel's previous design (this script on an NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md's kernel table), printed beside this run's for
+# orientation only
 PARENT_MS = {"attention serving": 2.303, "attention training": 3.358,
-             "bilinear_sample_cm_bwd": 2.946}
+             "bilinear_sample_cm_bwd": 2.946, "bilinear_sample_cm": 0.288}
 # the parent design's readings of the bf16 flash kernels at the sweep shape
 # (B 16 x H 4, N 1654: the two mma.sync backward passes and the forward on
 # 32-key tiles, this script on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
@@ -292,12 +296,49 @@ def torch_ln_linear(kw: dict) -> torch.Tensor:
     return y
 
 
+def sample_forward(label: str, table: torch.Tensor, grid: torch.Tensor, hh: int,
+                   ww: int) -> dict:
+    """``bilinear_sample_cm`` at one map against its plain version and a
+    second launch (bit for bit), timed beside its plain version,
+    ``F.grid_sample`` on the same inputs and its byte bound."""
+    import torch.nn.functional as F
+
+    from v1t_tpu_torch.ops.interp_matmul import (
+        bilinear_sample_cm, bilinear_sample_cm_plain, sample_fwd_plan,
+    )
+
+    b, c, _ = table.shape
+    tol = KERNEL_TOL if table.dtype == torch.bfloat16 else F32_KERNEL_TOL
+    got = bilinear_sample_cm(table, grid, hh, ww)
+    err, rel = compare(f"bilinear_sample_cm[{label}]", got,
+                       bilinear_sample_cm_plain(table, grid, hh, ww), tol)
+    if not torch.equal(got, bilinear_sample_cm(table, grid, hh, ww)):
+        raise AssertionError(f"bilinear_sample_cm[{label}]: two launches differ")
+    table4 = table.reshape(b, c, hh, ww)
+    grid4 = grid.reshape(b, 1, grid.shape[1], 2).to(table.dtype)
+    lib_ms = cuda_ms(lambda: F.grid_sample(table4, grid4, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True))
+    ms = cuda_ms(lambda: bilinear_sample_cm(table, grid, hh, ww))
+    plain_ms = cuda_ms(lambda: bilinear_sample_cm_plain(table, grid, hh, ww), iters=3)
+    b_ms, b_by = bound(nbytes(table, grid, got), 8.0 * got.numel(), "fp32")
+    plan = sample_fwd_plan(c, hh, ww, table.dtype)
+    parent = PARENT_MS["bilinear_sample_cm"] if label.startswith("flagship") else None
+    log(f"  bilinear_sample_cm[{label}] (B {b}, C {c}, {hh}x{ww}, P {grid.shape[1]}, "
+        f"{str(table.dtype)[6:]}; {plan.group} channels a block x {plan.chunks} chunks, table "
+        f"{'staged' if plan.staged else 'in global memory'}, "
+        f"{plan.smem} bytes of shared memory a block): kernel_ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} grid_sample_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); kernel / "
+        f"grid_sample {ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}; two launches bit for bit"
+        + (f"; the parent design's reading {parent} ms" if parent else ""))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, rel_err=rel, plan=plan._asdict())
+
+
 def check_kernels(gen: torch.Generator) -> tuple:
     import torch.nn.functional as F
 
     from v1t_tpu_torch.ops.dropout import Dropout
     from v1t_tpu_torch.ops.fused_mha import attention, attention_plain
-    from v1t_tpu_torch.ops.interp_matmul import bilinear_sample_cm, bilinear_sample_cm_plain
     from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_plain
 
     dev = DEVICE
@@ -465,31 +506,29 @@ def check_kernels(gen: torch.Generator) -> tuple:
                 attention(qkv_s, scale_s, d_head, use_lsa=lsa),
                 attention_plain(qkv_s, scale_s, d_head, use_lsa=lsa), KERNEL_TOL)
 
-    # bilinear sampling of a core map at per-neuron grid points, some outside
+    # bilinear sampling of a core map at per-neuron grid points, some
+    # outside: the flagship's map, then the sweep-widest's (C 256)
     table = randn(B, E, MAP_H * MAP_W)
     grid = (torch.rand(B, NEURONS, 2, generator=gen) * 2.4 - 1.2).to(dev)
-    got = bilinear_sample_cm(table, grid, MAP_H, MAP_W)
-    ref = bilinear_sample_cm_plain(table, grid, MAP_H, MAP_W)
-    err, rel = compare("bilinear_sample_cm", got, ref, KERNEL_TOL)
-    table4 = table.reshape(B, E, MAP_H, MAP_W)
-    grid4 = grid.reshape(B, 1, NEURONS, 2).to(bf)
-    lib_ms = cuda_ms(lambda: F.grid_sample(table4, grid4, mode="bilinear", padding_mode="zeros",
-                                           align_corners=True))
-    ms = cuda_ms(lambda: bilinear_sample_cm(table, grid, MAP_H, MAP_W))
-    plain_ms = cuda_ms(lambda: bilinear_sample_cm_plain(table, grid, MAP_H, MAP_W), iters=3)
-    b_ms, b_by = bound(nbytes(table, grid, got), 8.0 * B * NEURONS * E, "fp32")
-    log(f"  bilinear_sample_cm (B {B}, C {E}, {MAP_H}x{MAP_W}, P {NEURONS}): kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} grid_sample_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    sample_cases = {"flagship 29x57": sample_forward("flagship 29x57", table, grid, MAP_H, MAP_W)}
+    wide_table = randn(B, SWEEP_EMB, MAP_H * MAP_W)
+    sample_cases["sweep-widest C 256"] = sample_forward("sweep-widest C 256", wide_table, grid,
+                                                        MAP_H, MAP_W)
+    del wide_table
+    flag = sample_cases["flagship 29x57"]
     rows.append(dict(
         name="bilinear_sample_cm", route="cuda", source="v1t_tpu_torch/csrc/bilinear_sample.cu",
         replaces="v1t_tpu/ops/interp_matmul.py:99 (_fwd_kernel)",
-        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, library="F.grid_sample",
+        max_abs_err=flag["max_abs_err"], rel_err=flag["rel_err"], ms=flag["ms"],
+        plain_ms=flag["plain_ms"], bound_ms=flag["bound_ms"], bound_by=flag["bound_by"],
+        library_ms=flag["library_ms"], library="F.grid_sample",
+        note="times at the flagship's map; per_case holds the sweep-widest, full-resolution "
+             "and fp32 maps'", per_case=sample_cases,
     ))
     tensors = dict(x=x, row=row, gamma=gamma, beta=beta, wqkv=wqkv, wp=wp, wp_o=wp_o, bp=bp,
                    w1=w1, b1=b1,
                    w2=w2, b2=b2, scale=scale, qkv=qkv, table=table, grid=grid,
-                   drops=(drop_p, drop_o, drop1, drop2))
+                   drops=(drop_p, drop_o, drop1, drop2), sample_cases=sample_cases)
     return rows, tensors
 
 
@@ -698,6 +737,8 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
         else:
             table = torch.randn(b, E, hh * ww, generator=gen).to(dev, dtype)
             grid = (torch.rand(b, NEURONS, 2, generator=gen) * 2.4 - 1.2).to(dev)
+        if not label.startswith("flagship"):  # the forward beside the backward
+            t["sample_cases"][label] = sample_forward(label, table, grid, hh, ww)
         ds = torch.randn(b, E, NEURONS, generator=gen).to(dev, dtype)
         tol = KERNEL_TOL if dtype == bf else F32_KERNEL_TOL
         got, ref = (fn(table, grid, ds, hh, ww)
@@ -1353,7 +1394,7 @@ def check_launch_plans(lib) -> None:
     gradient's slices and clusters, shared memory a block."""
     from v1t_tpu_torch.ops.flash_attention import bwd_plan, fwd_plan
     from v1t_tpu_torch.ops.fused_mha import attention_plan
-    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan, sample_fwd_plan
     from v1t_tpu_torch.ops.ln_linear import COPIES, dx_plan, linear_plan, wgrad_plan
 
     for dp in range(32, 257, 32):
@@ -1387,6 +1428,22 @@ def check_launch_plans(lib) -> None:
             f"{plan.chunks} chunks, {plan.bands} band(s) of {plan.band_rows} rows, the table "
             f"{'staged beside it' if plan.staged else 'in global memory'}, {plan.smem} bytes of "
             f"shared memory a block")
+    for label, (c, hh, ww, dtype) in {
+            "flagship 29x57": (E, MAP_H, MAP_W, torch.bfloat16),
+            "sweep-widest C 256": (SWEEP_EMB, MAP_H, MAP_W, torch.bfloat16),
+            "fp32 29x57": (E, MAP_H, MAP_W, torch.float32),
+            "full-res 137x249": (E, FR_MAP_H, FR_MAP_W, torch.bfloat16),
+            "full-res 137x249 fp32": (E, FR_MAP_H, FR_MAP_W, torch.float32),
+            "400x300, 3 channels": (3, 400, 300, torch.bfloat16)}.items():
+        plan = sample_fwd_plan(c, hh, ww, dtype)
+        f32 = int(dtype == torch.float32)
+        got = [lib.v1t_bilinear_sample_cm_plan(c, hh, ww, f32, f) for f in range(4)]
+        if got != list(plan):
+            raise AssertionError(f"sample_fwd_plan of {label} disagrees with the library: {got}")
+        log(f"  bilinear_sample_cm[{label}]: " + (
+            f"{plan.group} channels a block (a shared-memory word a cell), {plan.chunks} "
+            f"blocks an image, {plan.smem} bytes of shared memory a block"
+            if plan.staged else f"unstaged: a block a channel, {plan.chunks} an image"))
     uses = {  # (K, stored reduction columns, rows 16-byte aligned, LayerNorm)
         "out_proj": (H * E, dp, E % 8 == 0, False),
         "qkv": (E, 3 * H * dp, True, True),

@@ -136,14 +136,56 @@ def test_attention_matches_plain(gen, b, n, h, d, lsa):
     _close(attention(qkv, scale, d, use_lsa=lsa), attention_plain(qkv, scale, d, use_lsa=lsa))
 
 
+# grid points exactly on the map's corners and edges, and outside it
+EDGE_POINTS = [(-1.0, -1.0), (1.0, 1.0), (-1.0, 1.0), (1.0, -1.0), (0.0, 1.0), (1.0, 0.25),
+               (-1.5, 0.2), (0.3, 1.7)]
+
+
+def _sample_grid(gen, b, p):
+    """(B, P, 2) points in [-1.5, 1.5] (some outside the map), the first
+    ones on its corners and edges and outside it."""
+    grid = torch.rand(b, p, 2, generator=gen) * 3.0 - 1.5
+    k = min(p, len(EDGE_POINTS))
+    grid[:, :k] = torch.tensor(EDGE_POINTS[:k])
+    return grid.to("cuda")
+
+
 @pytest.mark.parametrize("b,c,height,width,p", [
     (1, 1, 1, 2, 1), (3, 7, 5, 9, 1000), (2, 155, 29, 57, 37), (1, 3, 4, 1, 300),
+    (2, 155, 29, 57, 7000),  # the flagship's map: 8 channels a block
+    (2, 256, 29, 57, 1001),  # the sweep-widest's; P odd: scalar stores
+    (3, 3, 29, 57, 515), (2, 11, 29, 57, 513),  # a partial block of 8 channels
+    (2, 5, 60, 100, 998), (2, 5, 100, 100, 999),  # 4 and 2 channels a block
+    (2, 155, 137, 249, 700),  # the full-resolution map: one channel a block
+    (1, 3, 400, 300, 999),  # a channel past a block's shared memory: unstaged
 ], ids=lambda v: str(v))
 def test_bilinear_sample_cm_matches_plain(gen, b, c, height, width, p):
+    """bf16 tables under every forward plan (``sample_fwd_plan``): 8, 4, 2
+    and 1 channels a block, a partial last block, and the unstaged gather;
+    P neither a multiple of a block's 512 points nor even; points on the
+    map's corners and edges and outside it."""
+    from v1t_tpu_torch.ops.interp_matmul import sample_fwd_plan
+
+    plan = sample_fwd_plan(c, height, width, torch.bfloat16)
+    assert plan.staged == (height * width * 2 <= 232448)
     table = _randn(gen, b, c, height * width)
-    grid = (torch.rand(b, p, 2, generator=gen) * 3.0 - 1.5).to("cuda")
+    grid = _sample_grid(gen, b, p)
     _close(bilinear_sample_cm(table, grid, height, width),
            bilinear_sample_cm_plain(table, grid, height, width))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("b,c,height,width,p", [
+    (2, 155, 29, 57, 7000), (2, 11, 29, 57, 513), (2, 155, 137, 249, 700), (1, 3, 400, 300, 999),
+], ids=lambda v: str(v))
+def test_bilinear_sample_cm_reruns_agree(gen, dtype, b, c, height, width, p):
+    """No atomics: two launches on the same inputs give the same bits."""
+    table = _randn(gen, b, c, height * width, dtype=dtype)
+    grid = _sample_grid(gen, b, p)
+    first = bilinear_sample_cm(table, grid, height, width)
+    second = bilinear_sample_cm(table, grid, height, width)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _small_model(precision):
@@ -352,13 +394,20 @@ def test_fused_mha_wide_heads_match_plain(gen, e, h):
         _close(got, ref)
 
 
-@pytest.mark.parametrize("b,c,height,width,p", [(2, 155, 137, 249, 300), (1, 3, 4, 1, 50)],
-                         ids=lambda v: str(v))
+@pytest.mark.parametrize("b,c,height,width,p", [
+    (2, 155, 137, 249, 300), (1, 3, 4, 1, 50),
+    (2, 155, 29, 57, 7000),  # the fp32 model's map: 4 channels a word
+    (1, 11, 29, 57, 333),  # a partial block of 4 channels; P odd
+    (1, 5, 60, 100, 401),  # 2 channels a block
+    (1, 2, 250, 250, 401),  # a channel past a block's shared memory: unstaged
+], ids=lambda v: str(v))
 def test_bilinear_sample_cm_float32_matches_plain(gen, b, c, height, width, p):
     """A float32 table (the fp32 model's map; 137 x 249 the full-resolution
-    one, past the TPU kernel's 4096-row cap), forward and backward."""
+    one, past the TPU kernel's 4096-row cap, one channel a block; 250 x 250
+    past a block's shared memory), forward and backward; points on the
+    map's corners and edges and outside it."""
     table = _randn(gen, b, c, height * width, dtype=torch.float32)
-    grid = (torch.rand(b, p, 2, generator=gen) * 3.0 - 1.5).to("cuda")
+    grid = _sample_grid(gen, b, p)
     _close(bilinear_sample_cm(table, grid, height, width),
            bilinear_sample_cm_plain(table, grid, height, width), F32_TOL)
     dout = _randn(gen, b, c, p, dtype=torch.float32)
@@ -769,14 +818,14 @@ def test_attention_backward_pads_stay_zero_for_the_dx_kernel(gen):
 
 def test_launch_plans_match_the_library(gen):
     """ops/ln_linear.py dx_plan, ops/flash_attention.py fwd_plan and
-    bwd_plan and ops/interp_matmul.py sample_bwd_plan mirror the plans
-    compiled into the kernels: the same shared memory a block (and the
-    sampling backward's channels, bands and chunks)."""
+    bwd_plan and ops/interp_matmul.py sample_fwd_plan and sample_bwd_plan
+    mirror the plans compiled into the kernels: the same shared memory a
+    block (and the sampling kernels' groups, channels, bands and chunks)."""
     from v1t_tpu_torch import _build
     from v1t_tpu_torch.ops.flash_attention import bwd_plan, fwd_plan
     from v1t_tpu_torch.ops.ln_linear import dx_plan
 
-    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan
+    from v1t_tpu_torch.ops.interp_matmul import sample_bwd_plan, sample_fwd_plan
 
     lib = _build.library()
     for dp in range(32, 257, 32):
@@ -788,6 +837,13 @@ def test_launch_plans_match_the_library(gen):
         plan = sample_bwd_plan(c, height, width)
         assert [lib.v1t_bilinear_sample_cm_bwd_plan(c, height, width, f)
                 for f in range(6)] == list(plan)
+    for c, height, width in ((155, 29, 57), (256, 29, 57), (155, 137, 249), (7, 1, 2),
+                             (11, 29, 57), (5, 60, 100), (5, 100, 100), (3, 400, 300),
+                             (2, 250, 250), (1, 341, 341)):
+        for f32, dtype in ((0, torch.bfloat16), (1, torch.float32)):
+            plan = sample_fwd_plan(c, height, width, dtype)
+            assert [lib.v1t_bilinear_sample_cm_plan(c, height, width, f32, f)
+                    for f in range(4)] == list(plan)
     for k in (1, 32, 155, 160, 161, 320, 488, 620, 640, 2048):
         for ns in (32, 96, 160, 512, 640, 1920, 6144):
             for aligned in (0, 1):

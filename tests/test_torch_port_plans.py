@@ -11,6 +11,7 @@ Tolerance of the layout checks: 1e-5 of the largest value, float32
 products summed in other orders.
 """
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -482,3 +483,127 @@ def test_sample_bwd_kernel_adds_nothing_to_global_dtable():
     body = wrapper[wrapper.index("def bilinear_sample_cm_bwd("):]
     body = body[:body.index("\nbilinear_sample_cm_bwd.launches")]
     assert "torch.zeros" not in body and ".to(table.dtype)" not in body
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (C, height, width, dtype) -> (channels a block, chunks, smem, staged)
+SAMPLE_FWD_CASES = {
+    "flagship bf16 29x57": ((155, 29, 57, BF16), (8, 20, 8 * 1653 * 2, True)),
+    "sweep-widest C 256": ((256, 29, 57, BF16), (8, 32, 8 * 1653 * 2, True)),
+    "fp32 29x57": ((155, 29, 57, F32), (4, 39, 4 * 1653 * 4, True)),
+    "full-res bf16 137x249": ((155, 137, 249, BF16), (1, 155, 34113 * 2, True)),
+    "full-res fp32 137x249": ((155, 137, 249, F32), (1, 155, 34113 * 4, True)),
+    "1x2, one block": ((7, 1, 2, BF16), (8, 1, 8 * 2 * 2, True)),
+    "C 11, a partial block": ((11, 29, 57, BF16), (8, 2, 8 * 1653 * 2, True)),
+    "C 3, one partial block": ((3, 29, 57, BF16), (8, 1, 8 * 1653 * 2, True)),
+    "4 bf16 channels a word": ((5, 60, 100, BF16), (4, 2, 4 * 6000 * 2, True)),
+    "2 channels a word": ((5, 100, 100, BF16), (2, 3, 2 * 10000 * 2, True)),
+    "two blocks a SM": ((5, 200, 250, BF16), (1, 5, 50000 * 2, True)),
+    "a channel fills a block": ((2, 2, 58112, BF16), (1, 2, 232448, True)),
+    "bf16 past a block": ((3, 400, 300, BF16), (1, 3, 0, False)),
+    "fp32 past a block": ((2, 250, 250, F32), (1, 2, 0, False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLE_FWD_CASES))
+def test_sample_fwd_launch_plan(case):
+    """The forward stages G channels of one image in shared memory, one
+    cell's word of G channels: at the flagship's 29 x 57 bf16 map (3,306
+    bytes a channel) 8 channels a 16-byte word (26,448 bytes a block; the
+    registers hold a SM to 4 blocks), 155 channels in 20 blocks an image,
+    C 256 in 32; the fp32 map 4 channels a word, 39 blocks; the
+    full-resolution 137 x 249 map (68,226 bytes a bf16 channel) one channel
+    a block, 3 blocks a SM, and in float32 (136,452) one block a SM; a
+    channel past a block's 232,448 bytes is gathered from global memory, a
+    block a channel."""
+    from v1t_tpu_torch.ops.interp_matmul import (
+        BLOCK_RESERVE, FWD_BLOCKS_PER_SM, SM_SMEM, sample_fwd_plan,
+    )
+
+    shape, want = SAMPLE_FWD_CASES[case]
+    plan = sample_fwd_plan(*shape)
+    assert tuple(plan) == want
+    c, height, width, dtype = shape
+    elem = 4 if dtype == F32 else 2
+    plane = height * width * elem
+    assert plan.staged == (plane <= SM_SMEM - BLOCK_RESERVE == SMEM)
+    assert plan.group * plan.chunks >= c > plan.group * (plan.chunks - 1)
+    if not plan.staged:
+        assert (plan.group, plan.smem) == (1, 0)
+        return
+    assert plan.group * elem <= 16 and plan.smem == plan.group * plane <= SMEM
+    # the widest word that fits the SM's share at as many blocks as a
+    # channel allows, up to FWD_BLOCKS_PER_SM
+    per_sm = min(FWD_BLOCKS_PER_SM, SM_SMEM // (plane + BLOCK_RESERVE))
+    share = SM_SMEM // per_sm - BLOCK_RESERVE
+    assert plan.smem <= share
+    assert plan.group == 16 // elem or 2 * plan.smem > share
+
+
+def test_sample_fwd_plan_fills_the_flagship_sms():
+    """4 blocks share a SM at the flagship's map (the 64-register bound of
+    its launch), and its 64 images' 1280 blocks make 2.4 waves over the
+    card's 132 SMs."""
+    from v1t_tpu_torch.ops.interp_matmul import (
+        BLOCK_RESERVE, FWD_BLOCKS_PER_SM, SM_SMEM, sample_fwd_plan,
+    )
+
+    plan = sample_fwd_plan(155, 29, 57, BF16)
+    per_sm = min(FWD_BLOCKS_PER_SM, SM_SMEM // (plan.smem + BLOCK_RESERVE))
+    assert per_sm == 4 and 65536 // (256 * 64) == 4
+    assert 2.4 < 64 * plan.chunks / (SMS * per_sm) < 2.5
+
+
+def test_sample_fwd_plan_constants_match_the_kernel_source():
+    """The plan's constants and group widths are the kernel source's: 16
+    bytes a cell (8 bf16 or 4 float32 channels), halved to 1; every width
+    the plan can pick has a kernel instantiation behind the launch, and
+    the library's plan has the mirror's fields."""
+    from v1t_tpu_torch.ops import interp_matmul as im
+
+    src = _source("bilinear_sample.cu")
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (consts["SM_SMEM"], consts["BLOCK_RESERVE"], consts["FWD_BLOCKS_PER_SM"]) == (
+        im.SM_SMEM, im.BLOCK_RESERVE, im.FWD_BLOCKS_PER_SM)
+    assert consts["THREADS"] == 256 and consts["STAGE_LOADS"] % 8 == 0
+    assert "__launch_bounds__(THREADS, FWD_BLOCKS_PER_SM)" in src
+    plan = _kernel_body(src, "SampleFwdPlan sample_fwd_plan")
+    assert "int g = f32 ? 4 : 8;" in plan and "g >>= 1;" in plan
+    assert "struct SampleFwdPlan {\n  int group, chunks, smem, staged;\n};" in src
+    assert "const int fields[4] = {p.group, p.chunks, p.smem, p.staged};" in src
+    assert list(im.SampleFwdPlan._fields) == ["group", "chunks", "smem", "staged"]
+    launch = _kernel_body(src, "int launch_fwd")
+    for g in (1, 2, 4, 8):
+        assert f"return launch_fwd_group<T, {g}>(plan" in launch
+    widths = {p.group for dtype in (BF16, F32) for c in (1, 3, 155, 256)
+              for hw in ((1, 2), (29, 57), (100, 100), (137, 249), (200, 250), (2, 58112),
+                         (400, 300))
+              for p in [im.sample_fwd_plan(c, *hw, dtype)]}
+    assert widths == {1, 2, 4, 8}
+    assert _build.SIGNATURES["v1t_bilinear_sample_cm_plan"] == [ctypes.c_int] * 5
+
+
+def test_sample_fwd_kernel_gathers_only_from_shared_memory():
+    """The staged branch reads the block's table once into shared memory
+    (each cell once, G channels a word) and gathers only from there: a
+    shared-memory load a corner that returns G channels; the one global
+    gather of the table is the unstaged branch's (G = 1). No atomics;
+    outputs leave as pairs of adjacent points a thread."""
+    src = _source("bilinear_sample.cu")
+    kernel = _kernel_body(src, "bilinear_sample_cm_kernel")
+    assert ("if (staged) {\n    stage<T, G>(tb, words, cells, nc);\n    __syncthreads();"
+            "\n    walk<T, G, true>(") in kernel
+    assert "} else if constexpr (G == 1) {" in kernel and kernel.count("walk<") == 2
+    stage = _kernel_body(src, "void stage")
+    assert "for (int base = threadIdx.x; base < cells; base += THREADS * U) {" in stage
+    assert stage.count("__ldg(") == 1 and "sts<BYTES>(words + (uint32_t)(cell * BYTES), r);" \
+        in stage
+    walk = _kernel_body(src, "void walk")
+    # the table's one global gather (the unstaged branch); the rest read the grid
+    assert walk.count("__ldg(src") == 1 and walk.count("lds<BYTES>(") == 1
+    assert walk.count("__ldg(") == walk.count("__ldg(g") + 1
+    assert ("if constexpr (STAGED)\n          lds<BYTES>(words + (uint32_t)(cell[k][i] * BYTES), "
+            "r);\n        else\n          r[0] = __ldg(src + cell[k][i]);") in walk
+    assert "atomic" not in kernel + stage + walk
+    assert "store_pair(o, acc[0][j], acc[1][j]);" in walk
+    assert "for (int q = threadIdx.x; 2 * q < P; q += THREADS) {" in walk

@@ -6,10 +6,13 @@ interp_matmul.py``) samples a (B, C, H*W) table at (B, P) grid points with
 ``align_corners=True`` and zero padding through hat-weight matmuls, because
 the TPU has no gather; it sends a float32 table, or one of more than
 ``MAX_TABLE_ROWS`` = 4096 rows (its VMEM), to XLA gathers instead. Hopper
-gathers, so the kernel here is one thread per (b, p) that reads the 4
-corners of every channel, for a bf16 or a float32 table of any size (the
-fp32 model's map, the full-resolution 137 x 249 one): one kernel path with
-no gate.
+gathers, from shared memory: a block stages G of one image's channels
+there, interleaved by channel (one word of up to 16 bytes a cell), and each
+corner load of a point returns G channels (``sample_fwd_plan``: 8 bf16 or 4
+float32 channels at the flagship's 29 x 57 map, one channel at the
+full-resolution 137 x 249 one; a map whose single channel does not fit a
+block is gathered from global memory), for a bf16 or a float32 table of
+any size: one kernel with no gate.
 
 The backward (``bilinear_sample_cm_bwd``, the JAX ``_interp_bwd`` ->
 ``_bwd_kernel``) adds d(table) into shared memory, a block a chunk of one
@@ -77,6 +80,37 @@ def bilinear_sample_cm(table: Tensor, grid: Tensor, height: int, width: int) -> 
 
 
 bilinear_sample_cm.launches = 0
+
+# an SM's shared memory, the runtime's share of it a block, the forward's
+# blocks a SM (64 registers a thread)
+SM_SMEM, BLOCK_RESERVE, FWD_BLOCKS_PER_SM = 233472, 1024, 4
+
+
+class SampleFwdPlan(t.NamedTuple):
+    group: int  # channels a block: one cell's shared-memory word (G)
+    chunks: int  # chunks of the channels: blocks an image
+    smem: int  # dynamic shared memory a block, bytes (0: unstaged)
+    staged: bool  # the table staged in shared memory, or gathered from global memory
+
+
+def sample_fwd_plan(c: int, height: int, width: int, dtype: torch.dtype) -> SampleFwdPlan:
+    """The launch ``csrc/bilinear_sample.cu`` ``sample_fwd_plan`` picks for
+    the forward over C channels of a height x width map in ``dtype`` (one
+    grid of chunks per image): as many blocks a SM as a channel's table
+    allows (at most ``FWD_BLOCKS_PER_SM``), and a block the widest group of
+    channels that fits that share of the SM (16 bytes a cell, halved until
+    it fits). A channel past a block's shared memory is gathered from
+    global memory, a block a channel."""
+    plane = height * width * (4 if dtype == torch.float32 else 2)
+    if plane > SM_SMEM - BLOCK_RESERVE:
+        return SampleFwdPlan(1, c, 0, False)
+    per_sm = min(FWD_BLOCKS_PER_SM, SM_SMEM // (plane + BLOCK_RESERVE))
+    share = SM_SMEM // per_sm - BLOCK_RESERVE
+    g = 4 if dtype == torch.float32 else 8
+    while g > 1 and plane * g > share:
+        g //= 2
+    return SampleFwdPlan(g, -(-c // g), g * plane, True)
+
 
 BWD_MAX_SMEM, BWD_PAIR_SMEM = 232448, 115712  # a block's shared memory: alone, two a SM
 
