@@ -39,7 +39,11 @@ Phases, one line each as they go:
    flagship's, the full-resolution and the float32 map),
    and the bf16 one-pass backward that ``attention_bwd`` and ``flash_bwd``
    share, timed through both at the flagship shape with its kernels
-   profiled;
+   profiled; the unfolded attention sublayer (drop_path's training blocks,
+   the rollout's): QKV without the behavior row and the out-projection
+   without the residual (phase 3, serving and training), the QKV dX
+   without the residual's cotangent, and ``fused_mha(fold_residual=False)``
+   forward and backward through autograd against its plain version;
 4. serving: the flagship model (random weights from a seed) serving 3
    batches of 64 through ``training.inference`` / ``Trainer.predict`` with
    the kernel launch counters set to 0 just before and read just after; the
@@ -77,8 +81,9 @@ Phases, one line each as they go:
    each), held against the plain path at phase 5's tolerances;
    5e. the training loop from disk: ``v1t_tpu_torch.train.main`` with the
    flagship's flags (batch 64, bf16, the bf16 image wire) on a synthetic
-   Sensorium-layout dataset written by the port (two mice of 7000 neurons;
-   128 train, 64 validation, 4 x 5 test trials; 1x144x256 stimuli the
+   Sensorium-layout dataset written by the port (the mice S1 and A of 7000
+   neurons; 128 train, 64 validation, 4 x 5 test and 20 final-test trials;
+   1x144x256 stimuli the
    cropper resizes to 36x64): 3 epochs, then a resume to 4 from the
    checkpoint (its scheduler state loaded), ``evaluation.yaml``, and
    ``restore_best``'s predictions on a validation batch equal to the best
@@ -88,9 +93,26 @@ Phases, one line each as they go:
    the same weights and seeds against the kernel path's first
    (``LOOP_TOL``); train images/s by the host clock, the loader's host ms a
    batch and one epoch's device time under ``torch.profiler``;
+   5f. the flagship's training at drop_path 0.1 (the sweep's largest
+   draw): two cycles through the kernels and the plain path, a second
+   kernel run (the spread of two runs: dq is summed with float atomics),
+   and a run with gradient checkpointing (the forward kernels of rows 1
+   and 3 launch twice a step); losses and first-step gradients against the
+   plain path, checkpointing against its absence (the steps before the
+   first update bit for bit), the share of samples dropped, the peak of
+   allocated device memory with and without checkpointing;
+   5g. patch modes 1-3 at the flagship: one serving batch and one cycle of
+   two train steps each, against the plain path;
+   5h. the entry points after training on phase 5e's run (the mice S1 and
+   A): ``submission.main`` (S1's CSVs: rows and ids as the loaders',
+   predictions against the plain path), ``ensemble.main`` of it and phase
+   5e's plain run in mode 0 and in mode 2 with the head trained one epoch
+   (no backward kernel launches), ``demo.main`` (rollout heatmaps against
+   the plain path), and ``export_checkpoint`` then ``import_checkpoint``
+   (the imported run's predictions bit for bit);
 6. where the time goes: one serving batch and one training step under
-   ``torch.profiler`` (and one step of each composed path, and phase 5d's
-   serving batch);
+   ``torch.profiler`` (and one step of each composed path, phase 5d's
+   serving batch and phase 5f's step with checkpointing);
 7. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -106,6 +128,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -168,9 +191,30 @@ PARENT_WIDE_MS = {192: dict(bwd=5.051, bwd_no_dropout=3.430, serving=0.350),
 LOOP_TOL = dict(loss=1.5e-5, corr=1.2e-4)
 # its synthetic Sensorium-layout dataset: trials a mouse by tier, and the
 # native stimulus size the cropper resizes to 36x64 (1654 tokens)
-LOOP_TRIALS = dict(num_train=128, num_validation=64, num_test_images=4, num_test_repeats=5)
+LOOP_TRIALS = dict(num_train=128, num_validation=64, num_test_images=4, num_test_repeats=5,
+                   num_final_test=20)
+# S1 (Sensorium+) for the submission of phase 5h; S0 has no behavior data,
+# which behavior mode 3 needs (reference data.py:48-68)
+LOOP_MICE = ("S1", "A")
 LOOP_IMAGE = (1, 144, 256)
 T_DROP = 0.2544  # the flagship's transformer dropout (configs.py t_dropout)
+# phase 5h: the demo's rollout heatmaps (min-max normalised to [0, 1])
+# against the plain path's: bf16 roundings of the probabilities and the
+# fused MLP through 4 blocks; ~3x the reading on an H100 (1.1e-3)
+HEATMAP_TOL = 3.5e-3
+# phase 5f: the sweep's largest drop_path draw (configs/sweep_v1t.yaml:41-42);
+# with gradient checkpointing the forward kernels launch again in the
+# backward. Kernel path against the plain path: LOSS_TOL and GRAD_TOL but
+# for the losses after an update, ~3x the largest readings on an H100
+# (4.0e-5, step 2: two bf16 paths' updates part further when a branch is
+# dropped). Checkpointing against none: losses and first-step gradients
+# within CKPT_SPREAD x the spread of two runs without it, or the floors,
+# ~3x the largest readings (losses 6.3e-6 after the update; gradients
+# 4.6e-3, one bf16 step of a dW element flipped by dq's float atomics, the
+# only source of difference)
+DROP_PATH = 0.1
+DROP_PATH_TOL = dict(loss=1.2e-4, grad=GRAD_TOL)
+CKPT_SPREAD, CKPT_LOSS_FLOOR, CKPT_GRAD_FLOOR = 3.0, 2e-5, 1.5e-2
 DEVICE = "cuda"
 MICE, CYCLES = ("A", "B"), 2
 # the full-resolution run (misc/train_fullres_sp.py): 1x144x256 stimuli, no
@@ -191,6 +235,7 @@ TRAIN_LAUNCHES_PER_STEP = {
 # the composed paths, written down before their first run: per block one
 # flash forward and backward; full resolution keeps the fused MLP (fc1, fc2
 # forward, their dX and dW backward); fp32 runs no fused sublayer
+CKPT_LAUNCHES_PER_STEP = dict(TRAIN_LAUNCHES_PER_STEP, ln_linear=32, attention=8)
 FULLRES_LAUNCHES_PER_STEP = {
     "ln_linear": 8, "attention": 0, "bilinear_sample_cm": 1, "ln_linear_bwd": 8,
     "ln_linear_wgrad": 8, "attention_bwd": 0, "bilinear_sample_cm_bwd": 1,
@@ -521,6 +566,23 @@ def check_kernels(gen: torch.Generator) -> tuple:
         ms = cuda_ms(lambda: ln_linear(kw["x"], kw["w"], **args))
         rows[0]["per_use"][use]["train_ms"] = ms
         log(f"  ln_linear[{use}, train] kernel_ms {ms:.4f}")
+    # the unfolded attention sublayer (drop_path in training, the rollout's
+    # blocks): QKV without the behavior row, the out-projection without the
+    # residual, serving and training; checked and timed apart from the
+    # block's four calls
+    unfolded = {
+        "qkv, no row": dict(x=x, w=wqkv, gamma=gamma, beta=beta, heads=(H, E)),
+        "out_proj, no residual": dict(x=o, w=wp_o, bias=bp),
+        "out_proj, no residual, train": dict(x=o, w=wp_o, bias=bp, drop=drop_o),
+    }
+    for use, kw in unfolded.items():
+        args = {k: v for k, v in kw.items() if k not in ("x", "w")}
+        got, ref = ln_linear(kw["x"], kw["w"], **args), ln_linear_plain(kw["x"], kw["w"], **args)
+        err, _ = compare(f"ln_linear[{use}]", got, ref, KERNEL_TOL)
+        ms = cuda_ms(lambda: ln_linear(kw["x"], kw["w"], **args))
+        rows[0]["per_use"][use] = dict(ms=ms, max_abs_err=err)
+        log(f"  ln_linear[{use}] kernel_ms {ms:.4f}")
+    del got, ref
     # the kernel's other head widths (built for padded widths 32..160), small
     ones = torch.ones(48, device=dev)
     for d_head, lsa in ((32, False), (64, True), (100, False), (128, True)):
@@ -696,6 +758,19 @@ def check_backward_kernels(gen: torch.Generator, t: dict) -> list:
             f"({b_by}); bound share {b_ms / ms:.3f}")
         del got
 
+    # the unfolded sublayer's QKV backward: no behavior row, no residual
+    # cotangent (checked and timed apart from the block's four calls)
+    kw = dict(heads=heads, x=x, gamma=t["gamma"], beta=t["beta"])
+    got, ref = (fn(dqkv, t["wqkv"], **kw) for fn in (ln_linear_bwd, ln_linear_bwd_plain))
+    if got[4] is not None or ref[4] is not None:
+        raise AssertionError("ln_linear_bwd[qkv, no residual]: a row gradient without a row")
+    err = max(compare(f"ln_linear_bwd[qkv, no residual] {n_}", g_, r_, KERNEL_TOL)
+              for n_, g_, r_ in zip(("dz", "ln_out", "dgamma", "dbeta"), got, ref))
+    ms = cuda_ms(lambda: ln_linear_bwd(dqkv, t["wqkv"], **kw))
+    bwd_row["per_use"]["qkv, no residual"] = dict(ms=ms, max_abs_err=err[0])
+    log(f"  ln_linear_bwd[qkv, no residual] kernel_ms {ms:.4f}")
+    del got, ref
+
     wgrad_uses = {
         "out_proj": dict(dy=dout, a=o, drop=drop_o, bias=True),
         "qkv": dict(dy=dqkv, a=ln_outs["qkv"], heads=heads),
@@ -846,6 +921,39 @@ def one_pass_at_flagship(gen: torch.Generator) -> dict:
     del qkv, q, k, v, do, calls
     torch.cuda.empty_cache()
     return times
+
+
+def check_unfolded_sublayer(gen: torch.Generator) -> None:
+    """The attention sublayer without the folded residual (``fused_mha``
+    with ``fold_residual=False``, as drop_path's training blocks run it),
+    forward and backward through autograd, dropout on, against its plain
+    version on the same inputs, masks and cotangent."""
+    from v1t_tpu_torch.ops.dropout import Dropout
+    from v1t_tpu_torch.ops.fused_mha import fused_mha
+
+    log("phase 3b: the attention sublayer without the folded residual, forward and backward")
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen) * scale).to(DEVICE, dtype)
+
+    leaves = dict(x=randn(B, N, E), gamma=1.0 + randn(E, scale=0.1, dtype=f32),
+                  beta=randn(E, scale=0.1, dtype=f32), wqkv=randn(3 * H * E, E, scale=0.08),
+                  wp=randn(E, H * E, scale=0.04), bp=randn(E, scale=0.1, dtype=f32),
+                  scale=torch.full((H,), E ** -0.5, device=DEVICE))
+    dout = randn(B, N, E)
+    drops = dict(drop_p=Dropout(T_DROP, 20261018, 0), drop_o=Dropout(T_DROP, 20261018, 1))
+    results = {}
+    for path in ("kernel", "plain"):
+        inputs = {k: v.detach().clone().requires_grad_() for k, v in leaves.items()}
+        with torch.enable_grad():
+            out = fused_mha(*inputs.values(), num_heads=H, fold_residual=False,
+                            plain=path == "plain", **drops)
+            out.backward(dout)
+        results[path] = dict(out=out.detach(), **{f"d{k}": v.grad for k, v in inputs.items()})
+    for name, ref in results["plain"].items():
+        compare(f"fused_mha[no residual] {name}", results["kernel"][name], ref, KERNEL_TOL)
+    del results
 
 
 def check_flash_kernels(gen: torch.Generator) -> list:
@@ -1245,12 +1353,14 @@ def serve(label: str, config, image_shape, n_batches: int, expected: dict, tol: 
 
 
 def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dict,
-          card_text: str, warm: bool = True) -> tuple:
+          card_text: str, warm: bool = True, paths=("kernel", "plain")) -> tuple:
     """Trainer.train_step, dropout and readout noise on: ``cycles`` cycles
     over two mice (gradients accumulated across the cycle, one AdamW update
     at its end), through the kernels with the counters set to 0 just before
     and read just after, then the same weights, seeds and batches through the
-    plain path: per-step losses and every parameter's first-step gradient."""
+    plain path: per-step losses and every parameter's first-step gradient.
+    ``paths=("kernel",)`` runs the kernel path alone (the caller holds it);
+    each run records its peak of allocated device memory."""
     from v1t_tpu_torch.data.cards import synthetic_data_card
     from v1t_tpu_torch.models import build_model
     from v1t_tpu_torch.training import Trainer
@@ -1263,7 +1373,8 @@ def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dic
     batches = [[host_batch(rng, b, image_shape, NEURONS) for _ in MICE] for _ in range(cycles)]
     steps = cycles * len(MICE)
     runs = {}
-    for path, cfg in (("kernel", config), ("plain", plain_config(config))):
+    for path in paths:
+        cfg = config if path == "kernel" else plain_config(config)
         model = build_model(cfg, card, seed=None, device=DEVICE)
         model.load_state_dict(state)
         trainer = Trainer(cfg, model, card, device=DEVICE)
@@ -1272,6 +1383,7 @@ def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dic
             # gradients); both paths take it, so their seeds stay in step
             trainer.train_step(MICE[0], warm_batch, None, update=False)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         zero_counts()
         losses, first_grads = [], None
         start = time.perf_counter()
@@ -1290,45 +1402,58 @@ def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dic
         losses = [float(v) for v in losses]
         log(f"  {path} path: {steps} train steps of {b} images in {seconds:.4f} s = "
             f"{steps * b / seconds:.1f} train images/s ({card_text}); losses "
-            + " ".join(f"{v:.4f}" for v in losses))
+            + " ".join(f"{v:.6f}" for v in losses))
         log(f"  {path} path launches over {steps} steps: {launches}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{label}, {path} path: non-finite loss")
         runs[path] = dict(losses=losses, grads=first_grads, launches=launches,
-                          images_per_s=steps * b / seconds, trainer=trainer)
+                          images_per_s=steps * b / seconds, trainer=trainer,
+                          peak_bytes=torch.cuda.max_memory_allocated())
         del model
     expected = {name: n * steps for name, n in per_step.items()}
     if runs["kernel"]["launches"] != expected:
         raise AssertionError(f"{label}: launch counts {runs['kernel']['launches']} != {expected}")
-    if any(runs["plain"]["launches"].values()):
-        raise AssertionError(f"{label}: the plain path launched kernels: "
-                             f"{runs['plain']['launches']}")
-    for step, (got, ref) in enumerate(zip(runs["kernel"]["losses"], runs["plain"]["losses"])):
-        rel = abs(got - ref) / abs(ref)
-        log(f"  step {step} loss: kernel {got:.6f} plain {ref:.6f} |d|/|ref| {rel:.3e} "
-            f"(tol {tol['loss']:g}) {'ok' if rel <= tol['loss'] else 'FAIL'}")
-        if rel > tol["loss"]:
-            raise AssertionError(f"{label}, step {step}: loss differs from the plain path "
-                                 f"by {rel:.3e}")
-    grads, refs = runs["kernel"]["grads"], runs["plain"]["grads"]
+    if "plain" in runs:
+        if any(runs["plain"]["launches"].values()):
+            raise AssertionError(f"{label}: the plain path launched kernels: "
+                                 f"{runs['plain']['launches']}")
+        hold(label, runs["kernel"], runs["plain"], tol)
+    trainer = runs["kernel"]["trainer"]
+    one = batches[0][0]
+    return runs["kernel"]["launches"], lambda: trainer.train_step(
+        MICE[0], one, None, update=True), runs
+
+
+def grad_rels(grads: dict, refs: dict, label: str) -> dict:
+    """max|d| / max|ref| of every parameter's gradient."""
     if grads.keys() != refs.keys():
-        raise AssertionError(f"{label}: the two paths gave gradients for different parameters")
+        raise AssertionError(f"{label}: gradients for different parameters")
     rels = {}
     for name, ref in refs.items():
         got = grads[name].float()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{label}, {name}: non-finite gradient")
         rels[name] = (got - ref.float()).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    return rels
+
+
+def hold(label: str, kernel: dict, plain: dict, tol: dict) -> None:
+    """A kernel path's per-step losses and first-step gradients against the
+    plain path's on the same weights, seeds and batches."""
+    for step, (got, ref) in enumerate(zip(kernel["losses"], plain["losses"])):
+        rel = abs(got - ref) / abs(ref)
+        log(f"  step {step} loss: kernel {got:.6f} plain {ref:.6f} |d|/|ref| {rel:.3e} "
+            f"(tol {tol['loss']:g}) {'ok' if rel <= tol['loss'] else 'FAIL'}")
+        if rel > tol["loss"]:
+            raise AssertionError(f"{label}, step {step}: loss differs from the plain path "
+                                 f"by {rel:.3e}")
+    rels = grad_rels(kernel["grads"], plain["grads"], label)
     worst = sorted(rels.items(), key=lambda kv: kv[1], reverse=True)
     log(f"  first step's gradients of {len(rels)} parameters, max|d|/max|ref|, largest: "
         + ", ".join(f"{n} {r:.3e}" for n, r in worst[:4]) + f" (tol {tol['grad']:g})")
     if worst[0][1] > tol["grad"]:
         raise AssertionError(f"{label}: gradient {worst[0][0]} differs from the plain path: "
                              f"{worst[0][1]:.3e}")
-    trainer = runs["kernel"]["trainer"]
-    one = batches[0][0]
-    return runs["kernel"]["launches"], lambda: trainer.train_step(
-        MICE[0], one, None, update=True), runs
 
 
 def serving_path(card_text: str) -> tuple:
@@ -1366,6 +1491,97 @@ def composed_path(label: str, config, image_shape, serve_batches: int, cycles: i
                 serve_one=serve_one, images_per_s=images_per_s,
                 train_images_per_s=runs["kernel"]["images_per_s"],
                 plain_train_images_per_s=runs["plain"]["images_per_s"])
+
+
+def drop_path_and_checkpointing(card_text: str) -> dict:
+    """Phase 5f: the flagship's training at the sweep's largest drop_path,
+    gradient checkpointing off (twice: the spread of two runs) and on."""
+    from v1t_tpu_torch.models.cores import vit
+
+    log(f"phase 5f: training at drop_path {DROP_PATH}, gradient checkpointing off and on")
+    config = flagship_config(drop_path=DROP_PATH)
+    drawn, draw = [], vit.drop_path_mask
+
+    def recording(*args):
+        mask = draw(*args)
+        drawn.append(mask)
+        return mask
+
+    vit.drop_path_mask = recording
+    tol = DROP_PATH_TOL
+    try:
+        launches, _, runs = train("drop_path", config, (1, 36, 64), CYCLES,
+                                  TRAIN_LAUNCHES_PER_STEP, tol, card_text)
+        torch.cuda.empty_cache()
+        again = train("drop_path, again", config, (1, 36, 64), CYCLES, TRAIN_LAUNCHES_PER_STEP,
+                      tol, card_text, paths=("kernel",))[2]["kernel"]
+        torch.cuda.empty_cache()
+        ckpt_launches, ckpt_one, ckpt = train("drop_path + checkpointing",
+                                       config.replace(grad_checkpointing=1), (1, 36, 64), CYCLES,
+                                       CKPT_LAUNCHES_PER_STEP, tol, card_text, paths=("kernel",))
+        ckpt = ckpt["kernel"]
+    finally:
+        vit.drop_path_mask = draw
+    first, plain = runs["kernel"], runs["plain"]
+    hold("drop_path + checkpointing", ckpt, plain, tol)
+    # checkpointing against its absence: the steps before the first update
+    # bit for bit (the same forward kernels on the same inputs); later
+    # steps and the first step's gradients within the spread of two runs
+    # without it (dq is summed with float atomics)
+    spread = max(abs(a - b) / abs(b) for a, b in zip(again["losses"], first["losses"]))
+    loss_rels = [abs(a - b) / abs(b) for a, b in zip(ckpt["losses"], first["losses"])]
+    grad_spread = max(grad_rels(again["grads"], first["grads"], "drop_path, again").values())
+    ckpt_rels = grad_rels(ckpt["grads"], first["grads"], "checkpointing")
+    worst = max(ckpt_rels.items(), key=lambda kv: kv[1])
+    log(f"  checkpointing vs none: losses |d|/|ref| {['%.3e' % r for r in loss_rels]} (two runs "
+        f"without: {spread:.3e}); first step's gradients max|d|/max|ref| {worst[1]:.3e} "
+        f"({worst[0]}; two runs without: {grad_spread:.3e})")
+    if ckpt["losses"][:len(MICE)] != first["losses"][:len(MICE)]:
+        raise AssertionError("checkpointing: the losses before the first update differ")
+    if max(loss_rels) > max(CKPT_SPREAD * spread, CKPT_LOSS_FLOOR):
+        raise AssertionError(f"checkpointing: losses {loss_rels} beyond the spread {spread:.3e}")
+    if worst[1] > max(CKPT_SPREAD * grad_spread, CKPT_GRAD_FLOOR):
+        raise AssertionError(f"checkpointing: gradient {worst[0]} {worst[1]:.3e} beyond the "
+                             f"spread {grad_spread:.3e}")
+    masks = torch.cat(drawn).float()
+    share = 1.0 - masks.mean().item()
+    bound = 5 * (DROP_PATH * (1 - DROP_PATH) / masks.numel()) ** 0.5
+    log(f"  drop-path masks: {masks.numel()} samples drawn, share dropped {share:.4f} "
+        f"(rate {DROP_PATH}, 5 sigma {bound:.4f})")
+    if abs(share - DROP_PATH) > bound:
+        raise AssertionError(f"drop_path: share dropped {share:.4f} is not {DROP_PATH}")
+    peaks = {k: r["peak_bytes"] / 2 ** 30 for k, r in (("without", first), ("with", ckpt))}
+    log(f"  peak allocated device memory over the steps: without checkpointing "
+        f"{peaks['without']:.3f} GiB, with {peaks['with']:.3f} GiB; train images/s without "
+        f"{first['images_per_s']:.1f} / {again['images_per_s']:.1f}, with "
+        f"{ckpt['images_per_s']:.1f} ({card_text})")
+    return dict(launches=launches, ckpt_launches=ckpt_launches, peaks=peaks,
+                images_per_s=first["images_per_s"], ckpt_images_per_s=ckpt["images_per_s"],
+                train_one=ckpt_one)
+
+
+def patch_modes(card_text: str) -> dict:
+    """Phase 5g: patch modes 1-3 at the flagship, one serving batch and one
+    cycle of two train steps each, against the plain path."""
+    log("phase 5g: patch modes 1-3 (conv; shifted patches + LayerNorm; LayerNorm twice)")
+    blocks = flagship_config().num_blocks
+    per_batch = dict.fromkeys(kernel_counters(), 0)
+    per_batch.update(ln_linear=4 * blocks, attention=blocks, bilinear_sample_cm=1)
+    out = {}
+    for mode in (1, 2, 3):
+        config = flagship_config(patch_mode=mode)
+        serving, _, images_per_s = serve(f"patch mode {mode} serving", config, (1, 36, 64), 1,
+                                         per_batch, dict(model=MODEL_TOL, core=CORE_TOL),
+                                         card_text)
+        torch.cuda.empty_cache()
+        launches, _, runs = train(f"patch mode {mode} training", config, (1, 36, 64), 1,
+                                  TRAIN_LAUNCHES_PER_STEP, dict(loss=LOSS_TOL, grad=GRAD_TOL),
+                                  card_text)
+        torch.cuda.empty_cache()
+        log(f"  patch mode {mode}: serving {images_per_s:.1f} images/s, training "
+            f"{runs['kernel']['images_per_s']:.1f} train images/s ({card_text})")
+        out[mode] = dict(serving=serving, launches=launches)
+    return out
 
 
 class LoopHooks:
@@ -1426,7 +1642,10 @@ class LoopHooks:
             self.best_pred = self._predict(trainer)
 
     def run_end(self, trainer, scheduler, eval_result):
-        batches = sum(len(loader) for loader in self.loaders["test"].values())
+        # evaluate skips the test tier of S0 and S1 (hashed trials in the
+        # challenge's data)
+        batches = sum(len(loader) for mouse, loader in self.loaders["test"].items()
+                      if mouse not in ("S0", "S1"))
         launches = self._delta()
         self.launches["evaluate"] = launches
         expected = self._expect(0, batches)
@@ -1443,15 +1662,15 @@ class LoopHooks:
                                  f"{np.abs(got - self.best_pred).max():.3e}")
 
 
-def training_loop(card_text: str) -> dict:
+def training_loop(card_text: str, tmp: str) -> dict:
     """Phase 5e: ``python -m v1t_tpu_torch.train``'s ``main`` at the flagship
-    from a synthetic Sensorium-layout dataset on disk (two mice of 7000
-    neurons, 1x144x256 stimuli resized to 36x64): 3 epochs, a resume to 4,
-    checkpoint, ``restore_best`` and ``evaluation.yaml``; then one epoch of
-    the plain path from the same weights and seeds against the kernel
-    path's first."""
+    from a synthetic Sensorium-layout dataset on disk under ``tmp`` (the
+    mice S1 and A of 7000 neurons, 1x144x256 stimuli resized to 36x64): 3
+    epochs, a resume to 4, checkpoint, ``restore_best`` and
+    ``evaluation.yaml``; then one epoch of the plain path from the same
+    weights and seeds against the kernel path's first. The runs stay under
+    ``tmp`` for phase 5h."""
     import os
-    import tempfile
 
     from v1t_tpu_torch import train as train_cli
     from v1t_tpu_torch import training
@@ -1476,104 +1695,257 @@ def training_loop(card_text: str) -> dict:
         timed.append((path, epoch, images, time.perf_counter() - start))
         return result
 
-    with tempfile.TemporaryDirectory(prefix="v1t_loop_") as tmp:
+    start = time.perf_counter()
+    root = synthetic.generate_dataset(os.path.join(tmp, "data"), mouse_ids=LOOP_MICE,
+                                      num_neurons=NEURONS, image_shape=LOOP_IMAGE,
+                                      **LOOP_TRIALS)
+    log(f"  synthetic dataset: mice {LOOP_MICE} x {NEURONS} neurons, {LOOP_TRIALS}, "
+        f"images {LOOP_IMAGE}, written in {time.perf_counter() - start:.1f} s")
+    if fastbatch.lib() is None:
+        raise AssertionError(f"the native host gather did not build: {fastbatch.lib_error()}")
+
+    def argv(out: str, epochs: int, *extra) -> list:
+        return ["--dataset", root, "--output_dir", out, "--behavior_mode", "3",
+                "--shift_mode", "2", "--core", "vit", "--readout", "gaussian2d",
+                "--emb_dim", str(E), "--num_blocks", "4", "--num_heads", str(H),
+                "--mlp_dim", str(F_HID), "--patch_size", "8", "--patch_stride", "1",
+                "--batch_size", str(B), "--precision", "bf16", "--image_wire_dtype", "auto",
+                "--mouse_ids", *LOOP_MICE, "--data_parallel", "1", "--epochs", str(epochs),
+                "--verbose", "1", *extra]
+
+    training.train_epoch = timed_train_epoch
+    try:
+        out = os.path.join(tmp, "run")
+        first = LoopHooks(serve_per_batch)
+        result = train_cli.main(train_cli.parse_config(argv(out, 3)), hooks=first)
+        for name in ("args.yaml", os.path.join("ckpt", "model_state.pt"), "evaluation.yaml",
+                     "model.txt", "model_core.txt", "model_readout.txt", "output.log"):
+            if not os.path.isfile(os.path.join(out, name)):
+                raise AssertionError(f"the run wrote no {name}")
+        ckpt = load_checkpoint_file(os.path.join(out, "ckpt", "model_state.pt"))
+        log(f"  run of 3 epochs: epochs {[e['epoch'] for e in first.epochs]}, best epoch "
+            f"{first.best}, test {result}; checkpoint epoch {ckpt['epoch']}")
+        second = LoopHooks(serve_per_batch)
+        resumed = train_cli.main(train_cli.parse_config(argv(out, 4)), hooks=second)
+        ran = [e["epoch"] for e in second.epochs]
+        if (second.start != ckpt["epoch"] or second.scheduler_state != ckpt["scheduler"]
+                or ran != list(range(ckpt["epoch"] + 1, 5))):
+            raise AssertionError(f"resume: started after epoch {second.start}, ran {ran}, "
+                                 f"scheduler {second.scheduler_state} (checkpoint epoch "
+                                 f"{ckpt['epoch']}, scheduler {ckpt['scheduler']})")
+        log(f"  resumed with --epochs 4: restored epoch {second.start} with the scheduler's "
+            f"state {second.scheduler_state}, ran epochs {ran}, best {second.best}, test "
+            f"{resumed}; restore_best's predictions equal the best epoch's bit for bit")
+        plain = LoopHooks(serve_per_batch)
+        plain_dir = os.path.join(tmp, "plain")
+        train_cli.main(train_cli.parse_config(argv(plain_dir, 1,
+                                                   "--attention_impl", "xla",
+                                                   "--readout_impl", "xla")), hooks=plain)
+    finally:
+        training.train_epoch = train_epoch
+    got, ref = first.epochs[0], plain.epochs[0]
+    for key in ("train_loss", "val_loss"):
+        rel = abs(got[key] - ref[key]) / abs(ref[key])
+        log(f"  epoch 1 {key}: kernel {got[key]:.6f} plain {ref[key]:.6f} |d|/|ref| "
+            f"{rel:.3e} (tol {LOOP_TOL['loss']:g}) {'ok' if rel <= LOOP_TOL['loss'] else 'FAIL'}")
+        if rel > LOOP_TOL["loss"]:
+            raise AssertionError(f"phase 5e: epoch 1 {key} differs from the plain path")
+    err = abs(got["corr"] - ref["corr"])
+    log(f"  epoch 1 validation correlation: kernel {got['corr']:.6f} plain {ref['corr']:.6f} "
+        f"|d| {err:.3e} (tol {LOOP_TOL['corr']:g}) {'ok' if err <= LOOP_TOL['corr'] else 'FAIL'}")
+    if err > LOOP_TOL["corr"]:
+        raise AssertionError("phase 5e: epoch 1 validation correlation differs from the plain "
+                             "path")
+
+    # every batch of the runs came through the native host gather
+    for hooks, epochs in ((first, 3), (second, len(second.epochs))):
+        for tier, loaders in hooks.loaders.items():
+            for mouse, loader in loaders.items():
+                want = (len(loader) * (epochs if tier != "test" else 1)
+                        + (1 if tier == "validation" and mouse == "A" else 0))
+                if tier == "test" and mouse in ("S0", "S1"):
+                    want = 0  # evaluate skips their test tier
+                if loader.dataset.native_batches != want:
+                    raise AssertionError(f"{tier} {mouse}: {loader.dataset.native_batches} of "
+                                         f"{want} batches took the native gather")
+    log(f"  host gather: the native library ({fastbatch.lib()._name}) served every batch")
+
+    # the loader's host cost a batch of 64, native and numpy paths
+    dataset = first.loaders["train"]["A"].dataset
+    positions = np.random.default_rng(0).permutation(len(dataset))[:B]
+    host_ms = {}
+    for label, fast in (("native", "1"), ("numpy", "0")):
+        os.environ["V1T_HOST_FASTPATH"] = fast
+        dataset.get_batch(positions, image_dtype=datasets.BF16)
         start = time.perf_counter()
-        root = synthetic.generate_dataset(os.path.join(tmp, "data"), mouse_ids=MICE,
-                                          num_neurons=NEURONS, image_shape=LOOP_IMAGE,
-                                          **LOOP_TRIALS)
-        log(f"  synthetic dataset: {len(MICE)} mice x {NEURONS} neurons, {LOOP_TRIALS}, "
-            f"images {LOOP_IMAGE}, written in {time.perf_counter() - start:.1f} s")
-        if fastbatch.lib() is None:
-            raise AssertionError(f"the native host gather did not build: {fastbatch.lib_error()}")
-
-        def argv(out: str, epochs: int, *extra) -> list:
-            return ["--dataset", root, "--output_dir", out, "--behavior_mode", "3",
-                    "--shift_mode", "2", "--core", "vit", "--readout", "gaussian2d",
-                    "--emb_dim", str(E), "--num_blocks", "4", "--num_heads", str(H),
-                    "--mlp_dim", str(F_HID), "--patch_size", "8", "--patch_stride", "1",
-                    "--batch_size", str(B), "--precision", "bf16", "--image_wire_dtype", "auto",
-                    "--mouse_ids", *MICE, "--data_parallel", "1", "--epochs", str(epochs),
-                    "--verbose", "1", *extra]
-
-        training.train_epoch = timed_train_epoch
-        try:
-            out = os.path.join(tmp, "run")
-            first = LoopHooks(serve_per_batch)
-            result = train_cli.main(train_cli.parse_config(argv(out, 3)), hooks=first)
-            for name in ("args.yaml", os.path.join("ckpt", "model_state.pt"), "evaluation.yaml",
-                         "model.txt", "model_core.txt", "model_readout.txt", "output.log"):
-                if not os.path.isfile(os.path.join(out, name)):
-                    raise AssertionError(f"the run wrote no {name}")
-            ckpt = load_checkpoint_file(os.path.join(out, "ckpt", "model_state.pt"))
-            log(f"  run of 3 epochs: epochs {[e['epoch'] for e in first.epochs]}, best epoch "
-                f"{first.best}, test {result}; checkpoint epoch {ckpt['epoch']}")
-            second = LoopHooks(serve_per_batch)
-            resumed = train_cli.main(train_cli.parse_config(argv(out, 4)), hooks=second)
-            ran = [e["epoch"] for e in second.epochs]
-            if (second.start != ckpt["epoch"] or second.scheduler_state != ckpt["scheduler"]
-                    or ran != list(range(ckpt["epoch"] + 1, 5))):
-                raise AssertionError(f"resume: started after epoch {second.start}, ran {ran}, "
-                                     f"scheduler {second.scheduler_state} (checkpoint epoch "
-                                     f"{ckpt['epoch']}, scheduler {ckpt['scheduler']})")
-            log(f"  resumed with --epochs 4: restored epoch {second.start} with the scheduler's "
-                f"state {second.scheduler_state}, ran epochs {ran}, best {second.best}, test "
-                f"{resumed}; restore_best's predictions equal the best epoch's bit for bit")
-            plain = LoopHooks(serve_per_batch)
-            train_cli.main(train_cli.parse_config(argv(os.path.join(tmp, "plain"), 1,
-                                                       "--attention_impl", "xla",
-                                                       "--readout_impl", "xla")), hooks=plain)
-        finally:
-            training.train_epoch = train_epoch
-        got, ref = first.epochs[0], plain.epochs[0]
-        for key in ("train_loss", "val_loss"):
-            rel = abs(got[key] - ref[key]) / abs(ref[key])
-            log(f"  epoch 1 {key}: kernel {got[key]:.6f} plain {ref[key]:.6f} |d|/|ref| "
-                f"{rel:.3e} (tol {LOOP_TOL['loss']:g}) {'ok' if rel <= LOOP_TOL['loss'] else 'FAIL'}")
-            if rel > LOOP_TOL["loss"]:
-                raise AssertionError(f"phase 5e: epoch 1 {key} differs from the plain path")
-        err = abs(got["corr"] - ref["corr"])
-        log(f"  epoch 1 validation correlation: kernel {got['corr']:.6f} plain {ref['corr']:.6f} "
-            f"|d| {err:.3e} (tol {LOOP_TOL['corr']:g}) {'ok' if err <= LOOP_TOL['corr'] else 'FAIL'}")
-        if err > LOOP_TOL["corr"]:
-            raise AssertionError("phase 5e: epoch 1 validation correlation differs from the plain "
-                                 "path")
-
-        # every batch of the runs came through the native host gather
-        for hooks, epochs in ((first, 3), (second, len(second.epochs))):
-            for tier, loaders in hooks.loaders.items():
-                for mouse, loader in loaders.items():
-                    want = (len(loader) * (epochs if tier != "test" else 1)
-                            + (1 if tier == "validation" and mouse == "A" else 0))
-                    if loader.dataset.native_batches != want:
-                        raise AssertionError(f"{tier} {mouse}: {loader.dataset.native_batches} of "
-                                             f"{want} batches took the native gather")
-        log(f"  host gather: the native library ({fastbatch.lib()._name}) served every batch")
-
-        # the loader's host cost a batch of 64, native and numpy paths
-        dataset = first.loaders["train"]["A"].dataset
-        positions = np.random.default_rng(0).permutation(len(dataset))[:B]
-        host_ms = {}
-        for label, fast in (("native", "1"), ("numpy", "0")):
-            os.environ["V1T_HOST_FASTPATH"] = fast
+        for _ in range(10):
             dataset.get_batch(positions, image_dtype=datasets.BF16)
-            start = time.perf_counter()
-            for _ in range(10):
-                dataset.get_batch(positions, image_dtype=datasets.BF16)
-            host_ms[label] = (time.perf_counter() - start) / 10 * 1e3
-        os.environ.pop("V1T_HOST_FASTPATH")
-        log(f"  loader host ms a batch of {B} ({'x'.join(map(str, LOOP_IMAGE))}, bf16 wire): native "
-            f"{host_ms['native']:.3f}, numpy {host_ms['numpy']:.3f} ({card_text})")
-        for path, epoch, images, seconds in timed:
-            log(f"  {path} path train_epoch {epoch}: {images} images in {seconds:.3f} s = "
-                f"{images / seconds:.1f} train images/s by the host clock ({card_text}; host-clock "
-                f"numbers spread 5-20% within one call)")
-        trainer = second.trainer
-        busy = where_the_time_goes(
-            f"one training epoch ({sum(len(x) for x in second.loaders['train'].values())} steps "
-            f"of {B})", lambda: training.train_epoch(trainer, second.loaders["train"], epoch=99),
-            phase="5e")
+        host_ms[label] = (time.perf_counter() - start) / 10 * 1e3
+    os.environ.pop("V1T_HOST_FASTPATH")
+    log(f"  loader host ms a batch of {B} ({'x'.join(map(str, LOOP_IMAGE))}, bf16 wire): native "
+        f"{host_ms['native']:.3f}, numpy {host_ms['numpy']:.3f} ({card_text})")
+    for path, epoch, images, seconds in timed:
+        log(f"  {path} path train_epoch {epoch}: {images} images in {seconds:.3f} s = "
+            f"{images / seconds:.1f} train images/s by the host clock ({card_text}; host-clock "
+            f"numbers spread 5-20% within one call)")
+    trainer = second.trainer
+    busy = where_the_time_goes(
+        f"one training epoch ({sum(len(x) for x in second.loaders['train'].values())} steps "
+        f"of {B})", lambda: training.train_epoch(trainer, second.loaders["train"], epoch=99),
+        phase="5e")
     return dict(launches=first.launches, epoch_busy_ms=None if busy is None else busy[0],
-                host_ms=host_ms, timed=timed)
+                host_ms=host_ms, timed=timed, root=root, run=out, plain_run=plain_dir,
+                argv=argv)
+
+
+def entry_points(card_text: str, loop: dict, tmp: str) -> dict:
+    """Phase 5h: the entry points after training on phase 5e's run (mice S1
+    and A): ``submission``, ``ensemble`` of it and the plain run (mode 0,
+    and mode 2 with the head trained an epoch), ``demo``, and export then
+    import; each with the counters set to 0 just before and read just
+    after, held against the plain path where it computes."""
+    import csv
+    import os
+
+    from v1t_tpu_torch import demo, ensemble, export_checkpoint, import_checkpoint, submission
+    from v1t_tpu_torch.analysis import extract_attention_maps
+    from v1t_tpu_torch.configs import load_args
+    from v1t_tpu_torch.data import get_submission_ds, get_training_ds
+    from v1t_tpu_torch.data.loaders import build_data_card
+    from v1t_tpu_torch.models import build_model
+    from v1t_tpu_torch.training import Trainer
+    from v1t_tpu_torch.utils.scheduler import Scheduler, load_checkpoint_file
+
+    log("phase 5h: the entry points after training (submission, ensemble, demo, export and "
+        "import) on phase 5e's run")
+    csv.field_size_limit(sys.maxsize)  # a prediction field holds 7000 numbers
+    run, root = loop["run"], loop["root"]
+    blocks = flagship_config().num_blocks
+    per_batch = dict.fromkeys(kernel_counters(), 0)
+    per_batch.update(ln_linear=4 * blocks, attention=blocks, bilinear_sample_cm=1)
+    plain = dict(attention_impl="xla", readout_impl="xla")
+    out = {}
+
+    def trainer_of(output_dir, card, **overrides):
+        config = load_args(output_dir, overrides=dict(verbose=0, **overrides))
+        model = build_model(config, card, seed=None, device=DEVICE)
+        Scheduler(config, save_optimizer=False).restore(model, force=True)
+        return Trainer(config, model, card, device=DEVICE)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start, read_counts()
+
+    # submission: evaluate on the test tier (but S1's), the CSVs of S1
+    csv_dir, seconds, launches = timed(lambda: submission.main(submission.parse_args(
+        ["--output_dir", run, "--batch_size", str(B), "--verbose", "0"])))
+    config = load_args(run, overrides=dict(batch_size=B))
+    test_ds, final_ds = get_submission_ds(config, config.dataset, B)
+    loaders = {"live_test.csv": test_ds["S1"], "final_test.csv": final_ds["S1"]}
+    batches = sum(len(x) for m, x in test_ds.items() if m != "S1") + sum(map(len, loaders.values()))
+    images = sum(len(x.dataset) for m, x in test_ds.items() if m != "S1") + sum(
+        len(x.dataset) for x in loaders.values())
+    if launches != {k: v * batches for k, v in per_batch.items()}:
+        raise AssertionError(f"submission: launches {launches} ({batches} batches)")
+    plain_trainer = trainer_of(run, build_data_card(config, test_ds), batch_size=B, **plain)
+    for name, loader in loaders.items():
+        with open(os.path.join(csv_dir, "sensorium+", name), newline="") as f:
+            rows = list(csv.reader(f))
+        ref = submission.submission_inference(plain_trainer, loader, "S1")
+        if rows[0] != list(submission.COLUMNS) or len(rows) - 1 != len(loader.dataset):
+            raise AssertionError(f"submission {name}: header {rows[0]}, {len(rows) - 1} rows")
+        for key, col in (("trial_ids", 0), ("image_ids", 1), ("neuron_ids", 3)):
+            if [r[col] for r in rows[1:]] != [str(v) for v in ref[key]]:
+                raise AssertionError(f"submission {name}: {key} differ from the loader's")
+        preds = np.array([json.loads(r[2]) for r in rows[1:]])
+        want = np.array(ref["predictions"])
+        rel = np.abs(preds - want).max() / np.abs(want).max()
+        log(f"  submission {name}: {len(rows) - 1} rows, ids as the loader's; predictions vs "
+            f"plain path max|d|/max|ref| {rel:.3e} (tol {MODEL_TOL:g})")
+        if not np.isfinite(preds).all() or rel > MODEL_TOL:
+            raise AssertionError(f"submission {name}: predictions differ from the plain path")
+    log(f"  submission.main: {images} images in {seconds:.3f} s = {images / seconds:.1f} images/s "
+        f"(evaluation and CSVs, host clock; {card_text}); launches {launches}")
+    out["submission"] = launches
+    del plain_trainer
+
+    # ensemble of the run and the plain run: the sub-models serve under
+    # no_grad behind the head; no backward kernel runs. The ensemble sets
+    # its sub-models' precision and attention_impl, as the JAX package's;
+    # each keeps its own readout_impl (the plain run's: the plain sampling)
+    subs = (run, loop["plain_run"])
+    readouts = sum(load_args(d).readout_impl != "xla" for d in subs)
+    for mode, extra in ((0, []), (2, ["--train", "--epochs", "1"])):
+        ens_dir = os.path.join(tmp, f"ensemble{mode}")
+        cfg, saved = ensemble.parse_args(
+            ["--dataset", root, "--output_dir", ens_dir, "--behavior_mode", "3",
+             "--mouse_ids", *LOOP_MICE, "--saved_models", *(f"{n}={d}" for n, d in zip("ab", subs)),
+             "--ensemble_mode", str(mode), "--batch_size", str(B), "--verbose", "0", *extra])
+        _, seconds, launches = timed(lambda: ensemble.main(cfg, saved))
+        forwards = launches["attention"] // (blocks * len(subs))  # ensemble batches
+        want = {k: v * forwards * len(subs) for k, v in per_batch.items()}
+        want["bilinear_sample_cm"] = forwards * readouts
+        if not forwards or launches != want:
+            raise AssertionError(f"ensemble mode {mode}: launches {launches} != {want}")
+        if mode == 2:
+            keys = sorted(load_checkpoint_file(os.path.join(ens_dir, "ckpt", "model_state.pt"))[
+                "model"])
+            if keys != sorted(f"output_module.linear.{m}.{p}" for m in LOOP_MICE
+                              for p in ("bias", "weight")):
+                raise AssertionError(f"ensemble mode 2: checkpoint keys {keys}")
+        log(f"  ensemble.main mode {mode}{' --train, 1 epoch' if extra else ''}: {seconds:.3f} s, "
+            f"{forwards} batches through both sub-models; launches {launches} (no backward "
+            f"kernel; {card_text})")
+        out[f"ensemble_mode_{mode}"] = launches
+
+    # demo: the test evaluation, then rollout maps of S1's validation trials
+    num_maps, batch = 32, 16
+    result, seconds, launches = timed(lambda: demo.main(demo.parse_args(
+        ["--output_dir", run, "--batch_size", str(batch), "--num_maps", str(num_maps)])))
+    maps = result["maps"]
+    config = load_args(run, overrides=dict(verbose=0, **plain))
+    _, val_ds, test_ds, card = get_training_ds(config, config.dataset, config.mouse_ids, batch)
+    micro = config.effective_micro_batch_size  # Trainer.predict's forwards a batch
+    evaluated = sum(-(-min(batch, len(x.dataset) - i) // micro)
+                    for m, x in test_ds.items() if m != "S1"
+                    for i in range(0, len(x.dataset), batch))
+    rollout = min(-(-num_maps // batch), len(val_ds["S1"]))
+    want = {k: v * evaluated for k, v in per_batch.items()}
+    want["ln_linear"] += 2 * blocks * rollout  # the rollout's blocks: the fused MLP only
+    if launches != want:
+        raise AssertionError(f"demo: launches {launches} != {want}")
+    model = trainer_of(run, card, **plain).model
+    ref = extract_attention_maps(val_ds["S1"], model, num_samples=num_maps)
+    if maps["heatmaps"].shape != (min(num_maps, len(val_ds["S1"].dataset)), 36, 64):
+        raise AssertionError(f"demo: heatmaps {maps['heatmaps'].shape}")
+    errs = {k: float(np.abs(maps[k] - ref[k]).max()) for k in ref}
+    log(f"  demo.main: {len(maps['heatmaps'])} rollout maps in {seconds:.3f} s (with the test evaluation; "
+        f"{card_text}); launches {launches}; against the plain path max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (heatmaps in [0, 1], tol "
+        f"{HEATMAP_TOL:g})")
+    if not np.isfinite(maps["heatmaps"]).all() or errs["heatmaps"] > HEATMAP_TOL or any(
+            errs[k] > 1e-3 * np.abs(ref[k]).max() for k in ("images", "behaviors",
+                                                            "pupil_centers")):
+        raise AssertionError(f"demo: maps differ from the plain path: {errs}")
+    out["demo"] = launches
+    del model
+
+    # export then import: the same predictions bit for bit
+    export_checkpoint.main(["--output_dir", run, "--torch_out", os.path.join(tmp, "reference")])
+    import_checkpoint.main(import_checkpoint.parse_args(
+        ["--torch_dir", os.path.join(tmp, "reference"), "--output_dir",
+         os.path.join(tmp, "imported")]))
+    one = next(iter(val_ds["A"]))
+    preds = [trainer_of(d, card).predict("A", one) for d in (run, os.path.join(tmp, "imported"))]
+    if not np.array_equal(*preds):
+        raise AssertionError("export / import: predictions differ")
+    log("  export_checkpoint then import_checkpoint: the imported run's predictions equal the "
+        "run's bit for bit")
+    return out
 
 
 def core_map(model, batch) -> torch.Tensor:
@@ -1805,6 +2177,8 @@ def main() -> int:
         rows += check_backward_kernels(gen, tensors)
         del tensors
         torch.cuda.empty_cache()
+        check_unfolded_sublayer(gen)
+        torch.cuda.empty_cache()
         next(row for row in rows if row["name"] == "attention_bwd")[
             "one_pass_at_flagship_ms"] = one_pass_at_flagship(gen)
         rows += check_flash_kernels(gen)
@@ -1831,12 +2205,21 @@ def main() -> int:
                           SWEEP_LAUNCHES_PER_STEP, dict(model=MODEL_TOL, core=CORE_TOL,
                                                         loss=LOSS_TOL, grad=GRAD_TOL), text)
     torch.cuda.empty_cache()
-    loop = training_loop(text)
+    dropped = drop_path_and_checkpointing(text)
+    torch.cuda.empty_cache()
+    modes = patch_modes(text)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="v1t_loop_") as tmp:
+        loop = training_loop(text, tmp)
+        torch.cuda.empty_cache()
+        entries = entry_points(text, loop, tmp)
     torch.cuda.empty_cache()
     where_the_time_goes("one serving batch of 64", serve_one)
     where_the_time_goes(f"one training step of {B} (forward, backward, AdamW update)", train_one)
     where_the_time_goes(f"one full-resolution training step of {FR_B}", full["train_one"])
     where_the_time_goes(f"one fp32 training step of {B}", fp32["train_one"])
+    where_the_time_goes(f"one training step of {B} at drop_path {DROP_PATH} with gradient "
+                        "checkpointing", dropped["train_one"])
     sweep_device = {}
     for kind, fn in (("serving", sweep["serve_one"]), ("training", sweep["train_one"])):
         seen = where_the_time_goes(f"one sweep-widest {kind} {'batch' if kind == 'serving' else 'step'}"
@@ -1858,7 +2241,12 @@ def main() -> int:
              "serving": serving_launches, "full_res_serving": full["serving_launches"],
              "fp32_serving": fp32["serving_launches"],
              "sweep_widest_serving": sweep["serving_launches"],
-             "loop_epoch_1": loop["launches"]["epoch 1"]}
+             "loop_epoch_1": loop["launches"]["epoch 1"],
+             "drop_path_training": dropped["launches"],
+             "drop_path_checkpointing_training": dropped["ckpt_launches"],
+             **{f"patch_mode_{m}_training": r["launches"] for m, r in modes.items()},
+             **{f"patch_mode_{m}_serving": r["serving"] for m, r in modes.items()},
+             **entries}
     for row in rows:
         # launches: the path each kernel serves first (the flash kernels: the
         # full-resolution training run); every path's count beside it

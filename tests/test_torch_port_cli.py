@@ -185,12 +185,19 @@ def test_main_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path, datas
     (["--data_parallel", "2"], "item 7"),
     (["--sequence_parallel", "2"], "item 7"),
     (["--use_lsa"], None),
+    (["--drop_path", "0.1"], None),
+    (["--patch_mode", "2"], None),
+    (["--grad_checkpointing", "1"], None),
 ])
 def test_unported_flags_raise_and_name_their_item(monkeypatch, tmp_path, dataset, flags, item):
     monkeypatch.setenv("V1T_PLATFORM", "cpu")
     config = train.parse_config(_tiny_argv(dataset, tmp_path / "x", 1) + flags)
-    if item is None:  # a ported option passes the check
+    if item is None:  # a ported option passes the check, and its model builds
         train.check_ported(config, "cpu")
+        from v1t_tpu_torch.data.cards import synthetic_data_card
+        from v1t_tpu_torch.models import build_model
+
+        build_model(config, synthetic_data_card(mouse_ids=("A",)), seed=0, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=item):
         train.main(config)

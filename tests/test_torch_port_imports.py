@@ -93,7 +93,11 @@ def test_port_imports_without_jax_or_yaml():
         for p in (ROOT / "v1t_tpu_torch").rglob("*.py")
         if "tools" not in p.parts and p.name != "gen_wgmma.py")
     assert {"v1t_tpu_torch.train", "v1t_tpu_torch.data.loaders", "v1t_tpu_torch.metrics",
-            "v1t_tpu_torch.utils.scheduler", "v1t_tpu_torch.utils.plots"} <= set(modules)
+            "v1t_tpu_torch.utils.scheduler", "v1t_tpu_torch.utils.plots",
+            "v1t_tpu_torch.submission", "v1t_tpu_torch.ensemble", "v1t_tpu_torch.demo",
+            "v1t_tpu_torch.import_checkpoint", "v1t_tpu_torch.export_checkpoint",
+            "v1t_tpu_torch.models.ensemble", "v1t_tpu_torch.analysis.attention_rollout"
+            } <= set(modules)
     code = (
         "import sys\n"
         "class Refuse:\n"

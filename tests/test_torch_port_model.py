@@ -165,7 +165,7 @@ def test_trainer_refuses_cuda_without_a_card(monkeypatch):
 
 def test_training_mode_forward_is_refused():
     """A training forward is refused without the step's seed (its dropout
-    and noise need one), and with drop_path > 0 (not ported)."""
+    and noise need one); with drop_path > 0 and a seed it runs, finite."""
     config = Config(**{**SMALL, "precision": "fp32"})
     model = build_model(config, synthetic_data_card(**CARD), seed=0, device="cpu").train()
     batch = _batch()
@@ -173,6 +173,6 @@ def test_training_mode_forward_is_refused():
         _port_predict(model, batch)
     model = build_model(config.replace(drop_path=0.1), synthetic_data_card(**CARD), seed=0,
                         device="cpu").train()
-    with pytest.raises(NotImplementedError, match="drop_path"):
-        model(torch.from_numpy(batch["image"]), "A", torch.from_numpy(batch["behavior"]),
-              torch.from_numpy(batch["pupil_center"]), seed=1)
+    out, _, _ = model(torch.from_numpy(batch["image"]), "A", torch.from_numpy(batch["behavior"]),
+                      torch.from_numpy(batch["pupil_center"]), seed=1)
+    assert out.shape == (2, 24) and torch.isfinite(out).all()

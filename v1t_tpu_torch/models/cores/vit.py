@@ -33,22 +33,43 @@ draws from the step's ``torch.Generator``; the transformer's dropout
 (``t_dropout``: attention probabilities, attention output, MLP hidden layer
 and output, as the TPU kernels fold them) is drawn inside the kernels from
 the step's seed, each block's four sites numbered 4 * block + 0..3
-(``ops/dropout.py``). ``drop_path > 0`` is not ported: a training forward
-with it raises.
+(``ops/dropout.py``). Stochastic depth (``drop_path`` > 0) turns the fold
+off, as JAX's ``fold_res`` (:536): the latent is added to x outside, each
+fused sublayer returns sublayer(x) alone and the block adds
+x + drop_path(sublayer(x)), with two per-sample masks a block (attention,
+then MLP) drawn from the step's generator. ``grad_checkpointing`` wraps
+each sublayer in ``torch.utils.checkpoint`` (JAX's ``nn.remat``): the
+backward reruns its forward, whose dropout the kernels regenerate from
+(seed, site); the drop-path masks are drawn outside the checkpointed call.
+
+The patch embedding (``Image2Patches``): mode 0 unfold -> Linear; 1 a p x p
+stride-s convolution (``F.conv2d``, as JAX's ``nn.Conv``, outside any
+kernel); 2 the shifted patch tokenization (5x the channels), unfold,
+LayerNorm, Linear; 3 unfold, LayerNorm, Linear, LayerNorm. Each sublayer
+computes in the model's dtype: the residual stream enters it cast, as JAX's
+sublayers cast theirs (mode 3's float32 tokens under bf16).
+
+``return_probs`` (attention rollout) sends every block through the composed
+attention's einsum form and returns the (B, blocks, heads, N, N) float32
+probabilities beside the output, as the reference's Recorder.
 """
 
 from __future__ import annotations
 
+import functools
 import typing as t
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from v1t_tpu_torch.models.layers import linear, run_mlp, torch_default_init_, trunc_normal_init_
 from v1t_tpu_torch.models.registry import register_core
 from v1t_tpu_torch.ops.attention import multi_head_attention
-from v1t_tpu_torch.ops.common import find_shape, unfold_output_size, unfold_patches
+from v1t_tpu_torch.ops.common import (
+    drop_path, drop_path_mask, find_shape, patch_shift, unfold_output_size, unfold_patches,
+)
 from v1t_tpu_torch.ops.dropout import Dropout, apply_dropout
 from v1t_tpu_torch.ops.fused_mha import fused_mha
 from v1t_tpu_torch.ops.fused_mlp import fused_mlp
@@ -82,33 +103,78 @@ class _Unfold(nn.Module):
         return unfold_patches(images, self.patch_size, self.stride)
 
 
+class _PatchShift(nn.Module):
+    def __init__(self, patch_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return patch_shift(images, self.patch_size)
+
+
 def _drop(rate: float, seed: t.Optional[int], site: int) -> t.Optional[Dropout]:
     """The dropout of one site of this step, or None outside training."""
     return Dropout(rate, seed, site) if seed is not None and rate > 0.0 else None
 
 
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` on float32 parameters: statistics and output
+    in float32 whatever x's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, eps=1e-5)
+
+
 class Image2Patches(nn.Module):
+    """Patch embedding, CLS token and positional embedding, with the
+    reference's ``projection`` Sequential (hence its state_dict keys):
+    mode 0 (Unfold, Rearrange, Linear); 1 (Conv2d, Rearrange); 2
+    (PatchShift, Unfold, Rearrange, LayerNorm, Linear); 3 (Unfold,
+    Rearrange, LayerNorm, Linear, LayerNorm)."""
+
     def __init__(self, image_shape, patch_mode: int, patch_size: int, stride: int,
                  emb_dim: int, dropout: float = 0.0, dtype=None):
         super().__init__()
-        if patch_mode != 0:
-            raise NotImplementedError(f"patch_mode {patch_mode} is not ported yet")
         c, h, w = image_shape
         self.num_patches = (
             unfold_output_size(h, patch_size, stride) * unfold_output_size(w, patch_size, stride) + 1
         )
-        self.dtype, self.dropout = dtype, dropout
-        # (Unfold, Rearrange, Linear) as the reference's Sequential
-        self.projection = nn.Sequential(
-            _Unfold(patch_size, stride), nn.Identity(),
-            nn.Linear(c * patch_size * patch_size, emb_dim),
-        )
+        self.patch_mode, self.dtype, self.dropout = patch_mode, dtype, dropout
+        cpp = c * patch_size * patch_size
+        if patch_mode == 0:
+            layers = [_Unfold(patch_size, stride), nn.Identity(), nn.Linear(cpp, emb_dim)]
+        elif patch_mode == 1:
+            layers = [nn.Conv2d(c, emb_dim, patch_size, stride), nn.Identity()]
+        elif patch_mode == 2:
+            layers = [_PatchShift(patch_size), _Unfold(patch_size, stride), nn.Identity(),
+                      nn.LayerNorm(5 * cpp), nn.Linear(5 * cpp, emb_dim)]
+        elif patch_mode == 3:
+            layers = [_Unfold(patch_size, stride), nn.Identity(), nn.LayerNorm(cpp),
+                      nn.Linear(cpp, emb_dim), nn.LayerNorm(emb_dim)]
+        else:
+            raise NotImplementedError(f"patch_mode {patch_mode} not implemented")
+        self.projection = nn.Sequential(*layers)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, emb_dim))
         self.pos_embedding = nn.Parameter(torch.zeros(self.num_patches, emb_dim))
 
+    def _patches(self, inputs: torch.Tensor) -> torch.Tensor:
+        """(B, C, H, W) -> (B, L, emb) as ``v1t_tpu/models/cores/vit.py``
+        ``Image2Patches`` computes it: Dense / Conv in ``dtype``, LayerNorm
+        in float32."""
+        proj, dt = self.projection, self.dtype or torch.float32
+        if self.patch_mode == 0:
+            return linear(proj[0](inputs), proj[2], self.dtype)
+        if self.patch_mode == 1:
+            conv = proj[0]
+            x = F.conv2d(inputs.to(dt), conv.weight.to(dt), None, conv.stride)
+            x = x + conv.bias.to(dt)[:, None, None]  # added in dtype, as flax's Conv
+            return x.flatten(2).transpose(1, 2)
+        if self.patch_mode == 2:
+            return linear(_layer_norm(proj[1](proj[0](inputs)), proj[3]), proj[4], self.dtype)
+        x = linear(_layer_norm(proj[0](inputs), proj[2]), proj[3], self.dtype)
+        return _layer_norm(x, proj[4])  # float32 tokens, as flax's LayerNorm gives them
+
     def forward(self, inputs: torch.Tensor,
                 generator: t.Optional[torch.Generator] = None) -> torch.Tensor:
-        patches = linear(self.projection[0](inputs), self.projection[2], self.dtype)
+        patches = self._patches(inputs)
         b = patches.shape[0]
         cls = self.cls_token.to(patches.dtype).expand(b, -1, -1)
         tokens = torch.cat([cls, patches], dim=1) + self.pos_embedding.to(patches.dtype)
@@ -118,8 +184,20 @@ class Image2Patches(nn.Module):
         return tokens
 
     def init_weights(self, generator: torch.Generator) -> None:
-        torch_default_init_(self.projection[2], generator)
+        """Linear layers keep torch's default init, LayerNorm ones and zeros;
+        the convolution (mode 1) Kaiming normal (fan_in, gain sqrt(2)) with
+        torch's default bias (reference vit.py:118-120)."""
         with torch.no_grad():
+            for layer in self.projection:
+                if isinstance(layer, nn.Linear):
+                    torch_default_init_(layer, generator)
+                elif isinstance(layer, nn.LayerNorm):
+                    layer.weight.fill_(1.0)
+                    layer.bias.zero_()
+                elif isinstance(layer, nn.Conv2d):
+                    fan_in = layer.weight[0].numel()
+                    layer.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+                    layer.bias.uniform_(-fan_in ** -0.5, fan_in ** -0.5, generator=generator)
             self.cls_token.normal_(generator=generator)
             self.pos_embedding.normal_(generator=generator)
 
@@ -157,14 +235,15 @@ class BehaviorMLP(nn.Module):
 class Attention(nn.Module):
     """Pre-LN attention sublayer: bias-free QKV with inner dim
     emb_dim * num_heads (each head emb_dim wide), scale emb_dim^-0.5 or a
-    learnable per-head temperature under LSA, projection + bias."""
+    learnable per-head temperature under LSA, projection + bias; it
+    computes in ``dtype`` (None: float32)."""
 
     def __init__(self, emb_dim: int, num_heads: int, use_lsa: bool = False,
-                 use_bias: bool = True, impl: str = "auto", dropout: float = 0.0):
+                 use_bias: bool = True, impl: str = "auto", dropout: float = 0.0, dtype=None):
         super().__init__()
         inner = emb_dim * num_heads
         self.num_heads, self.use_lsa, self.impl = num_heads, use_lsa, impl
-        self.dropout = dropout
+        self.dropout, self.dtype = dropout, dtype or torch.float32
         self.layer_norm = nn.LayerNorm(emb_dim)
         self.to_qkv = nn.Linear(emb_dim, 3 * inner, bias=False)
         self.projection = nn.Sequential(nn.Linear(inner, emb_dim, bias=use_bias), nn.Dropout())
@@ -175,49 +254,56 @@ class Attention(nn.Module):
     def fused(self, x: torch.Tensor) -> bool:
         # the port's "xla" runs the plain versions of the path "auto" takes
         impl = "auto" if self.impl == "xla" else self.impl
-        return _fused_attention_eligible(x.dtype, impl, x.shape[1], x.device)
+        return _fused_attention_eligible(self.dtype, impl, x.shape[1], x.device)
 
     def forward(self, x: torch.Tensor, bias_row: t.Optional[torch.Tensor],
-                seed: t.Optional[int] = None, site: int = 0) -> torch.Tensor:
+                seed: t.Optional[int] = None, site: int = 0, fold_residual: bool = True,
+                return_probs: bool = False):
         """``seed`` (training): dropout of the probabilities (site ``site``)
         and of the output (``site + 1``). The fused sublayer returns
-        (x + bias_row) + attention(x + bias_row); the composed one (no
-        ``bias_row``) attention(x) alone."""
-        if not self.fused(x):
+        (x + bias_row) + attention(x + bias_row), or without
+        ``fold_residual`` attention(x) alone; the composed one (no
+        ``bias_row``; every block under ``return_probs``) attention(x)
+        alone, with ``return_probs`` also the (B, H, N, N) float32
+        probabilities."""
+        if return_probs or not self.fused(x):
             if bias_row is not None:
                 raise ValueError("bias_row needs the fused attention sublayer")
-            return self._composed(x, seed, site)
-        dt = x.dtype
+            return self._composed(x, seed, site, return_probs)
+        dt = self.dtype
         proj = self.projection[0]
         bp = proj.bias if proj.bias is not None else torch.zeros_like(self.layer_norm.bias)
         return fused_mha(
-            x, self.layer_norm.weight, self.layer_norm.bias,
+            x.to(dt), self.layer_norm.weight, self.layer_norm.bias,
             self.to_qkv.weight.to(dt), proj.weight.to(dt), bp.to(dt).float(),
             self.scale if self.use_lsa else self.base_scale,
-            num_heads=self.num_heads, use_lsa=self.use_lsa, fold_residual=True,
+            num_heads=self.num_heads, use_lsa=self.use_lsa, fold_residual=fold_residual,
             bias_row=bias_row, plain=self.impl == "xla",
             drop_p=_drop(self.dropout, seed, site), drop_o=_drop(self.dropout, seed, site + 1),
         )
 
-    def _composed(self, x: torch.Tensor, seed: t.Optional[int], site: int) -> torch.Tensor:
+    def _composed(self, x: torch.Tensor, seed: t.Optional[int], site: int,
+                  return_probs: bool = False):
         """LayerNorm in float32, QKV, ``multi_head_attention``, the output
         projection and its dropout (``v1t_tpu/models/cores/vit.py:383-413``
         and the ``nn.Dropout`` after it)."""
         b, n, e = x.shape
-        dt, h = x.dtype, self.num_heads
+        dt, h = self.dtype, self.num_heads
         ln = self.layer_norm
         z = F.layer_norm(x.float(), (e,), ln.weight, ln.bias, eps=1e-5).to(dt)
         qkv = torch.matmul(z, self.to_qkv.weight.to(dt).t())
         q, k, v = qkv.reshape(b, n, 3, h, e).permute(2, 0, 3, 1, 4)
         o = multi_head_attention(q, k, v, self.scale if self.use_lsa else self.base_scale,
                                  use_lsa=self.use_lsa, drop=_drop(self.dropout, seed, site),
-                                 impl=self.impl)
+                                 impl=self.impl, return_probs=return_probs)
+        o, probs = o if return_probs else (o, None)
         proj = self.projection[0]
         out = torch.matmul(o.transpose(1, 2).reshape(b, n, h * e), proj.weight.to(dt).t())
         if proj.bias is not None:
             out = out + proj.bias.to(dt)
         drop = _drop(self.dropout, seed, site + 1)
-        return apply_dropout(out.reshape(b * n, e), drop).reshape(b, n, e)
+        out = apply_dropout(out.reshape(b * n, e), drop).reshape(b, n, e)
+        return (out, probs) if return_probs else out
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_init_(self.to_qkv, generator)
@@ -230,12 +316,13 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Pre-LN MLP sublayer: LayerNorm -> fc1 -> exact GELU -> fc2."""
+    """Pre-LN MLP sublayer: LayerNorm -> fc1 -> exact GELU -> fc2, in
+    ``dtype`` (None: float32)."""
 
     def __init__(self, emb_dim: int, hidden_dim: int, use_bias: bool = True,
-                 impl: str = "auto", dropout: float = 0.0):
+                 impl: str = "auto", dropout: float = 0.0, dtype=None):
         super().__init__()
-        self.impl, self.dropout = impl, dropout
+        self.impl, self.dropout, self.dtype = impl, dropout, dtype or torch.float32
         self.model = nn.Sequential(
             nn.LayerNorm(emb_dim), nn.Linear(emb_dim, hidden_dim, bias=use_bias), nn.GELU(),
             nn.Dropout(), nn.Linear(hidden_dim, emb_dim, bias=use_bias), nn.Dropout(),
@@ -247,7 +334,8 @@ class MLP(nn.Module):
         and of the output (``site + 1``); ``fold_residual``: return
         x + MLP(x). bf16 runs the fused sublayer (``v1t_tpu/models/cores/
         vit.py:452-461``), float32 the composed one (:468-481)."""
-        dt = x.dtype
+        dt = self.dtype
+        x = x.to(dt)
         ln, fc1, fc2 = self.model[0], self.model[1], self.model[4]
         drop1, drop2 = _drop(self.dropout, seed, site), _drop(self.dropout, seed, site + 1)
         if dt != torch.bfloat16:
@@ -287,11 +375,11 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, emb_dim, num_heads, mlp_dim, behavior_mode, mouse_ids, use_lsa,
-                 use_bias, dtype, impl, dropout=0.0):
+                 use_bias, dtype, impl, dropout=0.0, drop_path=0.0, grad_checkpointing=False):
         super().__init__()
-        # the sublayers compute in the dtype of the residual stream they get
-        self.mha = Attention(emb_dim, num_heads, use_lsa, use_bias, impl, dropout)
-        self.mlp = MLP(emb_dim, mlp_dim, use_bias, impl, dropout)
+        self.mha = Attention(emb_dim, num_heads, use_lsa, use_bias, impl, dropout, dtype)
+        self.mlp = MLP(emb_dim, mlp_dim, use_bias, impl, dropout, dtype)
+        self.drop_path, self.grad_checkpointing = drop_path, grad_checkpointing
         if behavior_mode in (2, 3, 4):
             # the reference's attribute name, hence its state_dict keys
             self.add_module(
@@ -303,33 +391,56 @@ class Block(nn.Module):
         return self._modules.get("b-mlp")
 
     def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
-                seed: t.Optional[int] = None, site: int = 0) -> torch.Tensor:
+                seed: t.Optional[int] = None, site: int = 0,
+                generator: t.Optional[torch.Generator] = None, return_probs: bool = False):
         latent = None if self.b_mlp is None else self.b_mlp(behaviors, mouse_id)
-        if self.mha.fused(x):
-            x = self.mha(x, latent, seed, site)  # (x + latent) + attention sublayer
-            return self.mlp(x, seed, site + 2)  # x + MLP sublayer
-        # the composed path: the residual adds as the JAX package's unfused form
+        mha, mlp = self.mha, self.mlp
+        if self.grad_checkpointing and not return_probs and torch.is_grad_enabled():
+            # JAX's nn.remat; the sublayers draw from no global generator
+            # (their dropout is keyed by (seed, site)), so none is restored
+            mha, mlp = (functools.partial(checkpoint, m, use_reentrant=False,
+                                          preserve_rng_state=False) for m in (mha, mlp))
+        drop = self.training and self.drop_path > 0.0
+        if self.mha.fused(x) and not (drop or return_probs):
+            x = mha(x, latent, seed, site)  # (x + latent) + attention sublayer
+            return mlp(x, seed, site + 2)  # x + MLP sublayer
+        # the residual adds as the JAX package's unfused form (fold_res off)
         if latent is not None:
             x = x + latent[:, None, :].to(x.dtype)
-        x = self.mha(x, None, seed, site) + x
-        return self.mlp(x, seed, site + 2, fold_residual=False) + x
+        # the masks of this block (attention's, then the MLP's), drawn
+        # outside any checkpointed call
+        keep = [drop_path_mask(x.shape[0], self.drop_path, generator, x.device)
+                for _ in range(2)] if drop else None
+        out = mha(x, None, seed, site, fold_residual=False, return_probs=return_probs)
+        out, probs = out if return_probs else (out, None)
+        x = (drop_path(out, self.drop_path, keep[0]) if drop else out) + x
+        out = mlp(x, seed, site + 2, fold_residual=False)
+        x = (drop_path(out, self.drop_path, keep[1]) if drop else out) + x
+        return (x, probs) if return_probs else x
 
 
 class Transformer(nn.Module):
     def __init__(self, emb_dim, num_blocks, num_heads, mlp_dim, behavior_mode, mouse_ids,
-                 use_lsa=False, use_bias=True, dtype=None, impl="auto", dropout=0.0):
+                 use_lsa=False, use_bias=True, dtype=None, impl="auto", dropout=0.0,
+                 drop_path=0.0, grad_checkpointing=False):
         super().__init__()
         self.blocks = nn.ModuleList([
             Block(emb_dim, num_heads, mlp_dim, behavior_mode, mouse_ids, use_lsa, use_bias,
-                  dtype, impl, dropout)
+                  dtype, impl, dropout, drop_path, grad_checkpointing)
             for _ in range(num_blocks)
         ])
 
     def forward(self, x: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
-                seed: t.Optional[int] = None) -> torch.Tensor:
+                seed: t.Optional[int] = None, generator: t.Optional[torch.Generator] = None,
+                return_probs: bool = False):
+        probs = []
         for i, block in enumerate(self.blocks):
-            x = block(x, mouse_id, behaviors, seed, site=4 * i)
-        return x
+            x = block(x, mouse_id, behaviors, seed, 4 * i, generator, return_probs)
+            if return_probs:
+                x, p = x
+                probs.append(p)
+        # (B, blocks, heads, N, N) like the reference's Recorder
+        return (x, torch.stack(probs, dim=1)) if return_probs else x
 
 
 @register_core("vit")
@@ -339,16 +450,16 @@ class ViTCore(nn.Module):
     def __init__(self, image_shape, mouse_ids, behavior_mode=0, patch_mode=0, patch_size=8,
                  patch_stride=1, num_blocks=4, num_heads=4, emb_dim=155, mlp_dim=488,
                  p_dropout=0.0, t_dropout=0.0, drop_path=0.0, use_lsa=False, use_bias=True,
-                 dtype=None, impl="auto"):
+                 dtype=None, impl="auto", grad_checkpointing=False):
         super().__init__()
-        self.behavior_mode, self.emb_dim, self.drop_path = behavior_mode, emb_dim, drop_path
+        self.behavior_mode, self.emb_dim = behavior_mode, emb_dim
         self.patch_embedding = Image2Patches(
             image_shape, patch_mode, patch_size, patch_stride, emb_dim, p_dropout, dtype
         )
         self.num_patches = self.patch_embedding.num_patches - 1
         self.transformer = Transformer(
             emb_dim, num_blocks, num_heads, mlp_dim, behavior_mode, tuple(mouse_ids),
-            use_lsa, use_bias, dtype, impl, t_dropout,
+            use_lsa, use_bias, dtype, impl, t_dropout, drop_path, grad_checkpointing,
         )
 
     @classmethod
@@ -361,6 +472,7 @@ class ViTCore(nn.Module):
             emb_dim=config.emb_dim, mlp_dim=config.mlp_dim, p_dropout=config.p_dropout,
             t_dropout=config.t_dropout, drop_path=config.drop_path, use_lsa=config.use_lsa,
             use_bias=not config.disable_bias, dtype=dtype, impl=config.attention_impl,
+            grad_checkpointing=bool(config.grad_checkpointing),
         )
 
     @property
@@ -369,19 +481,21 @@ class ViTCore(nn.Module):
         return (self.emb_dim, h, w)
 
     def forward(self, inputs, mouse_id: str, behaviors, pupil_centers,
-                seed: t.Optional[int] = None,
-                generator: t.Optional[torch.Generator] = None) -> torch.Tensor:
+                seed: t.Optional[int] = None, generator: t.Optional[torch.Generator] = None,
+                return_probs: bool = False):
         """In training, ``seed`` keys the kernels' dropout and ``generator``
-        draws the patch embedding's."""
-        if self.training and self.drop_path > 0.0:
-            raise NotImplementedError("drop_path > 0 is not ported yet")
+        draws the patch embedding's dropout and the drop-path masks. With
+        ``return_probs``: (map, (B, blocks, heads, N, N) probabilities)."""
         tokens = self.patch_embedding(inputs, generator)
         if self.behavior_mode in (3, 4):
             behaviors = torch.cat([behaviors, pupil_centers], dim=-1)
         seed = seed if self.training else None
-        out = self.transformer(tokens, mouse_id, behaviors, seed)[:, 1:, :]  # drop CLS
+        out = self.transformer(tokens, mouse_id, behaviors, seed, generator, return_probs)
+        out, probs = out if return_probs else (out, None)
+        out = out[:, 1:, :]  # drop CLS
         c, h, w = self.output_shape
-        return out.reshape(out.shape[0], h, w, c).permute(0, 3, 1, 2)
+        out = out.reshape(out.shape[0], h, w, c).permute(0, 3, 1, 2)
+        return (out, probs) if return_probs else out
 
     def regularizer(self, reg_scale: float) -> torch.Tensor:
         """L1 over every core parameter (reference vit.py:419-421)."""

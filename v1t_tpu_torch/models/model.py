@@ -97,6 +97,20 @@ class Model(nn.Module):
             outputs = elu1(outputs)
         return outputs, images, image_grids
 
+    def crop(self, inputs: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
+             pupil_centers: torch.Tensor):
+        """Only the image cropper: (cropped images, image grids) (the
+        attention rollout's first step, reference attention_rollout.py:168-173)."""
+        return self.image_cropper(inputs, mouse_id, behaviors, pupil_centers)
+
+    def core_forward(self, images: torch.Tensor, mouse_id: str, behaviors: torch.Tensor,
+                     pupil_centers: torch.Tensor, return_probs: bool = False):
+        """The core alone on cropped images, in the module's mode (eval for
+        the rollout); ``return_probs`` also returns the (B, blocks, heads,
+        N, N) attention probabilities (``v1t_tpu/models/model.py``
+        ``core_forward``, the reference's Recorder)."""
+        return self.core(images, mouse_id, behaviors, pupil_centers, return_probs=return_probs)
+
     def init_weights(self, generator: torch.Generator) -> None:
         """The reference's init, drawn from ``generator``: trunc_normal(0.02)
         inside the transformer, torch's defaults outside it."""

@@ -49,9 +49,11 @@ def build_optimizer(config, model: nn.Module, core_frozen: bool = False,
         else:
             groups[label].append(param)
     lrs = {"core": core_lr, "rest": config.lr}
+    # a model with nothing to train (the averaging ensemble) keeps one
+    # empty group: torch refuses an optimizer without any
     param_groups = [
         {"name": label, "params": params, "lr": lrs[label]}
-        for label, params in groups.items() if params
+        for label, params in groups.items() if params or label == "rest"
     ]
     return torch.optim.AdamW(
         param_groups, betas=(config.adam_beta1, config.adam_beta2), eps=config.adam_eps,

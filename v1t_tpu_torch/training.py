@@ -94,12 +94,15 @@ class Trainer:
     def __init__(self, config: Config, model: Model, data_card: DataCard,
                  device: t.Union[str, torch.device] = "cuda", core_frozen: bool = False,
                  trainable_modules: t.Optional[t.List[str]] = None,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, regularizer_fn=None):
+        """``regularizer_fn(model, mouse_id)``, if given, replaces
+        ``model_regularizer`` (the ensemble has none, reference
+        ensemble.py:128-129)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: device 'cuda' requested but no CUDA device is visible")
         self.config, self.data_card = config, data_card
-        self.core_frozen = core_frozen
+        self.core_frozen, self.regularizer_fn = core_frozen, regularizer_fn
         self.model = model.to(self.device).eval()
         self.criterion = losses.get_criterion(config, data_card.ds_sizes)
         self.optimizer = build_optimizer(config, self.model, core_frozen=core_frozen,
@@ -123,7 +126,11 @@ class Trainer:
         )
         loss = self.criterion(y_true=fields["response"], y_pred=y_pred, mouse_id=mouse_id,
                               batch_size=batch_size, mask=mask)
-        reg = model_regularizer(self.config, self.model, mouse_id, core_frozen=self.core_frozen)
+        if self.regularizer_fn is not None:
+            reg = self.regularizer_fn(self.model, mouse_id)
+        else:
+            reg = model_regularizer(self.config, self.model, mouse_id,
+                                    core_frozen=self.core_frozen)
         return loss, reg_weight * reg, y_pred
 
     def stage_batch(self, batch: t.Dict[str, np.ndarray]) -> PreparedBatch:

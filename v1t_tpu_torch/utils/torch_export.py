@@ -26,6 +26,18 @@ def _linear(params: dict, prefix: str, out: dict) -> None:
         out[f"{prefix}.bias"] = _np(params["bias"])
 
 
+def _layernorm(params: dict, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _np(params["scale"])
+    out[f"{prefix}.bias"] = _np(params["bias"])
+
+
+def _conv(params: dict, prefix: str, out: dict) -> None:
+    # flax (kh, kw, in, out) -> torch (out, in, kh, kw)
+    out[f"{prefix}.weight"] = _np(params["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in params:
+        out[f"{prefix}.bias"] = _np(params["bias"])
+
+
 def _mlp3(params: dict, prefix: str, out: dict) -> None:
     _linear(params["fc0"], f"{prefix}.0", out)
     _linear(params["fc1"], f"{prefix}.2", out)
@@ -37,9 +49,19 @@ def _export_vit_core(core: dict, cfg, out: dict) -> None:
     p = "core.patch_embedding"
     out[f"{p}.cls_token"] = _np(pe["cls_token"])
     out[f"{p}.pos_embedding"] = _np(pe["pos_embedding"])
-    if cfg.patch_mode != 0:
-        raise NotImplementedError(f"patch_mode {cfg.patch_mode} is not ported yet")
-    _linear(pe["projection"], f"{p}.projection.2", out)
+    if cfg.patch_mode == 0:
+        _linear(pe["projection"], f"{p}.projection.2", out)
+    elif cfg.patch_mode == 1:
+        _conv(pe["projection"], f"{p}.projection.0", out)
+    elif cfg.patch_mode == 2:
+        _layernorm(pe["patch_norm"], f"{p}.projection.3", out)
+        _linear(pe["projection"], f"{p}.projection.4", out)
+    elif cfg.patch_mode == 3:
+        _layernorm(pe["pre_norm"], f"{p}.projection.2", out)
+        _linear(pe["projection"], f"{p}.projection.3", out)
+        _layernorm(pe["post_norm"], f"{p}.projection.4", out)
+    else:
+        raise NotImplementedError(f"patch_mode {cfg.patch_mode}")
 
     tr = core["transformer"]
     for i in range(cfg.num_blocks):
