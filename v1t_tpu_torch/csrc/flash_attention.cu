@@ -107,6 +107,11 @@
 // ring of (K, V) pairs (more barriers and rescales per key); one block a SM
 // (203 KB at DP 160) leaves its 8 warps' loads to hide behind each other's
 // FMAs.
+// Above DP 256 (bf16 only; float32 stops at 256): the column groups, a
+// block a (query tile, group of o's columns, plane), S recomputed over the
+// whole DP in every group (flash_fwd_wide_kernel, below). At the emb-768
+// path's shape (B*H 256, N 1654, D 768) the one-pass count is 2.15 TFLOP, a
+// 2.18 ms bound; three groups make it 4.3 TFLOP of products.
 #include "hopper.cuh"
 #include "wgmma_fwd.cuh"
 
@@ -580,6 +585,271 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 above DP 256 (column groups)
+//
+// o of 64 rows is DP / 2 fp32 a thread, and a K tile of 64 keys at DP 768
+// is 98 KB: neither the panels nor the accumulator scale past DP 256. So a
+// block owns 128 query rows (two consumer warpgroups of 64) and one group
+// of o's columns, at most WIDE_OG = 256 wide: the DP columns split into
+// ceil(DP / 256) groups of equal width (a multiple of 32), one block a
+// (query tile, group, plane). S is accumulated over the whole DP, q and K
+// arriving in chunks of 64 columns ([128][64] and [64][64], TMA boxes of
+// [rows][32]) through a ring of WIDE_A_STAGES; P v runs on the group's
+// columns of V ([64][256], a ring of WIDE_V_STAGES) into o (m64n256k16, P
+// from registers). Every group recomputes S: at DP 768 three times, so the
+// products are 4/2 of the one-pass count (S three times, P v once). The
+// keep mask is keyed by element (bh, query, key), so every group draws the
+// same one; group 0 writes the LSE. No producer warpgroup: thread 0 starts
+// the copies and refills a stage once every consumer thread has released
+// it (an mbarrier a stage), so that the consumers keep the 255 registers a
+// thread of a 256-thread block (o alone is 128). Within a warpgroup S, the
+// softmax and P v run in turn; the two warpgroups overlap each other.
+constexpr int WIDE_OG = 256, WIDE_CW = 64, WIDE_A_STAGES = 4, WIDE_V_STAGES = 2;
+constexpr int WIDE_THREADS = 2 * WG;
+constexpr int WIDE_A_BYTES = (BQ + BKV) * WIDE_CW * 2;  // a q chunk and a K chunk
+constexpr int WIDE_V_BYTES = BKV * WIDE_OG * 2;         // a V panel of the group's columns
+
+__host__ __device__ constexpr int wide_fwd_smem_bytes() {
+  return 1024 + WIDE_A_STAGES * WIDE_A_BYTES + WIDE_V_STAGES * WIDE_V_BYTES +
+         2 * (WIDE_A_STAGES + WIDE_V_STAGES) * 8;
+}
+
+// the column groups of DP (> 256) and their width (the last may be narrower)
+__host__ __device__ constexpr int wide_groups(int dp) { return (dp + WIDE_OG - 1) / WIDE_OG; }
+__host__ __device__ constexpr int wide_group_width(int dp) {
+  return 32 * ((dp / 32 + wide_groups(dp) - 1) / wide_groups(dp));
+}
+
+template <bool TRAIN>
+__global__ void __launch_bounds__(WIDE_THREADS, 1) flash_fwd_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out, float* __restrict__ lse,
+    int Nq, int Nk, int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop, int gw,
+    int pair) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* As = base;                               // [A_STAGES] q chunk, K chunk
+  unsigned char* Vs = As + WIDE_A_STAGES * WIDE_A_BYTES;  // [V_STAGES] V panels
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(Vs + WIDE_V_STAGES * WIDE_V_BYTES);
+  uint64_t* a_empty = a_full + WIDE_A_STAGES;
+  uint64_t* v_full = a_empty + WIDE_A_STAGES;
+  uint64_t* v_empty = v_full + WIDE_V_STAGES;
+
+  const int qt = blockIdx.x, gi = blockIdx.y, bh = blockIdx.z, tid = threadIdx.x;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0);  // the group's columns
+  const int nc = (DP + WIDE_CW - 1) / WIDE_CW;        // chunks of S's reduction
+  const int ntiles = (Nk + BKV - 1) / BKV, a_steps = ntiles * nc;
+  if (tid == 0) {
+    for (int s = 0; s < WIDE_A_STAGES; ++s) {
+      bar_init(&a_full[s], 1);
+      bar_init(&a_empty[s], WIDE_THREADS);
+    }
+    for (int s = 0; s < WIDE_V_STAGES; ++s) {
+      bar_init(&v_full[s], 1);
+      bar_init(&v_empty[s], WIDE_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // step i of the A ring: key tile i / nc, chunk i % nc (the last chunk is 32
+  // columns wide when DP is an odd multiple of 32)
+  auto issue_a = [&](int i) {
+    const int s = i % WIDE_A_STAGES, j = i / nc, c = i - j * nc;
+    const int boxes = min(WIDE_CW, DP - c * WIDE_CW) / 32;
+    unsigned char* st = As + s * WIDE_A_BYTES;
+    bar_expect(&a_full[s], (uint32_t)(boxes * (BQ + BKV) * ROW_BYTES));
+    for (int b = 0; b < boxes; ++b) {
+      tma_box(st + b * BQ * ROW_BYTES, &qmap, c * WIDE_CW + 32 * b, qt * BQ, bh, &a_full[s]);
+      tma_box(st + BQ * WIDE_CW * 2 + b * BKV * ROW_BYTES, &kmap, c * WIDE_CW + 32 * b,
+              j * BKV, bh, &a_full[s]);
+    }
+  };
+  auto issue_v = [&](int j) {
+    const int s = j % WIDE_V_STAGES;
+    unsigned char* st = Vs + s * WIDE_V_BYTES;
+    bar_expect(&v_full[s], (uint32_t)(gcols / 32 * BKV * ROW_BYTES));
+    for (int b = 0; b < gcols / 32; ++b)
+      tma_box(st + b * BKV * ROW_BYTES, &vmap, g0 + 32 * b, j * BKV, bh, &v_full[s]);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < min(WIDE_A_STAGES, a_steps); ++i) issue_a(i);
+    for (int j = 0; j < min(WIDE_V_STAGES, ntiles); ++j) issue_v(j);
+  }
+  // every thread is done with A step i: thread 0 refills its stage
+  auto release_a = [&](int i) {
+    const int s = i % WIDE_A_STAGES;
+    bar_arrive(&a_empty[s]);
+    if (tid == 0 && i + WIDE_A_STAGES < a_steps) {
+      bar_wait(&a_empty[s], (uint32_t)((i / WIDE_A_STAGES) & 1));
+      issue_a(i + WIDE_A_STAGES);
+    }
+  };
+  auto release_v = [&](int j) {
+    const int s = j % WIDE_V_STAGES;
+    bar_arrive(&v_empty[s]);
+    if (tid == 0 && j + WIDE_V_STAGES < ntiles) {
+      bar_wait(&v_empty[s], (uint32_t)((j / WIDE_V_STAGES) & 1));
+      issue_v(j + WIDE_V_STAGES);
+    }
+  };
+
+  // warpgroup c owns rows 64 c .. 64 c + 63 of the query tile
+  const int c = tid / WG, lane = tid & 31, warp = (tid / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qt * BQ + 64 * c + 16 * warp;  // this warp's 16 rows
+  const int r0 = row0 + g, r1 = r0 + 8;
+  float o[WIDE_OG / 2], s[BKV / 2];
+#pragma unroll
+  for (int i = 0; i < WIDE_OG / 2; ++i) o[i] = 0.f;
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+  uint32_t pf[BKV / 16][4];
+
+  for (int j = 0; j < ntiles; ++j) {
+    // S = q k^T of key tile j over DP, a chunk of 64 columns at a time
+    for (int cc = 0; cc < nc; ++cc) {
+      const int i = j * nc + cc, st = i % WIDE_A_STAGES;
+      bar_wait(&a_full[st], (uint32_t)((i / WIDE_A_STAGES) & 1));
+      const uint32_t q_s = smem_u32(As + st * WIDE_A_BYTES), k_s = q_s + BQ * WIDE_CW * 2;
+      const int kks = min(WIDE_CW, DP - cc * WIDE_CW) / 16;
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WIDE_CW / 16; ++kk)
+        if (kk < kks)
+          wgmma::Mma<BKV>::template ss<0, 0>(s, desc_k(q_s, BQ, 64 * c, kk),
+                                             desc_k(k_s, BKV, 0, kk), cc > 0 || kk > 0);
+      mma_commit();
+      if (cc > 0) {  // the previous chunk's products are done: its stage is free
+        mma_wait<1>();
+        release_a(i - 1);
+      }
+    }
+    mma_wait<0>();
+    fence_regs(s);
+    release_a(j * nc + nc - 1);
+
+    // the online softmax of the tile's scores (flash_fwd_wgmma_kernel's):
+    // the new running max, o and l rescaled, P as bf16 A fragments
+    const bool edge = (j + 1) * BKV > n_real ||
+                      (lsa && j * BKV < qt * BQ + BQ && (j + 1) * BKV > qt * BQ);
+    float scale = LOG2E;
+    if (edge) {
+      scale = 1.f;
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * BKV + ni * 8 + 2 * t + (e & 1);
+          const bool masked = key >= n_real || (lsa && key == ((e >> 1) ? r1 : r0));
+          s[4 * ni + e] = key >= Nk ? __int_as_float(0xff800000u)
+                          : masked  ? MASKED
+                                    : s[4 * ni + e] * LOG2E;
+        }
+    }
+    float mx0 = s[0], mx1 = s[2];
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * ni + 0], s[4 * ni + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * ni + 2], s[4 * ni + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0 * scale);
+    mx1 = fmaxf(m1, mx1 * scale);
+    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      float p00 = ex2(fmaf(s[4 * ni + 0], scale, -m0));
+      float p01 = ex2(fmaf(s[4 * ni + 1], scale, -m0));
+      float p10 = ex2(fmaf(s[4 * ni + 2], scale, -m1));
+      float p11 = ex2(fmaf(s[4 * ni + 3], scale, -m1));
+      l0 += p00 + p01;
+      l1 += p10 + p11;
+      if (TRAIN && drop.on()) {  // select only: 1/keep folds into 1/l
+        bool keep[4];
+        keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);
+        p00 = keep[0] ? p00 : 0.f;
+        p01 = keep[1] ? p01 : 0.f;
+        p10 = keep[2] ? p10 : 0.f;
+        p11 = keep[3] ? p11 : 0.f;
+      }
+      pf[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(p00, p01);
+      pf[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(p10, p11);
+    }
+    if (a0 != 1.f || a1 != 1.f) {  // no product in flight: o rescaled
+#pragma unroll
+      for (int i = 0; i < WIDE_OG / 8; ++i) {
+        o[4 * i + 0] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+    }
+
+    // o += P v over the group's columns
+    const int vs = j % WIDE_V_STAGES;
+    bar_wait(&v_full[vs], (uint32_t)((j / WIDE_V_STAGES) & 1));
+    fence_regs(o);
+    mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks)
+      wgmma::Mma<WIDE_OG>::template rs<1>(o, pf[ks],
+                                          desc_mn(smem_u32(Vs + vs * WIDE_V_BYTES), BKV, 0, ks), 1);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(o);
+    fence_frags(pf);
+    release_v(j);
+  }
+
+  // the four lanes of a quad hold partial sums of the same rows
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+  float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  if (TRAIN && drop.on()) {
+    inv0 *= drop.scale;
+    inv1 *= drop.scale;
+  }
+  if (gi == 0 && lse != nullptr && t == 0) {
+    float* lrow = lse + (size_t)bh * Nq;
+    if (r0 < Nq) lrow[r0] = (m0 + log2f(fmaxf(l0, 1e-37f))) * LN2;
+    if (r1 < Nq) lrow[r1] = (m1 + log2f(fmaxf(l1, 1e-37f))) * LN2;
+  }
+  // o's group columns below D, from the fragments (two columns a store
+  // where both lie below D and the layout keeps them 4-byte aligned)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? r1 : r0;
+    if (row >= Nq) continue;
+    const float inv = h ? inv1 : inv0;
+    bf16* orow = out + ol.at(bh, row);
+#pragma unroll
+    for (int i = 0; i < WIDE_OG / 8; ++i) {
+      const int cl = 8 * i + 2 * t, col = g0 + cl;
+      if (cl >= gcols || col >= D) continue;
+      const float v0 = o[4 * i + 2 * h] * inv, v1 = o[4 * i + 2 * h + 1] * inv;
+      if (pair && col + 1 < D) {
+        *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(v0, v1);
+      } else {
+        orow[col] = __float2bfloat16_rn(v0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 (FFMA)
 
 constexpr int F32_KB = 64, F32_THREADS = 256;
@@ -839,6 +1109,29 @@ int launch_wgmma_dp(bool train, const bf16* q, const bf16* k, const bf16* v, bf1
                                  q_scale, o_pad, stream);
 }
 
+template <bool TRAIN>
+int launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int BH,
+                int Nq, int Nk, int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop,
+                cudaStream_t stream) {
+  constexpr int bytes = wide_fwd_smem_bytes();
+  CUtensorMap qmap, kmap, vmap;
+  int rc;
+  if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, BQ)) != 0 ||
+      (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, BKV)) != 0 ||
+      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, BKV)) != 0)
+    return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int pair = D % 2 == 0 && ol.batch % 2 == 0 && ol.head % 2 == 0 && ol.row % 2 == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  const dim3 grid((unsigned)((Nq + BQ - 1) / BQ), (unsigned)wide_groups(DP), (unsigned)BH);
+  flash_fwd_wide_kernel<TRAIN><<<grid, WIDE_THREADS, bytes, stream>>>(
+      qmap, kmap, vmap, out, lse, Nq, Nk, n_real, D, DP, ol, lsa, drop, wide_group_width(DP),
+      pair);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int wgmma_fwd::launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
@@ -847,6 +1140,13 @@ int wgmma_fwd::launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, fl
                       cudaStream_t stream) {
   if (BH < 1 || BH > 65535 || D > DP || n_real > Nk || Nq < 1 || Nk < 1)
     return (int)cudaErrorInvalidValue;
+  if (DP > 256) {  // the column groups, in natural-log units only
+    if (DP % 32 != 0 || q_scale != nullptr || o_pad != 0) return (int)cudaErrorInvalidValue;
+    return train ? launch_wide<true>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, DP, ol, lsa, drop,
+                                     stream)
+                 : launch_wide<false>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, DP, ol, lsa,
+                                      drop, stream);
+  }
   switch (DP) {
     case 32: return launch_wgmma_dp<32>(train, q, k, v, out, lse, BH, Nq, Nk, n_real, D, ol, lsa, drop, q_scale, o_pad, stream);
     case 64: return launch_wgmma_dp<64>(train, q, k, v, out, lse, BH, Nq, Nk, n_real, D, ol, lsa, drop, q_scale, o_pad, stream);
@@ -861,6 +1161,7 @@ int wgmma_fwd::launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, fl
 }
 
 int wgmma_fwd::smem(int dp) {
+  if (dp > 256) return dp % 32 == 0 ? wide_fwd_smem_bytes() : 0;
   switch (dp) {
     case 32: return bf16_smem_bytes<32>();
     case 64: return bf16_smem_bytes<64>();
@@ -876,7 +1177,8 @@ int wgmma_fwd::smem(int dp) {
 
 // Returns a CUDA error code (0 on success). q (BH, Nq, DP), k and v (BH, Nk,
 // DP), bf16 (f32 == 0) or float32 (f32 == 1), rows zero-padded from D to
-// DP = 32, 64, ..., 256; out in the same dtype at element (bh, row, d) ->
+// DP = 32, 64, ..., 256 (bf16: any multiple of 32, above 256 on column
+// groups); out in the same dtype at element (bh, row, d) ->
 // (bh / H) * o_batch + (bh % H) * o_head + row * o_row + d, d < D; lse, when
 // not null, (BH, Nq) float32 natural-log log-sum-exp. Keys at or past
 // n_real_k are masked, with lsa also key == row. threshold > 0 applies the
@@ -912,7 +1214,7 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
 
 // Dynamic shared memory of a block of the bf16 (f32 == 0) or float32
 // (f32 == 1) kernel at padded head width dp (0 for a width it is not built
-// for).
+// for; bf16 above 256: the column groups', one size at every width).
 extern "C" int v1t_flash_attention_smem(int dp, int f32) {
   if (f32 == 0) return wgmma_fwd::smem(dp);
   switch (dp) {

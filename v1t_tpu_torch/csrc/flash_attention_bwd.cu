@@ -114,6 +114,10 @@
 // 32 columns wait until its last add has read it;
 // the one pass's products and its P / dS arithmetic do not overlap within a
 // warpgroup; the float32 pass's two halves wait for each other twice a tile.
+// Above DP 256 (bf16 only; float32 stops at 256) the one pass runs on column
+// groups (flash_bwd_wide_kernel, below): at the emb-768 path's shape (B*H
+// 256, N 1654, D 768) the five products are 5.38 TFLOP, a 5.44 ms bound;
+// three groups recomputing S and dP make them 9.7 TFLOP.
 #include "hopper.cuh"
 #include "one_pass_bwd.cuh"
 
@@ -503,6 +507,343 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_convert_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 above DP 256: the one pass on column groups
+//
+// Neither K and V panels of a key block nor dK and dV of all DP columns fit
+// past DP 256. A block owns 64 keys and one group of the columns, at most
+// WB_OG = 256 wide (the DP columns split into ceil(DP / 256) groups of
+// equal width, a multiple of 32), one block a (key block, group, plane); it
+// loops over query tiles of 64. For each tile: S = q k^T and dP = dO v^T
+// over the whole DP, q, dO, K and V arriving in chunks of 64 columns
+// ([64][64] each, TMA boxes of [64][32]) through a ring of WB_STAGES
+// (warpgroup c takes keys 32 c .. 32 c + 31, m64n32k16); P and dS as the
+// one pass computes them, into [64][64] panels; then, on the group's
+// columns, dV += (Z P)^T dO_g and dK += dS^T q_g (the tile's q and dO
+// group panels, [64][256]; warpgroup c owns 128 of the columns,
+// m64n128k16) and dq_g = dS K_g (the block's K group panel, loaded once),
+// 64 columns a product, added through a float32 box a warp by TMA's bulk
+// reduce-add. The block owns its dK and dV columns outright; only dq is
+// summed across blocks. Every group recomputes S and dP: at DP 768 three
+// times, so the products are 9/5 of the one-pass count. No producer
+// warpgroup: thread 0 starts the copies and refills a ring stage once every
+// thread has released it (an mbarrier a stage). Under `order` the key
+// blocks of a (plane, group) add into a query tile in key order, on a turn
+// counter per (plane, group, query tile), as the one pass's.
+constexpr int WB_OG = 256, WB_CW = 64, WB_STAGES = 2, WB_KVC = WB_OG / 2, WB_DQS = 64;
+constexpr int WB_CHUNK_BYTES = 64 * WB_CW * 2;     // a [64][64] chunk
+constexpr int WB_A_BYTES = 4 * WB_CHUNK_BYTES;     // q, dO, K, V chunks
+constexpr int WB_PANEL_BYTES = 64 * WB_OG * 2;     // a [64][256] group panel
+
+__host__ __device__ constexpr int wide_bwd_smem_bytes() {
+  return 1024 + 3 * WB_PANEL_BYTES + WB_STAGES * WB_A_BYTES + 2 * QB * 64 * 2 +
+         8 * DQ_BOX_BYTES + (2 + 2 * WB_STAGES) * 8;
+}
+
+__host__ __device__ constexpr int wb_groups(int dp) { return (dp + WB_OG - 1) / WB_OG; }
+__host__ __device__ constexpr int wb_group_width(int dp) {
+  return 32 * ((dp / 32 + wb_groups(dp) - 1) / wb_groups(dp));
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
+    const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Nq,
+    int Nk, int n_real, int D, int DP, int lsa, Drop drop, float s_log2, float dk_scale,
+    int* __restrict__ order, int groups, int gw) {
+  using namespace hopper;
+  constexpr int KB = 64, SK = 32;  // keys a block; a warpgroup's keys of S and dP
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* Kg = base;                          // [64 keys][256] the block's K columns
+  unsigned char* Qg = Kg + WB_PANEL_BYTES;           // [64 queries][256] the tile's q columns
+  unsigned char* dOg = Qg + WB_PANEL_BYTES;          // ... and its dO columns
+  unsigned char* Ring = dOg + WB_PANEL_BYTES;        // [STAGES] q, dO, K, V chunks
+  unsigned char* Ps = Ring + WB_STAGES * WB_A_BYTES; // (Z P) [QB][KB]
+  unsigned char* dSs = Ps + QB * KB * 2;             // dS [QB][KB]
+  unsigned char* dq_boxes = dSs + QB * KB * 2;       // [8 warps] float32 boxes, 1024-aligned
+  uint64_t* kg_full = reinterpret_cast<uint64_t*>(dq_boxes + 8 * DQ_BOX_BYTES);
+  uint64_t* g_full = kg_full + 1;
+  uint64_t* a_full = g_full + 1;                     // [STAGES]
+  uint64_t* a_empty = a_full + WB_STAGES;            // [STAGES]
+
+  const int tid = threadIdx.x;
+  __shared__ int ticket;
+  if (tid == 0) {
+    bar_init(kg_full, 1);
+    bar_init(g_full, 1);
+    for (int s = 0; s < WB_STAGES; ++s) {
+      bar_init(&a_full[s], 1);
+      bar_init(&a_empty[s], BWD_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (order != nullptr) ticket = atomicAdd(order, 1);
+  }
+  __syncthreads();
+  // the (key block, group, plane) item, key block fastest: ordered, in claim
+  // order, so that a block only waits on the lower key blocks of its (plane,
+  // group), claimed before it
+  const int nkb = gridDim.x;
+  const int item = order != nullptr ? ticket : blockIdx.y * nkb + blockIdx.x;
+  const int kb = item % nkb, rest = item / nkb, gi = rest % groups, bh = rest / groups;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0), gboxes = gcols / 32;
+  const int ntiles = (Nq + QB - 1) / QB, nc = (DP + WB_CW - 1) / WB_CW, a_steps = ntiles * nc;
+  int* turns = order != nullptr ? order + 1 + ((size_t)bh * groups + gi) * ntiles : nullptr;
+  const float* lrow = lse + (size_t)bh * Nq;
+  const float* drow = delta + (size_t)bh * Nq;
+
+  // ring step i: query tile i / nc, chunk i % nc of q, dO, K and V
+  auto issue_a = [&](int i) {
+    const int s = i % WB_STAGES, it = i / nc, c = i - it * nc;
+    const int boxes = min(WB_CW, DP - c * WB_CW) / 32, col = c * WB_CW;
+    unsigned char* st = Ring + s * WB_A_BYTES;
+    bar_expect(&a_full[s], (uint32_t)(boxes * 4 * 64 * ROW_BYTES));
+    for (int b = 0; b < boxes; ++b) {
+      const uint32_t sub = b * 64 * ROW_BYTES;
+      tma_box(st + sub, &qmap, col + 32 * b, it * QB, bh, &a_full[s]);
+      tma_box(st + WB_CHUNK_BYTES + sub, &dmap, col + 32 * b, it * QB, bh, &a_full[s]);
+      tma_box(st + 2 * WB_CHUNK_BYTES + sub, &kmap, col + 32 * b, kb * KB, bh, &a_full[s]);
+      tma_box(st + 3 * WB_CHUNK_BYTES + sub, &vmap, col + 32 * b, kb * KB, bh, &a_full[s]);
+    }
+  };
+  // the group panels of query tile it's q and dO
+  auto issue_g = [&](int it) {
+    bar_expect(g_full, (uint32_t)(gboxes * 2 * 64 * ROW_BYTES));
+    for (int b = 0; b < gboxes; ++b) {
+      tma_box(Qg + b * 64 * ROW_BYTES, &qmap, g0 + 32 * b, it * QB, bh, g_full);
+      tma_box(dOg + b * 64 * ROW_BYTES, &dmap, g0 + 32 * b, it * QB, bh, g_full);
+    }
+  };
+  if (tid == 0) {
+    bar_expect(kg_full, (uint32_t)(gboxes * 64 * ROW_BYTES));
+    for (int b = 0; b < gboxes; ++b)
+      tma_box(Kg + b * 64 * ROW_BYTES, &kmap, g0 + 32 * b, kb * KB, bh, kg_full);
+    issue_g(0);
+    for (int i = 0; i < min(WB_STAGES, a_steps); ++i) issue_a(i);
+  }
+  auto release_a = [&](int i) {
+    const int s = i % WB_STAGES;
+    bar_arrive(&a_empty[s]);
+    if (tid == 0 && i + WB_STAGES < a_steps) {
+      bar_wait(&a_empty[s], (uint32_t)((i / WB_STAGES) & 1));
+      issue_a(i + WB_STAGES);
+    }
+  };
+
+  // warpgroup c: keys 32 c .. 32 c + 31 of S and dP; the group's columns
+  // 128 c .. 128 c + 127 of dK, dV and dq
+  const int c = tid / BWG, lane = tid & 31, warp = (tid / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int kcol0 = SK * c, kvcol0 = WB_KVC * c;
+  const uint32_t kg_s = smem_u32(Kg), qg_s = smem_u32(Qg), dog_s = smem_u32(dOg),
+                 p_s = smem_u32(Ps), ds_s = smem_u32(dSs);
+  float dk_acc[WB_KVC / 2], dv_acc[WB_KVC / 2];
+#pragma unroll
+  for (int i = 0; i < WB_KVC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  bar_wait(kg_full, 0u);
+  for (int it = 0; it < ntiles; ++it) {
+    const int lr0 = 16 * warp + g, lr1 = lr0 + 8;  // accumulator rows within the tile
+    const int r0 = it * QB + lr0, r1 = it * QB + lr1;
+    // rounded as the plain version rounds lse * log2 e (no FMA contraction)
+    const float lse0 = r0 < Nq ? __fmul_rn(lrow[r0], s_log2) : 0.f;
+    const float lse1 = r1 < Nq ? __fmul_rn(lrow[r1], s_log2) : 0.f;
+    const float del0 = r0 < Nq ? drow[r0] : 0.f, del1 = r1 < Nq ? drow[r1] : 0.f;
+
+    // S = q k^T and dP = dO v^T of the tile's 64 queries x the warpgroup's
+    // 32 keys, over DP a chunk at a time
+    float s[SK / 2], dp[SK / 2];
+    for (int cc = 0; cc < nc; ++cc) {
+      const int i = it * nc + cc, st = i % WB_STAGES;
+      bar_wait(&a_full[st], (uint32_t)((i / WB_STAGES) & 1));
+      const uint32_t q_s = smem_u32(Ring + st * WB_A_BYTES), do_s = q_s + WB_CHUNK_BYTES,
+                     k_s = q_s + 2 * WB_CHUNK_BYTES, v_s = q_s + 3 * WB_CHUNK_BYTES;
+      const int kks = min(WB_CW, DP - cc * WB_CW) / 16;
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WB_CW / 16; ++kk)
+        if (kk < kks)
+          wgmma::Mma<SK>::template ss<0, 0>(s, desc_k(q_s, QB, 0, kk), desc_k(k_s, KB, kcol0, kk),
+                                            cc > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < WB_CW / 16; ++kk)
+        if (kk < kks)
+          wgmma::Mma<SK>::template ss<0, 0>(dp, desc_k(do_s, QB, 0, kk),
+                                            desc_k(v_s, KB, kcol0, kk), cc > 0 || kk > 0);
+      mma_commit();
+      if (cc > 0) {
+        mma_wait<1>();
+        release_a(i - 1);
+      }
+    }
+    mma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    release_a(it * nc + nc - 1);
+
+    // P and dS into shared memory (the one pass's arithmetic)
+    const int kbase = kb * KB + kcol0, qbase = it * QB;
+    const bool edge = kbase + SK > n_real || qbase + QB > Nq ||
+                      (lsa && kbase < qbase + QB && kbase + SK > qbase);
+#pragma unroll
+    for (int ni = 0; ni < SK / 8; ++ni) {
+      bool keep[4] = {true, true, true, true};
+      if (drop.on())
+        keep_frag_rows(drop, (uint32_t)bh, qbase + 16 * warp, kbase + ni * 8, lane, keep);
+      float pk[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l = (e >> 1) ? lse1 : lse0;
+        float p;
+        if (!edge) {
+          p = ex2(fmaf(s[4 * ni + e], s_log2, -l));
+        } else {
+          const int key = kbase + ni * 8 + 2 * t + (e & 1), row = (e >> 1) ? r1 : r0;
+          const bool masked = key >= n_real || (lsa && key == row);
+          p = key >= Nk || row >= Nq ? 0.f
+                                     : ex2(masked ? MASKED - l : fmaf(s[4 * ni + e], s_log2, -l));
+        }
+        const float z = drop.on() ? (keep[e] ? drop.scale : 0.f) : 1.f;
+        ds[e] = p * (z * dp[4 * ni + e] - ((e >> 1) ? del1 : del0));
+        pk[e] = keep[e] ? p : 0.f;  // the 1/keep scale is applied to dv at the end
+      }
+      const int col = kcol0 + ni * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(Ps + elem_at(QB, lr0, col)) = pack_bf16(pk[0], pk[1]);
+      *reinterpret_cast<uint32_t*>(Ps + elem_at(QB, lr1, col)) = pack_bf16(pk[2], pk[3]);
+      *reinterpret_cast<uint32_t*>(dSs + elem_at(QB, lr0, col)) = pack_bf16(ds[0], ds[1]);
+      *reinterpret_cast<uint32_t*>(dSs + elem_at(QB, lr1, col)) = pack_bf16(ds[2], ds[3]);
+    }
+    fence_async_smem();
+    __syncthreads();  // the whole tile's P and dS are in shared memory
+    bar_wait(g_full, (uint32_t)(it & 1));  // the tile's q and dO group panels
+
+    // dv += (Z P)^T dO_g, dk += dS^T q_g (M = the block's 64 keys, N = the
+    // warpgroup's 128 columns, K = the tile's queries); dq_g = dS K_g (M =
+    // queries, K = the block's keys), WB_DQS columns a product
+    float dq[WB_DQS / 2];
+    auto dq_product = [&](int part) {
+#pragma unroll
+      for (int ks = 0; ks < KB / 16; ++ks)
+        wgmma::Mma<WB_DQS>::template ss<0, 1>(
+            dq, desc_k(ds_s, QB, 0, ks), desc_mn(kg_s, KB, (kvcol0 + part * WB_DQS) / 32, ks),
+            ks > 0);
+    };
+    // each warp writes its 16 rows into its box 32 columns at a time and lane
+    // 0 adds the box with TMA's bulk reduce-add; boxes past the group's
+    // columns or from D on are not sent
+    auto dq_add = [&](int part) {
+      unsigned char* box = dq_boxes + (c * 4 + warp) * DQ_BOX_BYTES;
+#pragma unroll
+      for (int b = 0; b < WB_DQS / 32; ++b) {
+        const int cl = kvcol0 + part * WB_DQS + 32 * b, col0 = g0 + cl;
+        if (cl >= gcols || col0 >= D) break;
+        if (lane == 0) bulk_wait_read<0>();  // the box's last add has read it
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(box + f32_box_at(g + 8 * h, 8 * i + 2 * t)) =
+                make_float2(dq[4 * (4 * b + i) + 2 * h], dq[4 * (4 * b + i) + 2 * h + 1]);
+        fence_async_smem();
+        __syncwarp();
+        if (lane == 0) {
+          tma_reduce_add(box, &dqmap, col0, it * QB + 16 * warp, bh);
+          bulk_commit();
+        }
+      }
+    };
+    mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < QB / 16; ++ks)
+      wgmma::Mma<WB_KVC>::template ss<1, 1>(dv_acc, desc_mn(p_s, QB, 0, ks),
+                                            desc_mn(dog_s, QB, kvcol0 / 32, ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < QB / 16; ++ks)
+      wgmma::Mma<WB_KVC>::template ss<1, 1>(dk_acc, desc_mn(ds_s, QB, 0, ks),
+                                            desc_mn(qg_s, QB, kvcol0 / 32, ks), 1);
+    dq_product(0);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+    if (turns != nullptr) {  // the key blocks before this one have added into tile it
+      if (tid == 0) wait_turn(turns + it, kb);
+      __syncthreads();
+      if (lane == 0) fence_async_global();
+    }
+    dq_add(0);
+#pragma unroll 1
+    for (int part = 1; part < WB_KVC / WB_DQS; ++part) {
+      mma_fence();
+      dq_product(part);
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(dq);
+      dq_add(part);
+    }
+    if (turns != nullptr && lane == 0) {  // every add of the block has landed
+      bulk_wait<0>();
+      fence_async_global();
+    }
+    // every thread is done with the tile's group panels, P and dS
+    __syncthreads();
+    if (tid == 0) {
+      if (turns != nullptr) red_release(turns + it, 1);  // the next key block's turn
+      if (it + 1 < ntiles) issue_g(it + 1);
+    }
+  }
+  if (lane == 0) bulk_wait<0>();  // this warp's dq adds are complete
+
+  // dk and dv of the block's 64 keys and the warpgroup's columns of the
+  // group (accumulator rows are keys), zero from D on
+  const float dv_scale = drop.on() ? drop.scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < WB_KVC / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kb * KB + 16 * warp + g + 8 * (e >> 1);
+      const int cl = kvcol0 + 8 * i + 2 * t + (e & 1), col = g0 + cl;
+      if (key < Nk && cl < gcols) {
+        const size_t at = ((size_t)bh * Nk + key) * DP + col;
+        dk[at] = __float2bfloat16_rn(col < D ? dk_acc[4 * i + e] * dk_scale : 0.f);
+        dv[at] = __float2bfloat16_rn(col < D ? dv_acc[4 * i + e] * dv_scale : 0.f);
+      }
+    }
+}
+
+int launch_wide_bwd(const void* q, const void* k, const void* v, const void* dohm,
+                    const float* lse, const float* delta, float* dq_acc, bf16* dk, bf16* dv,
+                    int BH, int Nq, int Nk, int n_real, int D, int DP, int lsa, Drop drop,
+                    float s_log2, float dk_scale, int* order, cudaStream_t stream) {
+  constexpr int bytes = wide_bwd_smem_bytes();
+  const int groups = wb_groups(DP);
+  if ((long long)BH * groups > 65535) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap qmap, kmap, vmap, dmap, dqmap;
+  int rc;
+  if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, QB)) != 0 ||
+      (rc = hopper::make_panel_map(&dmap, dohm, BH, Nq, DP, QB)) != 0 ||
+      (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, 64)) != 0 ||
+      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, 64)) != 0 ||
+      (rc = hopper::make_f32_map(&dqmap, dq_acc, BH, Nq, DP, 16)) != 0)
+    return rc;
+  if (order != nullptr) {  // the ticket and a turn counter per (plane, group, query tile)
+    const cudaError_t zero = cudaMemsetAsync(
+        order, 0, (1 + (size_t)BH * groups * ((Nq + QB - 1) / QB)) * sizeof(int), stream);
+    if (zero != cudaSuccess) return (int)zero;
+  }
+  flash_bwd_wide_kernel<<<dim3((Nk + 63) / 64, BH * groups), BWD_THREADS, bytes, stream>>>(
+      qmap, kmap, vmap, dmap, dqmap, lse, delta, dk, dv, Nq, Nk, n_real, D, DP, lsa, drop, s_log2,
+      dk_scale, order, groups, wb_group_width(DP));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // float32: one pass on FFMA
 
 constexpr int F32_QT = 32;  // queries per tile
@@ -813,43 +1154,53 @@ int launch_one_pass(const void* q, const void* k, const void* v, const void* doh
   return (int)cudaGetLastError();
 }
 
+// the float32 backward: prep, dq zeroed, one FFMA pass
 template <int DP>
-int launch(bool f32, const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, const void* dlse, void* dq, void* dk, void* dv,
-           void* dohm, void* delta, void* dq_acc, int* order, int BH, int Nq, int Nk,
-           int n_real, int D, RowLayout ol, int lsa, Drop drop, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, const void* dlse, void* dq, void* dk, void* dv, void* dohm,
+               void* delta, int* order, int BH, int Nq, int Nk, int n_real, int D, RowLayout ol,
+               int lsa, Drop drop, cudaStream_t stream) {
   const long long rows = (long long)BH * Nq;
   const unsigned prep_blocks = (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
+  flash_bwd_prep_kernel<float><<<prep_blocks, THREADS, 0, stream>>>(
+      (const float*)o, (const float*)dout, (const float*)dlse, (float*)dohm, (float*)delta,
+      BH, Nq, D, DP, ol);
   cudaError_t err;
-  if (f32) {
-    flash_bwd_prep_kernel<float><<<prep_blocks, THREADS, 0, stream>>>(
-        (const float*)o, (const float*)dout, (const float*)dlse, (float*)dohm, (float*)delta,
-        BH, Nq, D, DP, ol);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    // the key blocks add dq's partial sums into dq itself
-    err = cudaMemsetAsync(dq, 0, (size_t)rows * DP * sizeof(float), stream);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // the key blocks add dq's partial sums into dq itself
+  err = cudaMemsetAsync(dq, 0, (size_t)rows * DP * sizeof(float), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (order != nullptr) {  // the ticket and a turn counter per (plane, query tile)
+    err = cudaMemsetAsync(order, 0, (1 + (size_t)BH * ((Nq + F32_QT - 1) / F32_QT)) * sizeof(int),
+                          stream);
     if (err != cudaSuccess) return (int)err;
-    if (order != nullptr) {  // the ticket and a turn counter per (plane, query tile)
-      err = cudaMemsetAsync(order, 0, (1 + (size_t)BH * ((Nq + F32_QT - 1) / F32_QT)) * sizeof(int),
-                            stream);
-      if (err != cudaSuccess) return (int)err;
-    }
-    constexpr int bytes = f32_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_f32_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    constexpr int KB = f32_keys<DP>();
-    flash_bwd_f32_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), THREADS, bytes, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dohm,
-        (const float*)lse, (const float*)delta, (float*)dq, (float*)dk, (float*)dv, Nq, Nk,
-        n_real, D, lsa, drop, order);
-    return (int)cudaGetLastError();
   }
+  constexpr int bytes = f32_smem_bytes<DP>();
+  err = cudaFuncSetAttribute(flash_bwd_f32_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int KB = f32_keys<DP>();
+  flash_bwd_f32_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dohm,
+      (const float*)lse, (const float*)delta, (float*)dq, (float*)dk, (float*)dv, Nq, Nk,
+      n_real, D, lsa, drop, order);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 backward at any DP: prep, the accumulator zeroed, the one pass
+// (column groups above DP 256), convert
+int launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                const void* lse, const void* dlse, void* dq, void* dk, void* dv, void* dohm,
+                void* delta, void* dq_acc, int* order, int BH, int Nq, int Nk, int n_real, int D,
+                int DP, RowLayout ol, int lsa, Drop drop, cudaStream_t stream) {
+  if (DP % 32 != 0 || DP < 32 || dq_acc == nullptr) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)BH * Nq;
+  const unsigned prep_blocks = (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
   flash_bwd_prep_kernel<bf16><<<prep_blocks, THREADS, 0, stream>>>(
       (const bf16*)o, (const bf16*)dout, (const float*)dlse, (bf16*)dohm, (float*)delta, BH, Nq,
       D, DP, ol);
+  cudaError_t err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
   const long long n4 = rows * DP / 4;
   err = cudaMemsetAsync(dq_acc, 0, (size_t)n4 * 16, stream);
   if (err != cudaSuccess) return (int)err;
@@ -879,13 +1230,16 @@ int one_pass::launch(const void* q, const void* k, const void* v, const void* do
     case 192: return launch_one_pass<192>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, order, stream);
     case 224: return launch_one_pass<224>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, order, stream);
     case 256: return launch_one_pass<256>(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D, lsa, drop, s_log2, dk_scale, order, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default:  // the column groups
+      if (DP <= 256 || DP % 32 != 0) return (int)cudaErrorInvalidValue;
+      return launch_wide_bwd(q, k, v, dohm, lse, delta, dq_acc, dk, dv, BH, Nq, Nk, n_real, D,
+                             DP, lsa, drop, s_log2, dk_scale, order, stream);
   }
 }
 
 // Returns a CUDA error code (0 on success). q (BH, Nq, DP), k, v (BH, Nk,
 // DP) as the forward read them (bf16 when f32 == 0, float32 when 1; DP =
-// 32, 64, ..., 256); o and dout at element (bh, row, d) -> (bh / H) *
+// 32, 64, ..., 256; bf16 any multiple of 32, above 256 on column groups); o and dout at element (bh, row, d) -> (bh / H) *
 // o_batch + (bh % H) * o_head + row * o_row + d, d < D, in the same dtype;
 // lse (BH, Nq) float32 natural log from the forward; dlse (BH, Nq) float32
 // or null. Writes dq (BH, Nq, DP), dk and dv (BH, Nk, DP), zero past D.
@@ -905,16 +1259,18 @@ extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void*
   const Drop drop{seed, site, threshold, drop_scale};
   const RowLayout ol{H, o_batch, o_head, o_row};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool f = f32 != 0;
+  if (f32 == 0)
+    return launch_bf16(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order,
+                       BH, Nq, Nk, n_real_k, D, DP, ol, lsa, drop, s);
   switch (DP) {
-    case 32: return launch<32>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 64: return launch<64>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 96: return launch<96>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 128: return launch<128>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 160: return launch<160>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 192: return launch<192>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 224: return launch<224>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    case 256: return launch<256>(f, q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, dq_acc, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 32: return launch_f32<32>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 64: return launch_f32<64>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 96: return launch_f32<96>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 128: return launch_f32<128>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 160: return launch_f32<160>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 192: return launch_f32<192>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 224: return launch_f32<224>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
+    case 256: return launch_f32<256>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -928,10 +1284,11 @@ int bwd_smem(bool f32) {
 
 // Dynamic shared memory of a block of the backward's main kernel at padded
 // head width dp: in bf16 the one pass (which attention_bwd.cu launches too
-// up to DP 160), with f32 the float32 pass. 0 for a width it is not built
-// for.
+// up to DP 160; above 256 the column groups'), with f32 the float32 pass. 0
+// for a width it is not built for.
 extern "C" int v1t_flash_attention_bwd_smem(int dp, int f32) {
   const bool f = f32 != 0;
+  if (!f && dp > 256) return dp % 32 == 0 ? wide_bwd_smem_bytes() : 0;
   switch (dp) {
     case 32: return bwd_smem<32>(f);
     case 64: return bwd_smem<64>(f);

@@ -35,7 +35,12 @@
 //     once) and the fp32 LayerNorm, and writes them rounded, once, into a
 //     swizzled [rows][KP] panel that every output tile reads;
 //   - streamed (no LayerNorm, 16-byte aligned rows: fc2's hidden layer):
-//     x chunks [128][64] ride the ring beside w's.
+//     x chunks [128][64] ride the ring beside w's. A LayerNorm wider than a
+//     panel (K > 640: emb 768's qkv and fc1) runs ln_rows_kernel first,
+//     which writes the rows' bf16 LayerNorm output (the panel's arithmetic)
+//     into scratch with 16-byte aligned rows, and then streams it: one
+//     more write and read of M x K bf16 (162 MB at B 64 x 1654 x 768, ~0.1
+//     ms of the card's bytes) against a panel that no longer fits.
 // The epilogue of a tile: the accumulators into an fp32 tile of their own
 // (not the ring, so that the producer runs ahead into the next tile); then
 // a loop over units of 8 columns, compiled once (an epilogue unrolled over
@@ -71,6 +76,7 @@ __host__ __device__ constexpr int up(int a, int b) { return cdiv(a, b) * b; }
 struct Plan {
   int stream, bm, nt, parts, n_tiles;  // parts: tiles a head-major plane
   int stages, stage_bytes, panel_bytes, smem;
+  int ln_rows;  // a LayerNorm past a panel: ln_rows_kernel first, then x streamed
 };
 
 // row stride (elements) of the staged output tile, fp32 and bf16: 32 bytes
@@ -96,7 +102,10 @@ __host__ __device__ inline Plan linear_plan(int M, int N, int K, int KP, int hea
     p.n_tiles = cdiv(N, MAX_NT);
     p.nt = up(cdiv(N, p.n_tiles), 32);
   }
-  p.stream = !ln && x_aligned;
+  // a LayerNorm wider than a panel: its rows normalised by ln_rows_kernel
+  // into 16-byte aligned rows, which then stream like an aligned x
+  p.ln_rows = ln && KP > MAX_PANEL_K;
+  p.stream = (!ln && x_aligned) || p.ln_rows;
   if (!p.stream && KP > MAX_PANEL_K) return p;
   for (int bm = 128; bm >= 64; bm /= 2) {
     if (p.stream && bm != 128) break;
@@ -486,6 +495,44 @@ __global__ void __launch_bounds__(128 * (WGS + 1), 1) ln_linear_kernel(
   }
 }
 
+// The LayerNorm of rows wider than a panel (K > 640): out (M, KS) bf16, KS =
+// K rounded up to 8 (16-byte aligned rows, zero from K on) = bf16(LN(z))
+// with z = x (+ pro_row, rounded once), the statistics in fp32 as the panel
+// computes them (a lane's columns k = lane + 32 i, summed in that order,
+// then across the warp), one warp a row; the streamed kernel then takes out
+// as its x. Replaces nothing on the TPU by itself: it is the panel's
+// prologue (fused_mha.py :567's and fused_mlp.py :111's LayerNorm) run as a
+// pass of its own where a row does not fit a lane's registers.
+constexpr int LN_ROWS_THREADS = 256;
+
+__global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ pro_row,
+    const float* __restrict__ gamma, const float* __restrict__ beta, bf16* __restrict__ out,
+    int M, int K, int KS, int rows_per_batch) {
+  const int lane = threadIdx.x & 31;
+  const long long m = (long long)blockIdx.x * (LN_ROWS_THREADS / 32) + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const bf16* xr = x + m * K;
+  const bf16* br = pro_row != nullptr ? pro_row + (m / rows_per_batch) * K : nullptr;
+  auto z_at = [&](int k) {
+    float z = to_f(xr[k]);
+    if (br != nullptr) z = round_bf16(z + to_f(br[k]));  // a bf16 add in the reference
+    return z;
+  };
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += z_at(k);
+  const float mean = warp_sum(s) / K;
+  float var = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = z_at(k) - mean;
+    var += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / K + 1e-5f);
+  bf16* orow = out + m * KS;
+  for (int k = lane; k < KS; k += 32)
+    orow[k] = __float2bfloat16_rn(k < K ? (z_at(k) - mean) * rstd * gamma[k] + beta[k] : 0.f);
+}
+
 template <int NT, int WGS, bool STREAM>
 int launch_kernel(const Plan& P, const CUtensorMap& wmap, const CUtensorMap& xmap, const bf16* x,
                   const float* gamma, const float* beta, const bf16* pro_row, const float* bias,
@@ -519,9 +566,11 @@ int launch_nt(const Plan& P, const CUtensorMap& wmap, const CUtensorMap& xmap, c
 // Returns a CUDA error code (0 on success). w is (N, KP) bf16, zero-padded
 // from K to KP = a multiple of 32; with heads > 0 its rows are each head's
 // head_dim rows zero-padded to head_pad, N / head_dim * head_pad rows in
-// all. A LayerNorm (gamma/beta not null) takes K <= 640, and so does an x
-// without it whose rows are not 16-byte aligned (or that starts off a
-// 16-byte boundary; the caller pads a wider one). Null pointers switch off
+// all. A LayerNorm (gamma/beta not null) wider than K 640 takes ln_x,
+// scratch of (M, K rounded up to 8) bf16 from a 16-byte aligned start: its
+// rows are normalised there first (ln_rows_kernel), then streamed. An x
+// without a LayerNorm whose rows are not 16-byte aligned (or that starts off
+// a 16-byte boundary) takes K <= 640 (the caller pads a wider one). Null pointers switch off
 // the LayerNorm (gamma/beta), the row bias before it (pro_row), the output
 // bias, the residual and the row bias added to the residual (res_row).
 // heads > 0 writes y head-major for attention.cu: (N / (heads*head_dim), B,
@@ -532,14 +581,13 @@ int launch_nt(const Plan& P, const CUtensorMap& wmap, const CUtensorMap& xmap, c
 extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
                              const void* beta, const void* pro_row,
                              const void* bias, const void* residual,
-                             const void* res_row, void* y, void* pre, int M, int N,
-                             int K, int KP, int rows_per_batch, int gelu, int heads,
+                             const void* res_row, void* y, void* pre, void* ln_x, int M,
+                             int N, int K, int KP, int rows_per_batch, int gelu, int heads,
                              int head_dim, int head_pad, unsigned seed, unsigned site,
                              unsigned threshold, float drop_scale, void* stream) {
   const uintptr_t x_at = reinterpret_cast<uintptr_t>(x);
   if (M < 1 || N < 1 || K < 1 || KP % 32 != 0 || KP < K || rows_per_batch < 1 ||
-      M % rows_per_batch != 0 || (x_at & 1) || (reinterpret_cast<uintptr_t>(y) & 15) ||
-      (gamma != nullptr && K > MAX_PANEL_K))
+      M % rows_per_batch != 0 || (x_at & 1) || (reinterpret_cast<uintptr_t>(y) & 15))
     return (int)cudaErrorInvalidValue;
   if (heads && (head_dim < 1 || head_pad < head_dim || head_pad % 32 != 0 ||
                 N % (heads * head_dim) != 0 || residual != nullptr || pre != nullptr ||
@@ -549,6 +597,19 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
   const Plan P = linear_plan(M, N, K, KP, heads, head_dim, head_pad, gamma != nullptr, x_aligned,
                              residual != nullptr);
   if (P.smem == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (P.ln_rows) {  // the LayerNorm's rows into ln_x, which streams as x
+    const int KS = up(K, 8);
+    if (ln_x == nullptr || (reinterpret_cast<uintptr_t>(ln_x) & 15)) return (int)cudaErrorInvalidValue;
+    ln_rows_kernel<<<(unsigned)cdiv(M, LN_ROWS_THREADS / 32), LN_ROWS_THREADS, 0, s>>>(
+        (const bf16*)x, (const bf16*)pro_row, (const float*)gamma, (const float*)beta,
+        (bf16*)ln_x, M, K, KS, rows_per_batch);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    x = ln_x;
+    K = KS;
+    gamma = beta = pro_row = nullptr;
+  }
   const Args g{M, N, K, KP, rows_per_batch, M / rows_per_batch, gelu, heads, head_dim, head_pad};
   CUtensorMap wmap, xmap;
   memset(&wmap, 0, sizeof(wmap));
@@ -558,7 +619,6 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
   if (rc != 0) return rc;
   if (P.stream && (rc = hopper::make_map(&xmap, x, 1, M, K, K, P.bm)) != 0) return rc;
   const Drop drop{seed, site, threshold, drop_scale};
-  cudaStream_t s = (cudaStream_t)stream;
   auto* xb = (const bf16*)x;
   auto* ga = (const float*)gamma;
   auto* be = (const float*)beta;
@@ -580,11 +640,12 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
 
 // One number of the ln_linear launch for these operands (field: 0 streamed
 // x, 1 rows a block, 2 tile columns, 3 tiles, 4 ring stages, 5 shared
-// memory a block, 0 when no launch fits), x's rows 16-byte aligned or not.
+// memory a block, 0 when no launch fits; 6 the LayerNorm's rows normalised
+// first by ln_rows_kernel), x's rows 16-byte aligned or not.
 extern "C" int v1t_ln_linear_plan(int M, int N, int K, int KP, int heads, int head_dim,
                                   int head_pad, int ln, int x_aligned, int residual, int field) {
   const Plan P = linear_plan(M, N, K, KP, heads, head_dim, head_pad, ln != 0, x_aligned != 0,
                              residual != 0);
-  const int values[6] = {P.stream, P.bm, P.nt, P.n_tiles, P.stages, P.smem};
-  return field >= 0 && field < 6 ? values[field] : -1;
+  const int values[7] = {P.stream, P.bm, P.nt, P.n_tiles, P.stages, P.smem, P.ln_rows};
+  return field >= 0 && field < 7 ? values[field] : -1;
 }

@@ -54,6 +54,12 @@
 //      without --deterministic. It replaced one float atomic a column and
 //      block: qkv 0.645 and fc1 0.283 ms against the parent's 0.652 and
 //      0.296 (tools/ab_fixed_order.py, an NVIDIA H100 80GB HBM3 at 700 W).
+//      Past K 640 (emb 768) the BM x K rows no longer fit: each output
+//      tile's fp32 products go to (M, K) float32 scratch in device memory
+//      (dln), shared memory keeps the 4 statistics a row, and the same
+//      block reads its rows back (L2) for the row sums and dz; the column
+//      sums stay block partials in a fixed order. One block a SM (255
+//      registers a thread: the 128-register bound of two spilled).
 // 2. ln_linear_wgrad: dW = dY'^T A and db = colsum(dY') over the M =
 //    B x N rows, A the layer's input (the saved activation, or the LayerNorm
 //    output from 1); the TPU kernels' per-batch weight-gradient products
@@ -107,8 +113,8 @@ namespace {
 // chunk's rows DX_LD apart (80 bytes: ldmatrix rows on distinct banks)
 constexpr int DX_KT = 160, DX_BC = 32, DX_LD = DX_BC + 8, DX_GRAN = DX_LD / 8;
 constexpr int DX_MAX_SMEM = 232448;  // a block's shared memory on an H100
-// the LayerNorm backward takes K <= MAX_LN_K (its BM x K fp32 d(ln) rows in
-// shared memory)
+// the LayerNorm backward keeps its BM x K fp32 d(ln) rows in shared memory
+// up to K = MAX_LN_K; wider ones go to device memory (dln_global)
 constexpr int MAX_LN_K = 640;
 
 // Where logical element (row, col) of an (M, N) operand lives: row-major, or
@@ -130,6 +136,7 @@ struct DxPlan {
   int k_tiles;   // output tiles of DX_KT columns
   int aligned;   // dY' rows copied straight into the product's tiles (else staged)
   int a_off, s_off, e_off, smem;  // byte offsets of the regions; the total
+  int dln_global;  // LayerNorm past MAX_LN_K: the d(ln) rows in (M, K) fp32 scratch
 };
 
 // Shared memory, from 0: the W^T ring [stages][DX_KT][DX_LD]; the dY' tiles
@@ -138,7 +145,9 @@ struct DxPlan {
 // [stages][bm][DX_LD] for rows that are not 16-byte aligned; the fp32
 // products: plain, one output tile [bm][DX_KT + 4] after the ring;
 // LayerNorm, the d(ln) rows [bm][K + 4] and 4 statistics a row, over the
-// ring once it is free when K fits one output tile (else after it).
+// ring once it is free when K fits one output tile (else after it); past
+// MAX_LN_K only the statistics, after the ring (the rows go to scratch in
+// device memory).
 // Resident is chosen over the rest, 128 rows over 64; then the deepest
 // ring of 4, 3, 2 that leaves room for two blocks a SM, else the deepest
 // that fits; smem 0 when no launch fits.
@@ -146,6 +155,7 @@ DxPlan dx_plan(int K, int NS, bool aligned, bool ln) {
   DxPlan p{};
   p.k_tiles = (K + DX_KT - 1) / DX_KT;
   p.aligned = aligned;
+  p.dln_global = ln && K > MAX_LN_K;
   for (int resident = p.k_tiles > 1; resident >= 0; --resident)
     for (int bm = 128; bm >= 64; bm /= 2)
       for (int limit : {DX_MAX_SMEM / 2 - 1024, DX_MAX_SMEM})
@@ -153,7 +163,9 @@ DxPlan dx_plan(int K, int NS, bool aligned, bool ln) {
           const int w = st * DX_KT * DX_LD * 2;
           const int a = resident ? bm * (NS + 8) * 2 : (aligned ? st : 2) * bm * DX_LD * 2;
           const int ring = w + a + (aligned ? 0 : st * bm * DX_LD * 2);
-          const int e = ln ? bm * (p.k_tiles * DX_KT + 4) * 4 + bm * 16 : bm * (DX_KT + 4) * 4;
+          const int e = p.dln_global ? bm * 16
+                        : ln ? bm * (p.k_tiles * DX_KT + 4) * 4 + bm * 16
+                             : bm * (DX_KT + 4) * 4;
           const int e_off = ln && p.k_tiles == 1 && e <= ring ? 0 : ring;
           const int smem = e_off + e > ring ? e_off + e : ring;
           if (smem > limit) continue;
@@ -178,8 +190,10 @@ __device__ __forceinline__ void cp_async_wait_ring(int stages) {
 // dX = dY' W (W^T given as wt) for the block's BM rows. dy is 16-byte
 // aligned with dy_shift = 0 when P.aligned; else it is dY's start rounded
 // down to 16 bytes and dY's element e lies at dy[dy_shift + e].
-template <int WM, bool LN>
-__global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
+// (two blocks a SM where the d(ln) rows share shared memory with the ring;
+// past MAX_LN_K one, so that the 8-warp block keeps its registers unspilled)
+template <int WM, bool LN, bool DLN_GLOBAL = false>
+__global__ void __launch_bounds__(64 * WM, LN && !DLN_GLOBAL ? 2 : 1) ln_linear_dx_kernel(
     const bf16* __restrict__ dy, Layout L, int dy_shift, Drop drop_in,
     const bf16* __restrict__ wt, bf16* __restrict__ dx, int M, int K, int NS, DxPlan P,
     // plain epilogue: fc1's pre-GELU activation and keep mask
@@ -188,7 +202,7 @@ __global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ pro_row,
     const float* __restrict__ gamma, const float* __restrict__ beta,
     const bf16* __restrict__ dres, bf16* __restrict__ ln_out, float* __restrict__ col_part,
-    int brow) {
+    int brow, float* __restrict__ dln) {
   constexpr int BM = 32 * WM, T = 64 * WM, NW = T / 32;
   constexpr int DY_COPIES = BM * (DX_BC / 8) / T;  // aligned dY granules a thread, a chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -343,8 +357,25 @@ __global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
         }
     }
   };
-  // a tile's fp32 products into Es (LayerNorm: into the d(ln) rows)
+  // a tile's fp32 products into Es (LayerNorm: into the d(ln) rows; past
+  // MAX_LN_K into the scratch rows of device memory)
   auto keep_tile = [&](int kt) {
+    if constexpr (DLN_GLOBAL) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 10; ++ni)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = warp_m * 32 + mi * 16 + g + half * 8;
+            const int col = kt * DX_KT + warp_n * 80 + ni * 8 + 2 * t;
+            if (r >= rows) continue;
+            float* dst = dln + (size_t)(m0 + r) * K + col;
+            if (col < K) dst[0] = acc[mi][ni][2 * half];
+            if (col + 1 < K) dst[1] = acc[mi][ni][2 * half + 1];
+          }
+      return;
+    }
     float* et = Es + (LN ? kt * DX_KT : 0);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -380,7 +411,7 @@ __global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
     products(a_tile(c, s), Ws + (s % ST) * DX_KT * DX_LD);
     if (c != NC - 1) continue;
     if (LN) {  // the last tile waits for the ring to be free (it may share it)
-      if (kt + 1 < P.k_tiles) keep_tile(kt);
+      if (DLN_GLOBAL || kt + 1 < P.k_tiles) keep_tile(kt);
       continue;
     }
 
@@ -431,14 +462,17 @@ __global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
 
   cp_async_wait<0>();
   __syncthreads();  // the ring is free
-  keep_tile(P.k_tiles - 1);
-  __syncthreads();  // every d(ln) row is in shared memory
+  if (!DLN_GLOBAL) keep_tile(P.k_tiles - 1);
+  __syncthreads();  // every d(ln) row is in shared memory (or the block's scratch rows)
+  // the d(ln) rows: row r's element k at E[r * eld + k]
+  const float* E = DLN_GLOBAL ? dln + (size_t)m0 * K : Es;
+  const int eld = DLN_GLOBAL ? K : ELD;
 
   // LayerNorm backward. 1) each row's statistics, one warp per row, 4 rows
   // at a time (independent shuffle chains); the per-lane sums run in the
   // order of ln_linear.cu's registers
   constexpr int LN_ROWS = 4;
-  float* stats = Es + BM * ELD;  // [BM][4]: mean, rstd, mean(dxh), mean(dxh xhat)
+  float* stats = Es + (DLN_GLOBAL ? 0 : BM * ELD);  // [BM][4]: mean, rstd, mean(dxh), mean(dxh xhat)
   auto z_at = [&](const bf16* xr, const bf16* br, int k) {
     float z = to_f(xr[k]);
     if (br != nullptr) z = round_bf16(z + to_f(br[k]));
@@ -472,7 +506,7 @@ __global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
 #pragma unroll
       for (int u = 0; u < LN_ROWS; ++u) {
         const int r = min(r0 + u * NW, rows - 1);
-        const float dxh = Es[r * ELD + k] * gamma[k];
+        const float dxh = E[r * eld + k] * gamma[k];
         s1[u] += dxh;
         s2[u] += dxh * ((z_at(xr[u], br[u], k) - mean[u]) * rstd[u]);
       }
@@ -511,7 +545,7 @@ __global__ void __launch_bounds__(64 * WM, LN ? 2 : 1) ln_linear_dx_kernel(
       for (int r = r0; r < r1; ++r) {
         const size_t at = (size_t)(m0 + r) * K + k;
         const float xhat = (z_at(x + at - k, br, k) - stats[r * 4 + 0]) * stats[r * 4 + 1];
-        const float dl = Es[r * ELD + k];
+        const float dl = E[r * eld + k];
         dg += dl * xhat;
         db += dl;
         if (ln_out != nullptr) ln_out[at] = __float2bfloat16_rn(xhat * gk + bk);
@@ -570,19 +604,19 @@ __global__ void __launch_bounds__(SUM_WARPS * 32) ln_dx_column_sums_kernel(
   }
 }
 
-template <int WM, bool LN>
+template <int WM, bool LN, bool DLN_GLOBAL = false>
 int launch_dx(const DxPlan& P, cudaStream_t stream, const bf16* dy, Layout L, int dy_shift,
               Drop din, const bf16* wt, bf16* dx, int M, int K, int NS, const bf16* pre,
               Drop dout, const bf16* x, const bf16* pro_row, const float* gamma,
               const float* beta, const bf16* dres, bf16* ln_out, float* dgamma, float* dbeta,
-              float* dbrow, float* col_part) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_linear_dx_kernel<WM, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+              float* dbrow, float* col_part, float* dln) {
+  cudaError_t err = cudaFuncSetAttribute(ln_linear_dx_kernel<WM, LN, DLN_GLOBAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (M + 32 * WM - 1) / (32 * WM);
-  ln_linear_dx_kernel<WM, LN><<<(unsigned)blocks, 64 * WM, P.smem, stream>>>(
+  ln_linear_dx_kernel<WM, LN, DLN_GLOBAL><<<(unsigned)blocks, 64 * WM, P.smem, stream>>>(
       dy, L, dy_shift, din, wt, dx, M, K, NS, P, pre, dout, x, pro_row, gamma, beta, dres,
-      ln_out, col_part, dbrow != nullptr);
+      ln_out, col_part, dbrow != nullptr, dln);
   if ((err = cudaGetLastError()) != cudaSuccess || !LN) return (int)err;
   const int rows = dbrow != nullptr ? L.batches : 0;
   ln_dx_column_sums_kernel<<<dim3((unsigned)((K + 31) / 32), 2 + rows), SUM_WARPS * 32, 0,
@@ -1064,8 +1098,8 @@ int launch(const Plan& P, const CUtensorMap& dymap, const CUtensorMap& amap, con
 // (a multiple of 32), NP = N / head_dim * head_pad. threshold_in > 0
 // applies the keep mask (seed, site_in) to dy. Plain epilogue (x == null):
 // dx (M, K) bf16, with pre (M, K) set also fc1's keep mask (seed, site_out,
-// threshold_out) and GELU'(pre). LayerNorm epilogue (x != null, K <= 640):
-// dx receives dz = the LayerNorm backward of dX at z = x (+ pro_row), plus
+// threshold_out) and GELU'(pre). LayerNorm epilogue (x != null; K > 640
+// takes dln, (M, K) float32 scratch for the d(ln) rows): dx receives dz = the LayerNorm backward of dX at z = x (+ pro_row), plus
 // dres when not null; ln_out, when not null, the bf16 LayerNorm output;
 // dgamma, dbeta (K) and dbrow (B, K) (null: none) receive fp32 sums, added
 // in an order fixed by the shape through col_part, float32 scratch of (2
@@ -1078,12 +1112,14 @@ extern "C" int v1t_ln_linear_dx(const void* dy, void* dx, const void* wt, int M,
                                 unsigned threshold_out, float drop_scale, const void* x,
                                 const void* pro_row, const void* gamma, const void* beta,
                                 const void* dres, void* ln_out, void* dgamma, void* dbeta,
-                                void* dbrow, void* col_part, void* stream) {
+                                void* dbrow, void* col_part, void* dln, void* stream) {
   const bool ln = x != nullptr;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(dy);
   const int shift = (int)((addr & 15) >> 1);
   if (M < 1 || N < 1 || K < 1 || rows_per_batch < 1 || M % rows_per_batch != 0 ||
-      (ln && (K > MAX_LN_K || col_part == nullptr || M / rows_per_batch > 65533)) || (addr & 1))
+      (ln && (col_part == nullptr || M / rows_per_batch > 65533 ||
+              (K > MAX_LN_K && dln == nullptr))) ||
+      (addr & 1))
     return (int)cudaErrorInvalidValue;
   if (heads ? head_dim < 1 || head_pad < head_dim || head_pad % DX_BC != 0 ||
                   N % (heads * head_dim) != 0 || NP != N / head_dim * head_pad || shift != 0
@@ -1100,15 +1136,17 @@ extern "C" int v1t_ln_linear_dx(const void* dy, void* dx, const void* wt, int M,
   cudaStream_t s = (cudaStream_t)stream;
   auto* w = (const bf16*)wt;
   if (ln) {
-    auto run = plan.bm == 128 ? &launch_dx<4, true> : &launch_dx<2, true>;
+    auto run = plan.dln_global ? (plan.bm == 128 ? &launch_dx<4, true, true> : &launch_dx<2, true, true>)
+                               : (plan.bm == 128 ? &launch_dx<4, true> : &launch_dx<2, true>);
     return run(plan, s, dyb, L, sh, din, w, (bf16*)dx, M, K, NP, nullptr, dout, (const bf16*)x,
                (const bf16*)pro_row, (const float*)gamma, (const float*)beta,
                (const bf16*)dres, (bf16*)ln_out, (float*)dgamma, (float*)dbeta, (float*)dbrow,
-               (float*)col_part);
+               (float*)col_part, (float*)dln);
   }
   auto run = plan.bm == 128 ? &launch_dx<4, false> : &launch_dx<2, false>;
   return run(plan, s, dyb, L, sh, din, w, (bf16*)dx, M, K, NP, (const bf16*)pre, dout, nullptr,
-             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
+             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             nullptr);
 }
 
 // Dynamic shared memory of the ln_linear_dx launch for a K-wide output and

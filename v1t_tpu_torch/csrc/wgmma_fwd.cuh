@@ -10,7 +10,8 @@
 namespace wgmma_fwd {
 
 // One launch over q (BH, Nq, DP), k and v (BH, Nk, DP) bf16, rows
-// zero-padded from D to DP = 32, 64, ..., 256: o = softmax(q.k^T, masked) v
+// zero-padded from D to DP = 32, 64, ..., 256 or any multiple of 32 above
+// (the column groups: natural-log units only, q_scale null, o_pad 0): o = softmax(q.k^T, masked) v
 // into out at element (bh, row, d) -> ol.at(bh, row) + d, d < D. With
 // q_scale null, the scores are natural-log units (p = 2^(q.k log2 e - m))
 // and lse, when not null, receives the (BH, Nq) natural-log LSE; with

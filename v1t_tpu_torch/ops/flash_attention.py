@@ -23,7 +23,11 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   kernels run and on which tiles: in bf16 one wgmma pass that adds dq into
   a float32 accumulator (above ``WIDE_DP`` on blocks of 64 keys, dK and dV
   split by columns); in float32 one FFMA pass that adds dq into the output
-  itself.
+  itself. bf16 takes any padded head width: above ``MAX_HEAD_PAD`` (256)
+  both kernels split o's (and dK's, dV's, dq's) columns into groups of at
+  most ``WIDE_GROUP``, a block a group, each recomputing the scores over
+  the whole width from chunks of ``WIDE_CHUNK`` columns. float32 stops at
+  ``MAX_HEAD_PAD``.
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -54,8 +58,9 @@ Tensor = torch.Tensor
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 MASKED = -1e30  # the kernels' masked score (log2 units)
-MAX_HEAD_PAD = 256  # padded head widths the kernels are built for: 32, 64, ..., 256
+MAX_HEAD_PAD = 256  # padded head widths of the float32 kernels, and of the bf16 ones' panels
 WIDE_DP = 160  # the bf16 kernels' tiles change above this padded head width
+WIDE_GROUP, WIDE_CHUNK = 256, 64  # bf16 past MAX_HEAD_PAD: o's columns a block, S's a chunk
 PLAIN_CHUNK_ELEMENTS = 1 << 26  # the plain versions' (B*H, chunk, Nk) float32 scores
 
 
@@ -115,8 +120,24 @@ class FwdPlan(t.NamedTuple):
     queries: int  # query rows a block
     keys: int  # keys a tile
     smem: int  # dynamic shared memory a block, bytes
-    q_panels: int  # q panels a block holds
-    stages: int  # depth of the K / V ring
+    q_panels: int  # q panels a block holds (0: q streams in chunks beside K)
+    stages: int  # depth of the K / V ring (column groups: of the q and K chunks)
+    groups: int = 1  # blocks a query tile, each a group of o's columns
+    group_cols: int = 0  # o's columns a group (0: all of them)
+
+
+def column_groups(dp: int) -> t.Tuple[int, int]:
+    """(groups, columns a group) of a bf16 padded head width past
+    ``MAX_HEAD_PAD``: ceil(DP / 256) groups of one width, a multiple of 32
+    (the last may be narrower), as both kernels split it."""
+    groups = -(-dp // WIDE_GROUP)
+    return groups, 32 * -(-(dp // 32) // groups)
+
+
+def _check_width(dtype: torch.dtype, dp: int, name: str) -> None:
+    if dp % 32 or dp < 32 or (dtype == torch.float32 and dp > MAX_HEAD_PAD):
+        raise ValueError(f"{name}: padded head width {dp} in {dtype} (float32 up to "
+                         f"{MAX_HEAD_PAD}: ROADMAP queue 3 item 1)")
 
 
 def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
@@ -127,21 +148,27 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     one above, where K and V have barriers of their own; float32, 128 queries (8 rows a thread) up to DP 160 and 64
     (4 rows) above, so that o fits the registers, one q tile, key tiles of
     64 whose K and V take turns in a two-stage cp.async ring, every tile's
-    rows padded by 4 floats and 4 more every 8 rows."""
-    if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
-        raise ValueError(f"flash_attention: padded head width {dp}")
+    rows padded by 4 floats and 4 more every 8 rows. bf16 past
+    ``MAX_HEAD_PAD``: a block a (128-query tile, column group, plane), no q
+    panel (q and K stream in chunks of 64 columns through a ring 4 deep, the
+    group's V columns through one 2 deep)."""
+    _check_width(dtype, dp, "flash_attention")
+    if dp > MAX_HEAD_PAD:
+        groups, cols = column_groups(dp)
+        smem = 1024 + 4 * (128 + 64) * WIDE_CHUNK * 2 + 2 * 64 * WIDE_GROUP * 2 + 2 * (4 + 2) * 8
+        return FwdPlan(128, 64, smem, 0, 4, groups, cols)
     if dtype == torch.float32:
         queries = 128 if dp <= 160 else 64
 
         def tile(rows):
             return rows * (dp + 4) + 4 * -(-rows // 8)
 
-        return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4, 1, 2)
+        return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4, 1, 2, 1, dp)
     wide = dp > WIDE_DP
     q_panels, stages = (1 if wide else 2), (3 if dp <= 224 else 2)
     bars = 4 + 2 * stages * (2 if wide else 1)  # q; K and V (wide: K, V apart)
     smem = 1024 + (q_panels * 128 + 2 * stages * 64) * dp * 2 + bars * 8
-    return FwdPlan(128, 64, smem, q_panels, stages)
+    return FwdPlan(128, 64, smem, q_panels, stages, 1, dp)
 
 
 def _one_layout(*xs: Tensor) -> bool:
@@ -215,9 +242,7 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, head_dim: int, heads: int = 1, *,
         return flash_fwd_plain(q, k, v, head_dim, heads, **kwargs)
     _build.require_cuda("flash_attention", (q.dtype,) * 3, q, k, v)
     bh, nq, dp = q.shape
-    if dp > MAX_HEAD_PAD:
-        raise ValueError(f"flash_attention: head width {head_dim} padded to {dp} > "
-                         f"{MAX_HEAD_PAD} (ROADMAP queue 3 item 1)")
+    _check_width(q.dtype, dp, "flash_attention")
     if bh > 65535:
         raise ValueError("flash_attention: batch x heads exceeds the launch grid")
     out = _out_buffer(q, heads, head_dim) if out is None else _check_out(out, q, heads, head_dim)
@@ -256,10 +281,12 @@ class BwdPlan(t.NamedTuple):
     keys: int  # keys a block of the main pass
     smem: int  # its dynamic shared memory a block, bytes
     # int32 counters of the fixed-order dq sums: a ticket, and a turn a
-    # (plane, query tile)
+    # (plane, query tile) (column groups: a (plane, group, query tile))
     order: int
     # attention_bwd's float32 dscale partials (B*H, convert blocks), or None
     dscale_part: t.Optional[t.Tuple[int, int]] = None
+    groups: int = 1  # blocks a key block, each a group of the columns
+    group_cols: int = 0  # dK's, dV's and dq's columns a group (0: all of them)
 
 
 def fixed_order() -> bool:
@@ -284,21 +311,31 @@ def bwd_plan(dtype: torch.dtype, bh: int, nq: int, dp: int) -> BwdPlan:
     also takes ``order`` int32 counters (zeroed by the call): a ticket that
     hands out the (plane, key block) items in order, and a turn a (plane,
     query tile) that the key blocks (in float32, each half of one) take in
-    key order to add into the tile's rows of dq."""
-    if dp % 32 or not 32 <= dp <= MAX_HEAD_PAD:
-        raise ValueError(f"flash_attention_bwd: padded head width {dp}")
+    key order to add into the tile's rows of dq. bf16 past ``MAX_HEAD_PAD``:
+    the one pass on column groups, a block a (64-key block, group, plane)
+    (q, dO, K and V chunks of 64 columns in a ring 2 deep; the group's K,
+    q and dO panels; P and dS; a float32 dq box a warp), and a turn a
+    (plane, group, query tile)."""
+    _check_width(dtype, dp, "flash_attention_bwd")
+    if dp > MAX_HEAD_PAD:
+        groups, cols = column_groups(dp)
+        smem = (1024 + 3 * 64 * WIDE_GROUP * 2 + 2 * 4 * 64 * WIDE_CHUNK * 2 + 2 * 64 * 64 * 2
+                + 8 * 16 * 32 * 4 + (2 + 2 * 2) * 8)
+        return BwdPlan(("prep", "one_pass_wide", "dq_convert"), (bh, nq, dp), 64, smem,
+                       1 + bh * groups * -(-nq // 64), None, groups, cols)
     if dtype == torch.float32:
         keys, qt = (64 if dp <= 160 else 32), 32
         smem = (2 * keys * (dp + 4) + 2 * 2 * qt * (dp + 4) + 2 * qt * (keys + 4)
                 + 2 * 2 * qt) * 4
-        return BwdPlan(("prep", "one_pass_f32"), None, keys, smem, 1 + bh * -(-nq // qt))
+        return BwdPlan(("prep", "one_pass_f32"), None, keys, smem, 1 + bh * -(-nq // qt), None,
+                       1, dp)
     wide = dp > WIDE_DP
     keys, qb, stages = (64 if wide else 128), 64, 2
     dq_boxes = 8 * 16 * 32 * 4 if wide else 0  # a float32 box of 16 x 32 a warp
     smem = (1024 + 2 * keys * dp * 2 + stages * (2 * qb * dp * 2 + 2 * qb * 4)
             + 2 * qb * keys * 2 + dq_boxes + (1 + stages) * 8)
     return BwdPlan(("prep", "one_pass", "dq_convert"), (bh, nq, dp), keys, smem,
-                   1 + bh * -(-nq // qb))
+                   1 + bh * -(-nq // qb), None, 1, dp)
 
 
 def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tensor,
@@ -370,17 +407,14 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tenso
                          "contiguous rows on q's device")
     bh, nq, dp = q.shape
     nk = k.shape[1]
-    if dp > MAX_HEAD_PAD:
-        raise ValueError(f"flash_attention_bwd: head width {head_dim} padded to {dp} > "
-                         f"{MAX_HEAD_PAD} (ROADMAP queue 3 item 1)")
-    if bh > 65535:
+    plan = bwd_plan(dt, bh, nq, dp)
+    if bh * plan.groups > 65535:
         raise ValueError("flash_attention_bwd: batch x heads exceeds the launch grid")
     if out is None:
         out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
     elif any(not x.is_contiguous() or x.dtype != dt or x.shape != y.shape
              for x, y in zip(out, (q, k, v))):
         raise ValueError("flash_attention_bwd: out is not three contiguous tensors like q, k, v")
-    plan = bwd_plan(dt, bh, nq, dp)
     dohm = torch.empty_like(q)  # scratch: dO head-major
     delta = torch.empty((bh, nq), dtype=f32, device=q.device)
     dq_acc = None if plan.dq_acc is None else torch.empty(plan.dq_acc, dtype=f32,

@@ -30,7 +30,8 @@ their plain versions; ``ln_linear`` and its backward live in
 ``ops/ln_linear.py``. ``attention.cu`` runs the bf16 flash forward's wgmma
 kernel in its log2 mode (q scaled in shared memory, ``attention_plan``) at
 padded head widths up to 160; wider heads (192-256: the sweep's emb_dim
-reaches 256) run on the flash kernels of ``ops/flash_attention.py`` as
+reaches 256; and past 256, emb 768's heads of 768, the flash kernels'
+column groups) run on the flash kernels of ``ops/flash_attention.py`` as
 they are: q is scaled and rounded before them (as the JAX flash path
 does), the LSE converts between natural log and log2, dq = scale dq_s and
 dscale = sum q . dq_s; the plain versions compose the flash plain versions
@@ -53,7 +54,7 @@ import torch
 from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, keep_mask
 from v1t_tpu_torch.ops.flash_attention import (
-    MASKED, MAX_HEAD_PAD, BwdPlan, FwdPlan, bwd_plan, fixed_order, flash_bwd, flash_bwd_plain,
+    MASKED, BwdPlan, FwdPlan, bwd_plan, fixed_order, flash_bwd, flash_bwd_plain,
     flash_fwd, flash_fwd_plain, fwd_plan,
 )
 from v1t_tpu_torch.ops.ln_linear import (
@@ -104,9 +105,9 @@ def _scaled_scores(qkv: Tensor, scale: Tensor, head_dim: int, use_lsa: bool):
 
 
 def _head_width_check(name: str, dp: int, head_dim: int) -> None:
-    if dp != padded_head_dim(head_dim) or dp > MAX_HEAD_PAD:
-        raise ValueError(f"{name}: head width {head_dim} padded to {dp} is not supported "
-                         f"(padded widths up to {MAX_HEAD_PAD}; ROADMAP queue 3 item 1)")
+    if dp != padded_head_dim(head_dim):
+        raise ValueError(f"{name}: head width {head_dim} padded to {dp}, not "
+                         f"{padded_head_dim(head_dim)}")
 
 
 def _flash_operands(qkv: Tensor, scale: Tensor):

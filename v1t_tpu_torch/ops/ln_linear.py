@@ -30,13 +30,16 @@ before a residual add and the output.
 
 A CUDA tensor launches the kernel (bf16 only: the fp32 model takes the
 composed path, ``models/cores/vit.py``); a CPU tensor takes the plain
-version (bf16 or float32). Any K runs on the card, the LayerNorm's up to
-``MAX_LN_K`` (the kernels hold whole rows: a panel of K bf16 columns
-forward, fp32 backward). The kernels copy operands by TMA (16-byte aligned
-rows) or as the contiguous span of whole rows (rows of 155 bf16 are 310
-bytes), the weight gradient also row by row; only a forward x without
-LayerNorm, rows not 16-byte aligned and K > 640, is zero-padded here to a
-multiple of 8 columns first (no flagship use).
+version (bf16 or float32). Any K runs on the card. Up to ``MAX_LN_K`` the
+kernels hold a LayerNorm's whole rows (a panel of K bf16 columns forward,
+fp32 rows in shared memory backward); past it the forward first normalises
+the rows into bf16 scratch (``ln_rows_kernel``), which then streams like an
+aligned x (``LinearPlan.ln_rows``), and the backward keeps its fp32 d(ln)
+rows in scratch of device memory (``DxPlan.dln_global``). The kernels copy
+operands by TMA (16-byte aligned rows) or as the contiguous span of whole
+rows (rows of 155 bf16 are 310 bytes), the weight gradient also row by row;
+only a forward x without LayerNorm, rows not 16-byte aligned and K > 640,
+is zero-padded here to a multiple of 8 columns first (no flagship use).
 ``ln_linear.launches`` (and ``ln_linear_bwd``'s, ``ln_linear_wgrad``'s)
 counts kernel launches.
 """
@@ -52,7 +55,7 @@ from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops.dropout import Dropout, apply_dropout
 
 Tensor = torch.Tensor
-MAX_LN_K = 640  # a LayerNorm's width on the card: whole rows in shared memory
+MAX_LN_K = 640  # a LayerNorm's widest rows held whole in shared memory
 
 
 def padded_head_dim(head_dim: int) -> int:
@@ -136,6 +139,7 @@ class LinearPlan(t.NamedTuple):
     tiles: int  # output tiles a block walks
     stages: int  # depth of the ring
     smem: int  # dynamic shared memory a block, bytes
+    ln_rows: bool = False  # a LayerNorm past a panel: its rows normalised first, then streamed
 
 
 PANEL_MAX_K, PANEL_MAX_K128, SMEM_LIMIT = 640, 320, 232448
@@ -150,10 +154,13 @@ def linear_plan(m: int, n: int, k: int, heads=None, ln: bool = False, x_aligned:
     (KP, a multiple of 32, up to 640; blocks of 128 rows up to 320). Of ring
     depths 4, 3, 2 the deepest that fits; the output tile is staged in fp32
     (and, with a residual or rows not 16-byte aligned, once more in bf16)
-    in a region of its own, which the panel's x span uses first."""
+    in a region of its own, which the panel's x span uses first. A
+    LayerNorm past ``PANEL_MAX_K`` normalises its rows first into aligned
+    scratch (``ln_rows``), which streams."""
     kp = _cdiv(k, 32) * 32
     nt, _, tiles = _tiles(n, heads)
-    stream = not ln and x_aligned
+    ln_rows = ln and kp > PANEL_MAX_K
+    stream = (not ln and x_aligned) or ln_rows
     if not stream and kp > PANEL_MAX_K:
         return None
     direct = heads is not None or (n % 8 == 0 and not residual)
@@ -168,7 +175,7 @@ def linear_plan(m: int, n: int, k: int, heads=None, ln: bool = False, x_aligned:
         for stages in (4, 3, 2):
             smem = 3072 + panel + stages * stage + region
             if smem <= SMEM_LIMIT:
-                return LinearPlan(stream, rows, nt, tiles, stages, smem)
+                return LinearPlan(stream, rows, nt, tiles, stages, smem, ln_rows)
     return None
 
 
@@ -269,9 +276,9 @@ def ln_linear(
     _build.require_cuda("ln_linear", (bf, bf, f32, f32, bf, f32, bf, bf), *args)
     b, n, k = x.shape
     nout = w.shape[0]
-    if gamma is not None and k > MAX_LN_K:
-        raise ValueError(f"ln_linear: a LayerNorm of K = {k} > {MAX_LN_K} "
-                         "(ROADMAP queue 3 item 1)")
+    # a LayerNorm past a panel: its rows normalised into scratch first
+    ln_x = (torch.empty((b * n, _cdiv(k, 8) * 8), dtype=bf, device=x.device)
+            if gamma is not None and k > MAX_LN_K else None)
     if gamma is None and not _aligned(x) and k > PANEL_MAX_K:
         # the kernel streams x by TMA: unaligned rows, padded to 8 columns
         x, w = _pad_columns(x), _pad_columns(w)
@@ -289,7 +296,7 @@ def ln_linear(
     pre = torch.empty((b, n, nout), dtype=bf, device=x.device) if save_pre else None
     args = (x, w_pad, *args[2:])
     rc = _build.library().v1t_ln_linear(
-        *(_build.ptr(a) for a in args), y.data_ptr(), _build.ptr(pre),
+        *(_build.ptr(a) for a in args), y.data_ptr(), _build.ptr(pre), _build.ptr(ln_x),
         b * n, nout, k, kp, n, int(gelu), num_heads, head_dim, head_pad,
         *drop_args(drop), _build.stream_of(x),
     )
@@ -415,6 +422,7 @@ class DxPlan(t.NamedTuple):
     resident: bool  # the block's dY' rows stay in shared memory for every output tile
     k_tiles: int  # output tiles of DX_TILE columns
     smem: int  # dynamic shared memory a block, bytes
+    dln_global: bool = False  # a LayerNorm past MAX_LN_K: its fp32 d(ln) rows in device memory
 
     @property
     def dy_reads(self) -> int:
@@ -434,8 +442,10 @@ def dx_plan(k: int, ns: int, aligned: bool, ln: bool) -> t.Optional[DxPlan]:
     before 64; of the ring depths 4, 3, 2 the deepest that leaves room for
     two blocks a SM, else the deepest that fits. The products go through an
     fp32 tile; the LayerNorm's fp32 rows reuse the ring when K fits one
-    tile."""
+    tile; past ``MAX_LN_K`` they go to (M, K) float32 scratch in device
+    memory and shared memory keeps only 4 statistics a row."""
     k_tiles = -(-k // DX_TILE)
+    dln_global = ln and k > MAX_LN_K
     ld = DX_CHUNK + 8
     for resident in ((True, False) if k_tiles > 1 else (False,)):
         for rows in (128, 64):
@@ -444,12 +454,13 @@ def dx_plan(k: int, ns: int, aligned: bool, ln: bool) -> t.Optional[DxPlan]:
                     w = stages * DX_TILE * ld * 2
                     a = rows * (ns + 8) * 2 if resident else (stages if aligned else 2) * rows * ld * 2
                     ring = w + a + (0 if aligned else stages * rows * ld * 2)
-                    e = (rows * (k_tiles * DX_TILE + 4) * 4 + rows * 16 if ln
+                    e = (rows * 16 if dln_global
+                         else rows * (k_tiles * DX_TILE + 4) * 4 + rows * 16 if ln
                          else rows * (DX_TILE + 4) * 4)
                     e_off = 0 if ln and k_tiles == 1 and e <= ring else ring
                     smem = max(ring, e_off + e)
                     if smem <= limit:
-                        return DxPlan(rows, stages, resident, k_tiles, smem)
+                        return DxPlan(rows, stages, resident, k_tiles, smem, dln_global)
     return None
 
 
@@ -538,9 +549,6 @@ def ln_linear_bwd(
     bf, f32 = torch.bfloat16, torch.float32
     _build.require_cuda("ln_linear_bwd", (bf, bf, bf, bf, bf, f32, f32, bf),
                         dy, w, pre, x, pro_row, gamma, beta, dres)
-    if x is not None and k > MAX_LN_K:
-        raise ValueError(f"ln_linear_bwd: a LayerNorm of K = {k} > {MAX_LN_K} "
-                         "(ROADMAP queue 3 item 1)")
     if drop is not None and pre_drop is not None and drop.active and pre_drop.active and (
             drop.rate != pre_drop.rate or drop.seed != pre_drop.seed):
         raise ValueError("ln_linear_bwd: the two masks share one rate and seed")
@@ -550,7 +558,7 @@ def ln_linear_bwd(
     num_heads, head_dim = heads or (0, 0)
     head_pad = padded_head_dim(head_dim) if heads else 0
     dx = torch.empty((b, n, k), dtype=bf, device=dy.device)
-    ln_out = dgamma = dbeta = dbrow = col_part = None
+    ln_out = dgamma = dbeta = dbrow = col_part = dln = None
     if x is not None:
         ln_out = torch.empty_like(dx)
         dgamma = torch.empty(k, dtype=f32, device=dy.device)
@@ -559,6 +567,8 @@ def ln_linear_bwd(
         plan = dx_plan(k, wt.shape[1], heads is not None or _aligned(dy), True)
         col_part = torch.empty(dx_col_parts(plan, b * n, k, b, pro_row is not None),
                                dtype=f32, device=dy.device)
+        if plan.dln_global:  # scratch: the fp32 d(ln) rows
+            dln = torch.empty((b * n, k), dtype=f32, device=dy.device)
     seed, site_in, thr_in, scale = drop_args(drop)
     _, site_out, thr_out, _ = drop_args(pre_drop)
     if thr_out and not thr_in:  # the two masks share one seed and scale
@@ -569,7 +579,7 @@ def ln_linear_bwd(
         thr_out, scale, _build.ptr(x), _build.ptr(pro_row),
         _build.ptr(gamma), _build.ptr(beta), _build.ptr(dres), _build.ptr(ln_out),
         _build.ptr(dgamma), _build.ptr(dbeta), _build.ptr(dbrow), _build.ptr(col_part),
-        _build.stream_of(dy),
+        _build.ptr(dln), _build.stream_of(dy),
     )
     _build.check_launch("ln_linear_bwd", rc)
     ln_linear_bwd.launches += 1

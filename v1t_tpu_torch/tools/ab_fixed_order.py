@@ -16,8 +16,7 @@ fp32 flagship and cct's DP 32 (B*H 256, N 576), dropout on. Each time is
 the mean of 10 launches after a warm-up (3 at full resolution and fp32;
 CUDA events). Last, one flagship training step (batch 64, two mice of 7000
 neurons, dropout on, an AdamW update) after a warm-up step: its device
-time under torch.profiler (the kernels' self time, AdamW's annotation
-left out, as ``chip_smoke.py`` phase 6 sums it). In this tree each case
+time under torch.profiler (``ab_common.step_device_ms``). In this tree each case
 and the step also run under PyTorch's deterministic mode (its buffer fill
 off, so that the kernels alone are timed): two runs equal bit for bit, the
 largest difference from the default form and from the plain version
@@ -27,14 +26,14 @@ this tree's shared-memory atomic instructions of the sampling backward.
 """
 
 import contextlib
-import json
 import os
 import shutil
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-B, N, E, H, F_HID, NEURONS = 64, 1654, 155, 4, 488, 7000
+import ab_common
+from ab_common import B, E, F_HID, H, N, NEURONS, ms_of, step_device_ms
+
 FR_N = 137 * 249 + 1
 
 
@@ -61,17 +60,6 @@ def measure(tree: str) -> dict:
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
-
-    def ms_of(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
 
     @contextlib.contextmanager
     def mode():
@@ -169,10 +157,10 @@ def measure(tree: str) -> dict:
         flash("fp32 flagship", B * H, N, E, f32, iters=3)
         flash("cct DP 32", B * H, 576, 10, bf)
 
-    out["step_device_ms"] = step_device_ms(torch)
+    out["step_device_ms"] = step_device_ms()
     if fixed:
         with mode():
-            out["step_device_ms_fixed_order"] = step_device_ms(torch)
+            out["step_device_ms_fixed_order"] = step_device_ms()
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if fixed and shutil.which(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True).stdout
@@ -187,65 +175,5 @@ def measure(tree: str) -> dict:
     return out
 
 
-def step_device_ms(torch) -> float:
-    """Device time of one flagship training step (the tree's package)."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
-    from v1t_tpu_torch.configs import Config
-    from v1t_tpu_torch.data.cards import synthetic_data_card
-    from v1t_tpu_torch.models import build_model
-    from v1t_tpu_torch.training import Trainer
-
-    config = Config(core="vit", readout="gaussian2d", behavior_mode=3, shift_mode=2,
-                    precision="bf16", resize_image=0, batch_size=B,
-                    deterministic=torch.are_deterministic_algorithms_enabled())
-    card = synthetic_data_card(mouse_ids=("A", "B"), num_neurons=NEURONS,
-                               input_shape=(1, 36, 64))
-    trainer = Trainer(config, build_model(config, card, seed=0, device="cuda"), card,
-                      device="cuda")
-    rng = np.random.default_rng(2)
-    batch = {"image": rng.normal(size=(B, 1, 36, 64)).astype(np.float32),
-             "behavior": rng.normal(size=(B, 3)).astype(np.float32),
-             "pupil_center": rng.normal(size=(B, 2)).astype(np.float32),
-             "response": rng.poisson(2.0, size=(B, NEURONS)).astype(np.float32)}
-    trainer.train_step("A", batch, None, update=True)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step("A", batch, None, update=True)
-        torch.cuda.synchronize()
-
-    def device_us(event):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(event, name):
-                return float(getattr(event, name))
-        return 0.0
-
-    total = sum(device_us(e) for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")
-                and not e.key.startswith("Optimizer."))
-    del trainer
-    torch.cuda.empty_cache()
-    return total / 1e3
-
-
-def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(os.path.abspath(sys.argv[2]))), flush=True)
-        return 0
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(card.stdout.strip(), flush=True)
-    parent = os.path.abspath(sys.argv[1])
-    rc = 0
-    for tree in (parent, ROOT, ROOT, parent):
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
-                              tree]).returncode
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_common.main(__file__, measure, __doc__))

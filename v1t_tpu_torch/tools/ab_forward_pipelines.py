@@ -16,13 +16,13 @@ process first holds its kernels against their plain versions.
 Prints the card's name and power limit, then one JSON line a process.
 """
 
-import json
 import os
 import shutil
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import ab_common
+from ab_common import ROOT, ms_of
+
 VARIANT = os.path.join(ROOT, "_archive", "fwd_wide_at_160")
 NARROW = "constexpr bool fwd_wide() { return DP > 160; }"
 WIDE_AT_160 = "constexpr bool fwd_wide() { return DP > 128; }"
@@ -50,17 +50,6 @@ def measure(tree: str) -> dict:
     from v1t_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     from v1t_tpu_torch.ops.fused_mha import attention, attention_plain
 
-    def ms(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     def rel_err(pairs):
         worst = 0.0
         for got, ref in pairs:
@@ -83,8 +72,8 @@ def measure(tree: str) -> dict:
     out["core_rel_err"] = rel_err(
         [(attention(qkv, scale, d), attention_plain(qkv, scale, d)),
          *zip(attention(qkv, scale, d, **train), attention_plain(qkv, scale, d, **train))])
-    out["core_serving_ms"] = ms(lambda: attention(qkv, scale, d))
-    out["core_training_ms"] = ms(lambda: attention(qkv, scale, d, **train))
+    out["core_serving_ms"] = ms_of(lambda: attention(qkv, scale, d), 20)
+    out["core_training_ms"] = ms_of(lambda: attention(qkv, scale, d, **train), 20)
     del qkv
 
     def planes(bh, n):
@@ -97,23 +86,15 @@ def measure(tree: str) -> dict:
     out["flash_rel_err"] = rel_err(zip(flash_fwd(q, k, v, d, 4, **train),
                                        flash_fwd_plain(q, k, v, d, 4, **train)))
     q, k, v = planes(8, 34114)
-    out["fullres_serving_ms"] = ms(lambda: flash_fwd(q, k, v, d, 4), 5)
-    out["fullres_training_ms"] = ms(lambda: flash_fwd(q, k, v, d, 4, **train), 5)
+    out["fullres_serving_ms"] = ms_of(lambda: flash_fwd(q, k, v, d, 4), 5)
+    out["fullres_training_ms"] = ms_of(lambda: flash_fwd(q, k, v, d, 4, **train), 5)
     return out
 
 
 def main() -> int:
-    if len(sys.argv) > 1:
-        print(json.dumps(measure(os.path.abspath(sys.argv[1]))), flush=True)
-        return 0
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(card.stdout.strip(), flush=True)
-    make_variant()
-    rc = 0
-    for tree in (ROOT, VARIANT, VARIANT, ROOT):
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), tree]).returncode
-    return rc
+    if sys.argv[1:2] != ["--measure"]:
+        make_variant()
+    return ab_common.main(__file__, measure, __doc__, trees=(ROOT, VARIANT, VARIANT, ROOT))
 
 
 if __name__ == "__main__":

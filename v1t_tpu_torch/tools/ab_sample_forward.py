@@ -32,7 +32,9 @@ import os
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import ab_common
+from ab_common import ROOT, ms_of
+
 SOURCE = os.path.join(ROOT, "v1t_tpu_torch", "csrc", "bilinear_sample.cu")
 KERNEL_TOL, F32_KERNEL_TOL = 2e-2, 2e-5  # chip_smoke.py's
 HBM_BYTES_PER_S = 3.35e12
@@ -86,18 +88,6 @@ VARIANTS = {
 }
 
 
-def _ms(torch, fn, iters=20):
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _inputs(torch):
     gen = torch.Generator().manual_seed(0)
     for label, (b, c, hh, ww, dtype_name) in MAPS.items():
@@ -136,11 +126,11 @@ def measure(tree: str) -> dict:
             raise SystemExit(f"{label}: two launches differ")
         b, c, _ = table.shape
         table4, grid4 = table.reshape(b, c, hh, ww), grid.reshape(b, 1, NEURONS, 2).to(table.dtype)
-        kernel_ms = _ms(torch, lambda: im.bilinear_sample_cm(table, grid, hh, ww))
+        kernel_ms = ms_of(lambda: im.bilinear_sample_cm(table, grid, hh, ww), 20)
         out[label] = dict(
             kernel_ms=kernel_ms, bound_ms=_bound_ms(table, grid, got), rel_err=rel,
-            grid_sample_ms=_ms(torch, lambda: F.grid_sample(
-                table4, grid4, mode="bilinear", padding_mode="zeros", align_corners=True)))
+            grid_sample_ms=ms_of(lambda: F.grid_sample(
+                table4, grid4, mode="bilinear", padding_mode="zeros", align_corners=True), 20))
         out[label]["bound_share"] = out[label]["bound_ms"] / kernel_ms
         del table, grid, got, ref, table4, grid4
         torch.cuda.empty_cache()
@@ -206,7 +196,7 @@ def variants() -> int:
                         int(table.dtype == torch.float32), stream)
                     if rc:
                         raise SystemExit(f"{name}: launch failed with {rc}")
-                times[name][label].append(_ms(torch, launch))
+                times[name][label].append(ms_of(launch, 20))
     for name, by_map in times.items():
         print(json.dumps({"variant": name, "ptxas": ptxas[name], **{
             label: dict(kernel_ms=ms, bound_ms=bounds[label],
@@ -216,22 +206,10 @@ def variants() -> int:
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(os.path.abspath(sys.argv[2]))), flush=True)
-        return 0
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(card.stdout.strip(), flush=True)
     if sys.argv[1:] == ["--variants"]:
+        print(ab_common.card_line(), flush=True)
         return variants()
-    if len(sys.argv) != 2:
-        raise SystemExit(__doc__)
-    parent = os.path.abspath(sys.argv[1])
-    rc = 0
-    for tree in (parent, ROOT, ROOT, parent):
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
-                              tree]).returncode
-    return rc
+    return ab_common.main(__file__, measure, __doc__)
 
 
 if __name__ == "__main__":

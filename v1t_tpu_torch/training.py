@@ -90,7 +90,8 @@ FIXED_ORDER_KERNELS = {
     "ln_linear_bwd": "ln_linear_bwd (the fused projections' and MLP's backward: dbrow, dgamma, "
                      "dbeta in csrc/ln_linear_bwd.cu, by block)",
     "flash_attention_bwd": "flash_attention_bwd (row 8: dq in csrc/flash_attention_bwd.cu, in "
-                           "key order under the mode)",
+                           "key order under the mode; past padded head width 256 the column "
+                           "groups', in key order a (plane, group, query tile))",
     "bilinear_sample_cm_bwd": "bilinear_sample_cm_bwd (row 6: d(table) in fixed point, d(grid) "
                               "by chunk, in csrc/bilinear_sample.cu)",
 }
