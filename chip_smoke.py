@@ -8,7 +8,9 @@ Phases, one line each as they go:
 2. the build of the CUDA kernels (one ``nvcc`` per source, in parallel,
    into ``v1t_tpu_torch/_build``), each kernel's registers and spills (none
    allowed in the bf16 flash kernels' wide instantiations, padded head
-   widths 192-256), the flash kernels' shared memory a block, and the
+   widths 192-256, nor in the instances past the panels' widths: the flash
+   column groups in both types, the LayerNorm past K 640), the flash
+   kernels' shared memory a block, and the
    launch plans of the flash forward and backward (``fwd_plan``,
    ``bwd_plan``), of ``ln_linear`` (``linear_plan``), ``ln_linear_dx``
    (``dx_plan``) and ``ln_linear_wgrad`` (``wgrad_plan``) held against the
@@ -76,12 +78,13 @@ Phases, one line each as they go:
    default form; and the fused MLP's and the readout's kernels at the shapes
    the composed paths give them (68,228 rows; a 137x249 and a float32 map);
    3d. the forms past the panels' widths against their plain versions: the
-   bf16 flash column groups at padded head widths 288, 384, 512, 768 and
-   1024 (batch 16 x 4 heads, 1654 tokens, dropout, timed beside the bound
-   and SDPA; rectangular 300 x 460 with n_real_k 400 and an LSE cotangent;
-   LSA; the keep masks bit-identical; the backward's dq in key order twice,
-   bit for bit), rows whose every key is masked at 768, and the emb-768
-   path's shape (batch 64 x 4 heads of 768, timed); ``ln_linear`` with a
+   flash column groups, bf16 and float32, at padded head widths 288, 384,
+   512, 768 and 1024 (batch 16 x 4 heads, 1654 tokens, dropout, timed
+   beside the bound and SDPA in the same type; rectangular 300 x 460 with
+   n_real_k 400 and an LSE cotangent; LSA; the keep masks bit-identical;
+   the backward's dq in key order twice, bit for bit), rows whose every key
+   is masked at 768, a block of padding keys (float32), and the emb-768
+   path's shape (batch 64 x 4 heads of 768, timed, each type); ``ln_linear`` with a
    LayerNorm at K 672, 768 and 1024 (qkv head-major with bias_row; fc1 with
    bias, GELU, keep mask and the saved activation) and ``ln_linear_bwd``'s
    dX with the LayerNorm backward (qkv's head-major dY with bias_row and
@@ -113,6 +116,11 @@ Phases, one line each as they go:
    the training also from a second seed, and from each seed through the
    plain path in float32 as well, the witness of how far each bf16 path
    lies from float32;
+   5m (run after 5l). the same V1T in float32 (``precision="fp32"``, batch
+   64, two mice) in 5c's form: 1 serving batch and one cycle of 2 train
+   steps on the float32 flash column groups (per step the forward and the
+   backward 4 times each, the sampling 1 + 1), held against the plain path
+   at ``F32_TOL``, its serving batch and training step profiled;
    5e. the training loop from disk: ``v1t_tpu_torch.train.main`` with the
    flagship's flags (batch 64, bf16, the bf16 image wire) on a synthetic
    Sensorium-layout dataset written by the port (the mice S1 and A of 7000
@@ -142,7 +150,9 @@ Phases, one line each as they go:
    predictions against the plain path), ``ensemble.main`` of it and phase
    5e's plain run in mode 0 and in mode 2 with the head trained one epoch
    (no backward kernel launches), ``demo.main`` (rollout heatmaps against
-   the plain path), the figure scripts' compute parts
+   the plain path), ``misc.extract_attention_maps`` (every mouse's
+   validation and test trials, ``NUM_EXTRACT`` each, against the plain
+   path, the pickle's layout), the figure scripts' compute parts
    (``misc.figures``: ``main_figure``'s test batch against the plain path,
    ``readout_positions`` equal to it, ``franke2022`` on a synthetic
    franke2022 dataset), and ``export_checkpoint`` then ``import_checkpoint``
@@ -162,7 +172,9 @@ Phases, one line each as they go:
    the default mode printed beside it for scale); (c) full resolution
    (34,114 tokens, batch 2) at SP 2, all-gather and ring: one serving batch
    and one train step each at ``FULLRES_TOL``, the flash kernels' launches
-   read per rank; one ring step profiled on rank 0;
+   read per rank; one ring step profiled on rank 0; ``--deterministic``
+   across ranks: (b)'s loop run a second time, and (c)'s SP step twice a
+   form under the flag, each rank's runs bit for bit;
    5i. the other cores and readouts, each through ``training.inference``
    and ``Trainer.train_step`` against the plain path: cct at full width
    (emb 160, 4 heads of 10 padded to 32, 4 blocks, MLP 488, 576 tokens; one
@@ -177,8 +189,8 @@ Phases, one line each as they go:
    each); then ``--deterministic`` (``train.set_deterministic``): two
    equal-seed cycles of each of stacked2d + dense in float32, the flagship
    (bf16, dropout on, batch 64), the fp32 flagship, cct, the sweep's emb 256,
-   emb 768 (MLP 3072, 2 blocks: the column groups' dq in key order) and
-   full resolution (batch 2), bit for bit in losses and every
+   emb 768 (MLP 3072, 2 blocks: the column groups' dq in key order), the
+   same in float32 and full resolution (batch 2), bit for bit in losses and every
    parameter and buffer, with the launches a step of phase 5's count and
    every fixed-order kernel launched; one flagship step's device time under
    the mode beside the default's, under torch.profiler;
@@ -202,9 +214,9 @@ Phases, one line each as they go:
    against the plain path, ``core_pca``, ``prediction_v_dilation``,
    ``behaviorMLP_visualization`` and a 2-step ``profiler.trace``;
 6. where the time goes: one serving batch and one training step under
-   ``torch.profiler`` (and one step of each composed path, phase 5d's
-   serving batch, phase 5f's step with checkpointing, a cct and a
-   stacked2d step and a cct serving batch);
+   ``torch.profiler`` (and one step of each composed path, phase 5d's,
+   5l's and 5m's serving batch, phase 5f's step with checkpointing, a cct
+   and a stacked2d step and a cct serving batch);
 7. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -218,6 +230,7 @@ import contextlib
 import functools
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -296,6 +309,8 @@ T_DROP = 0.2544  # the flagship's transformer dropout (configs.py t_dropout)
 # against the plain path's: bf16 roundings of the probabilities and the
 # fused MLP through 4 blocks; ~3x the reading on an H100 (1.1e-3)
 HEATMAP_TOL = 3.5e-3
+# phase 5h: the attention-map extractor's samples of each tier and mouse
+NUM_EXTRACT = 4
 # phase 5f: the sweep's largest drop_path draw (configs/sweep_v1t.yaml:41-42);
 # with gradient checkpointing the forward kernels launch again in the
 # backward. Kernel path against the plain path: LOSS_TOL and GRAD_TOL but
@@ -373,7 +388,13 @@ WIDE_LAUNCHES_PER_STEP = dict(SWEEP_LAUNCHES_PER_STEP)
 WITNESS_RATIO = 1.5
 WIDE_TOL = dict(model=MODEL_TOL, core=CORE_TOL, loss=LOSS_TOL, grad=GRAD_TOL,
                 witness=WITNESS_RATIO)
-# the bf16 flash kernels' widths checked past DP 256 (phase 3d)
+# phase 5m, the same V1T in float32 (padded head width 768: the float32
+# flash column groups), in 5c's form: one serving batch and one cycle of two
+# train steps against the plain path at F32_TOL. Launches written down
+# before the first run: 5c's (per block one flash forward and backward, the
+# readout's sampling forward and backward; no fused sublayer in float32)
+F32_WIDE_LAUNCHES_PER_STEP = dict(F32_LAUNCHES_PER_STEP)
+# the flash kernels' widths checked past DP 256 (phase 3d), bf16 and float32
 WIDE_DPS = (288, 384, 512, 768, 1024)
 # the LayerNorm widths checked past K 640 (phase 3d)
 WIDE_KS = (672, 768, 1024)
@@ -431,6 +452,10 @@ DETERMINISTIC_PATHS = {
                                   (1, 36, 64), {k: v // 2 if k.startswith(("ln_", "flash"))
                                                 else v for k, v in WIDE_LAUNCHES_PER_STEP.items()},
                                   NEURONS),
+    f"fp32 emb {WIDE_EMB}, 2 blocks": (dict(precision="fp32", emb_dim=WIDE_EMB, mlp_dim=WIDE_MLP,
+                                            num_blocks=2), (1, 36, 64),
+                                       {k: v // 2 if k.startswith("flash") else v
+                                        for k, v in F32_WIDE_LAUNCHES_PER_STEP.items()}, NEURONS),
     "full resolution": (dict(batch_size=FR_B), FR_IMAGE, FULLRES_LAUNCHES_PER_STEP, NEURONS),
 }
 # phase 5j, data and sequence parallelism: two ranks, on one card over gloo
@@ -1269,7 +1294,7 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         return out
 
     def check(label, bh, heads, nq, nk, d, dtype, *, n_real=None, lsa=False, drp=None,
-              dlse=False, timed=False, fixed=False):
+              dlse=False, timed=False, fixed=False, iters=None):
         q, k, v = operands(bh, nq, nk, d, dtype)
         kw = dict(n_real_k=n_real, use_lsa=lsa, drop=drp)
         tol = KERNEL_TOL if dtype == bf else F32_KERNEL_TOL
@@ -1298,7 +1323,7 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                                4.0 * bh * nq * nk * d, kind)
             bb_ms, bb_by = bound(2 * nbytes(q, k, v) * d_bytes + nbytes(o, do, lse),
                                  10.0 * bh * nq * nk * d, kind)
-            iters = 3 if nq > 10000 else 10
+            iters = iters or (3 if nq > 10000 else 10)
             ms = cuda_ms(lambda: flash_fwd(q, k, v, d, heads, with_lse=True, **kw), iters)
             serve_ms = cuda_ms(lambda: flash_fwd(q, k, v, d, heads), iters)
             bwd_ms = cuda_ms(lambda: flash_bwd(q, k, v, o, do, lse, d, heads, **kw), iters)
@@ -1388,30 +1413,32 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         log(f"  flash_attention[{label}] keep mask: bit-identical to the plain version's "
             f"({bh} planes x {n} rows x {n} keys)")
 
-    def masked_rows(d=E):
-        """bf16 rows whose every key is masked (LSA at N 1: P spreads over the
+    def masked_rows(d=E, dtype=bf):
+        """Rows whose every key is masked (LSA at N 1: P spreads over the
         masked keys, keys past Nk weigh nothing) and key counts that fill no
         tile, forward and backward against the plain versions. At N 1 the
         row's P is 1 whatever its score, so dS = P (dP - delta) vanishes but
         for rounding: dq and dk are held to the tolerance of dv's scale."""
+        tol = KERNEL_TOL if dtype == bf else F32_KERNEL_TOL
         for nq, lsa in ((1, True), (1, False), (70, True)):
-            q, k, v = operands(8, nq, nq, d, bf)
+            q, k, v = operands(8, nq, nq, d, dtype)
             (o, lse), (o_ref, lse_ref) = (fn(q, k, v, d, 4, with_lse=True, use_lsa=lsa)
                                           for fn in (flash_fwd, flash_fwd_plain))
-            label = f"N {nq}{', lsa' if lsa else ''}" + (f", head width {d}" if d != E else "")
-            compare(f"flash_attention[{label}] o", o, o_ref, KERNEL_TOL)
+            label = f"N {nq}{', lsa' if lsa else ''}" + (f", head width {d}" if d != E else "") \
+                + (", fp32" if dtype == f32 else "")
+            compare(f"flash_attention[{label}] o", o, o_ref, tol)
             compare(f"flash_attention[{label}] lse", lse, lse_ref, F32_KERNEL_TOL)
-            do = torch.randn(o.shape, generator=gen).to(DEVICE, bf)
+            do = torch.randn(o.shape, generator=gen).to(DEVICE, dtype)
             got = flash_bwd(q, k, v, o_ref, do, lse_ref, d, 4, use_lsa=lsa)
             ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, d, 4, use_lsa=lsa)
-            compare(f"flash_attention_bwd[{label}] dv", got[2], ref[2], KERNEL_TOL)
+            compare(f"flash_attention_bwd[{label}] dv", got[2], ref[2], tol)
             scale = ref[2].float().abs().max().item()
             for part, g_, r_ in zip(("dq", "dk"), got[:2], ref[:2]):
                 err = (g_.float() - r_.float()).abs().max().item()
                 ref_max = max(r_.float().abs().max().item(), scale if nq == 1 else 0.0)
-                ok = torch.isfinite(g_.float()).all().item() and err <= KERNEL_TOL * ref_max
+                ok = torch.isfinite(g_.float()).all().item() and err <= tol * ref_max
                 log(f"  flash_attention_bwd[{label}] {part}: max|d| {err:.3e}, of the scale "
-                    f"{ref_max:.3e}: {err / max(ref_max, 1e-30):.3e} (tol {KERNEL_TOL:g}) "
+                    f"{ref_max:.3e}: {err / max(ref_max, 1e-30):.3e} (tol {tol:g}) "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"flash_attention_bwd[{label}] {part}")
@@ -1469,6 +1496,24 @@ def check_flash_kernels(gen: torch.Generator) -> list:
     masked_rows(WIDE_EMB)
     cases["emb_768"] = check(f"emb {WIDE_EMB}: batch 64 x {H} heads of {WIDE_EMB}, dropout",
                              B * H, H, N, N, WIDE_EMB, bf, drp=drop, timed=True, fixed=True)
+    log("phase 3d: the float32 flash kernels past DP 256 (column groups) against their plain "
+        "versions")
+    for d in WIDE_DPS:
+        cases[f"f32wide_{d}"] = check(f"fp32 head width {d}, batch 16, dropout", 16 * 4, 4, N, N,
+                                      d, f32, drp=drop, timed=True, fixed=True, iters=3)
+        cases[f"f32wide_{d}_rect"] = check(
+            f"fp32 head width {d}, rectangular 300 x 460, n_real_k 400, dlse, dropout", 8, 4,
+            300, 460, d, f32, n_real=400, dlse=True, drp=drop, fixed=True)
+        cases[f"f32wide_{d}_lsa"] = check(f"fp32 head width {d}, lsa, no dropout", 8, 4, 333,
+                                          333, d, f32, lsa=True, fixed=True)
+        masks_bit_identical(f"fp32 head width {d}", 4, 300, d, f32)
+    masked_rows(WIDE_EMB, f32)
+    cases["f32wide_padding_block"] = check(
+        f"fp32 head width {WIDE_EMB}, a block of padding keys, n_real_k 0, dlse", 8, 4, 600, 700,
+        WIDE_EMB, f32, n_real=0, dlse=True)
+    cases["f32emb_768"] = check(f"fp32 emb {WIDE_EMB}: batch 64 x {H} heads of {WIDE_EMB}, "
+                                "dropout", B * H, H, N, N, WIDE_EMB, f32, drp=drop, timed=True,
+                                fixed=True, iters=2)
     full = cases["full_res"]
     rows = []
     for name, src, replaces, pre in (
@@ -1505,7 +1550,8 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                  "17057 x 17057, D 155, bf16, an LSE cotangent, no dropout), "
                  "padding_block_bf16 / _fp32 a block of keys all padding (checked, untimed); "
                  "launches_by_path holds each rank's SP and DP counts (phase 5j)",
-            per_case={k: v for k, v in cases.items() if not k.startswith(("wide_", "emb_"))}))
+            per_case={k: v for k, v in cases.items()
+                      if not k.startswith(("wide_", "emb_", "f32wide_", "f32emb_"))}))
     wide = cases["emb_768"]
     for name, src, replaces, pre in (
             ("flash_attention (column groups, DP > 256)", "flash_attention.cu",
@@ -1535,6 +1581,37 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                  "head widths 288, 384, 512, 768 and 1024 at B*H 64 (timed), rectangular with "
                  "n_real_k and an LSE cotangent, and LSA (checked)",
             per_case={k: v for k, v in cases.items() if k.startswith(("wide_", "emb_"))}))
+    wide = cases["f32emb_768"]
+    f32_cases = {k: v for k, v in cases.items() if k.startswith(("f32wide_", "f32emb_"))}
+    for name, replaces, pre in (
+            ("flash_attention (float32 column groups, DP > 256)",
+             "v1t_tpu/ops/flash_attention.py:615 (_flash_forward_dt -> _fwd_kernel_dt :545); "
+             ":458 / :491 (_fwd_kernel_fullk :279, _fwd_kernel :225)", ""),
+            ("flash_attention_bwd (float32 column groups, DP > 256)",
+             "v1t_tpu/ops/flash_attention.py:786 / :811 (_flash_backward_dt -> _dq_kernel_dt "
+             ":646, _dkv_kernel_dt :702); :1052 (_merged_bwd_kernel :954)", "bwd_")):
+        rows.append(dict(
+            name=name, counter=name.split(" ")[0], main_path="fp32_wide_training", route="cuda",
+            source="v1t_tpu_torch/csrc/" + ("flash_attention_bwd.cu" if pre else
+                                            "flash_attention.cu"),
+            replaces=replaces,
+            max_abs_err=max(c[f"{pre}max_abs_err"] for c in f32_cases.values()),
+            rel_err=max(c[f"{pre}rel_err"] for c in f32_cases.values()),
+            ms=wide[f"{pre}ms"], plain_ms=wide[f"{pre}plain_ms"],
+            bound_ms=wide[f"{pre}bound_ms"], bound_by=wide[f"{pre}bound_by"],
+            library_ms=wide[f"{pre}library_ms"],
+            library="F.scaled_dot_product_attention" + (" (autograd backward)" if pre else "")
+                    + f" in float32 ({wide['sdpa_backend']} backend at DP {WIDE_EMB})",
+            ms_like_for_like=wide["bwd_no_dropout_ms" if pre else "serving_ms"],
+            like_for_like="no dropout" + ("" if pre else ", no LSE (serving)"),
+            **({"fixed_order_ms": wide["bwd_fixed_order_ms"]} if pre else {}),
+            note=f"times at the fp32 emb-{WIDE_EMB} path's shape (B*H {B * H}, N {N}, D "
+                 f"{WIDE_EMB}, float32, dropout on; ms_like_for_like without dropout, as the "
+                 "library call runs); max_abs_err the largest over every float32 column-group "
+                 "case; per_case holds head widths 288, 384, 512, 768 and 1024 at B*H 64 "
+                 "(timed), rectangular with n_real_k and an LSE cotangent, LSA and a block of "
+                 "padding keys (checked)",
+            per_case=f32_cases))
     return rows
 
 
@@ -2461,8 +2538,8 @@ def entry_points(card_text: str, loop: dict, tmp: str) -> dict:
     from v1t_tpu_torch.training import Trainer
     from v1t_tpu_torch.utils.scheduler import Scheduler, load_checkpoint_file
 
-    log("phase 5h: the entry points after training (submission, ensemble, demo, export and "
-        "import) on phase 5e's run")
+    log("phase 5h: the entry points after training (submission, ensemble, demo, the "
+        "attention-map extractor, export and import) on phase 5e's run")
     csv.field_size_limit(sys.maxsize)  # a prediction field holds 7000 numbers
     run, root = loop["run"], loop["root"]
     blocks = flagship_config().num_blocks
@@ -2577,6 +2654,38 @@ def entry_points(card_text: str, loop: dict, tmp: str) -> dict:
                                                             "pupil_centers")):
         raise AssertionError(f"demo: maps differ from the plain path: {errs}")
     out["demo"] = launches
+
+    # the attention-map extractor: every mouse's validation and test
+    # trials (NUM_EXTRACT of each), against the plain path
+    from v1t_tpu_torch.misc import extract_attention_maps as extract_cli
+
+    got, seconds, launches = timed(lambda: extract_cli.main(extract_cli.parse_args(
+        ["--output_dir", run, "--batch_size", str(batch), "--num_samples", str(NUM_EXTRACT),
+         "--verbose", "0"])))
+    with open(os.path.join(run, "attention_maps.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    tiers = {"validation": val_ds, "test": test_ds}
+    want = dict.fromkeys(per_batch, 0)
+    want["ln_linear"] = 2 * blocks * len(tiers) * len(LOOP_MICE)  # one batch a tier and mouse
+    worst = 0.0
+    for tier, ds in tiers.items():
+        if sorted(got.get(tier, {})) != sorted(LOOP_MICE):
+            raise AssertionError(f"extract_attention_maps: {tier} holds {sorted(got.get(tier, {}))}")
+        for mouse in LOOP_MICE:
+            ref = extract_attention_maps(ds[mouse], model, num_samples=NUM_EXTRACT)
+            maps = got[tier][mouse]
+            if maps.keys() != ref.keys() or maps["heatmaps"].shape != (NUM_EXTRACT, 36, 64) \
+                    or not all(np.array_equal(saved[tier][mouse][k], v) for k, v in maps.items()):
+                raise AssertionError(f"extract_attention_maps {tier} {mouse}: layout")
+            worst = max(worst, float(np.abs(maps["heatmaps"] - ref["heatmaps"]).max()))
+    log(f"  misc.extract_attention_maps: {NUM_EXTRACT} maps of each tier and mouse "
+        f"({len(tiers) * len(LOOP_MICE) * NUM_EXTRACT}) in {seconds:.3f} s ({card_text}); "
+        f"launches {launches}; heatmaps against the plain path max|d| {worst:.3e} (tol "
+        f"{HEATMAP_TOL:g}); attention_maps.pkl as returned")
+    if launches != want or worst > HEATMAP_TOL:
+        raise AssertionError(f"extract_attention_maps: launches {launches} != {want}, or maps "
+                             "differ from the plain path")
+    out["extract_attention_maps"] = launches
     del model
 
     # the figure scripts' compute parts: main_figure's test batch through
@@ -2916,12 +3025,13 @@ def dp_loop(argv: list, out: str) -> list:
     return epochs
 
 
-def sp_fullres(mesh, impl: str) -> dict:
+def sp_fullres(mesh, impl: str, deterministic: bool = False) -> dict:
     """Phase 5j (c): the full-resolution flagship (34,114 tokens, batch 2,
     two mice), dropout off: one serving batch and one train step with its
     update, grid noise off, under the grid's seq axis with ``impl`` (None:
     one rank); predictions, the loss, the update's gradients and the
-    launches of each."""
+    launches of each. ``deterministic``: the config's flag, under PyTorch's
+    deterministic mode (the caller's)."""
     from v1t_tpu_torch.data.cards import synthetic_data_card
     from v1t_tpu_torch.training import Trainer
 
@@ -2929,7 +3039,8 @@ def sp_fullres(mesh, impl: str) -> dict:
 
     config = flagship_config(batch_size=FR_B, t_dropout=0.0, p_dropout=0.0,
                              sequence_parallel=mesh.num_devices if mesh else 0,
-                             sequence_parallel_impl=impl or "allgather")
+                             sequence_parallel_impl=impl or "allgather",
+                             deterministic=deterministic)
     card = synthetic_data_card(mouse_ids=MICE, num_neurons=NEURONS, input_shape=FR_IMAGE)
     trainer = Trainer(config, flagship_model(config, card), card, device=DEVICE, mesh=mesh)
     grads = recording_update(trainer)
@@ -2960,6 +3071,38 @@ def sp_fullres(mesh, impl: str) -> dict:
                                                 sample=False))
 
 
+def sp_twice(mesh, impl: str) -> dict:
+    """Phase 5j (c) under ``--deterministic``: ``sp_fullres`` twice with the
+    config's flag and PyTorch's deterministic mode on (``train.
+    set_deterministic``); the serving batch's predictions, the step's loss
+    and every gradient of its update compared bit for bit. Returns the
+    names that differ (empty: bit for bit) and the largest |d| / max|ref|,
+    or the error a run raised."""
+    from v1t_tpu_torch import train as train_cli
+
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    try:
+        train_cli.set_deterministic(flagship_config(deterministic=True))
+        runs = []
+        for _ in range(2):
+            run = sp_fullres(mesh, impl, deterministic=True)
+            run.pop("step")
+            runs.append(run)
+            torch.cuda.empty_cache()
+    except RuntimeError as err:
+        return dict(error=str(err)[:400])
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved[1:]
+    a, b = runs
+    differ = [] if np.array_equal(a["preds"], b["preds"]) else ["predictions"]
+    differ += [] if a["loss"] == b["loss"] else ["loss"]
+    differ += [n for n in a["grads"] if not torch.equal(a["grads"][n], b["grads"][n])]
+    worst = max(grad_rels(b["grads"], a["grads"], f"{impl} twice").values())
+    return dict(differ=differ, grads=len(a["grads"]), worst=worst, launches=a["launches"])
+
+
 def parallel_rank(argv: list) -> int:
     """One rank of phase 5j: ``chip_smoke.py --parallel-rank RANK WORLD DIR
     BACKEND``; its results go to DIR/rank<RANK>.pt."""
@@ -2986,6 +3129,10 @@ def parallel_rank(argv: list) -> int:
             result[impl] = sp_fullres(sp, impl)
             step = result[impl].pop("step")
             torch.cuda.empty_cache()
+        # --deterministic across ranks: the DP loop and each SP step again
+        # under the mode, each against its first run, bit for bit
+        result["loop_again"] = dp_loop(argv, os.path.join(out, f"again{rank}"))
+        result["sp_deterministic"] = {impl: sp_twice(sp, impl) for impl in ("allgather", "ring")}
         # the device's busy share of one ring step (rank 0 profiled, rank 1
         # running the same step beside it)
         if rank == 0:
@@ -3127,6 +3274,17 @@ def parallel_paths(card_text: str, loop: dict, tmp: str) -> dict:
     if len(ranks[0]["loop"]) != 2 or ranks[0]["loop"] != ranks[1]["loop"]:
         raise AssertionError("5j (b): the ranks' epochs differ")
     log("  rank 0 alone wrote the run; the ranks' epochs are equal")
+    again = [r["loop_again"] for r in ranks]
+    log("  --deterministic across ranks: the two-rank loop run again, epochs " + "; ".join(
+        f"{a['epoch']}: train loss {a['train_loss']!r} / {b['train_loss']!r}, validation "
+        f"correlation {a['corr']!r} / {b['corr']!r}" for a, b in zip(ranks[0]["loop"], again[0]))
+        + (" (bit for bit)" if again[0] == ranks[0]["loop"] and again[1] == ranks[1]["loop"]
+           else " DIFFER"))
+    if again[0] != ranks[0]["loop"] or again[1] != ranks[1]["loop"] \
+            or not os.path.isfile(os.path.join(out, "again0", "ckpt", "model_state.pt")) \
+            or os.path.exists(os.path.join(out, "again1")):
+        raise AssertionError("5j (b): two runs of the two-rank loop under --deterministic "
+                             "differ, or rank 1 wrote one")
 
     log(f"  (c) full resolution ({FR_N} tokens, batch {FR_B}) under SP {PAR_RANKS}, against one "
         "rank")
@@ -3159,6 +3317,17 @@ def parallel_paths(card_text: str, loop: dict, tmp: str) -> dict:
             launches[f"sp_{impl}_serving_rank{rank}"] = got["serving"]
         log(f"  {impl}: per rank a step flash forward {flash}, backward {flash} (one rank: "
             f"{FULLRES_LAUNCHES_PER_STEP['flash_attention']})")
+        for rank, r in enumerate(ranks):
+            det = r["sp_deterministic"][impl]
+            ok = "error" not in det and not det["differ"]
+            log(f"  {impl} rank {rank} under --deterministic, two runs: " + (
+                f"raised {det['error']}" if "error" in det else
+                f"predictions, loss and {det['grads']} gradients "
+                + ("bit for bit" if ok else f"differ in {det['differ'][:6]} (largest |d| / "
+                                            f"max|ref| {det['worst']:.3e})")))
+            if not ok:
+                raise AssertionError(f"5j (c) {impl} rank {rank}: two runs under "
+                                     "--deterministic differ")
     launches["dp_training_rank0"] = ranks[0]["dp"]["launches"]
     seconds = time.perf_counter() - start
     log(f"  phase 5j: {seconds:.1f} s (one-rank references {ref_s:.1f} s, ranks {rank_s:.1f} s; "
@@ -3544,17 +3713,20 @@ def check_launch_plans(lib) -> None:
             f"{f.q_panels} q panel(s), key tiles of {f.keys} in K and V rings {f.stages} deep, "
             f"{f.smem} bytes a block; backward {' -> '.join(b.kernels)}, {b.keys} keys a block, "
             f"a float32 dq accumulator {b.dq_acc}, {b.smem} bytes a block")
-    for dp in WIDE_DPS:  # bf16 column groups; float32 is not built past 256
-        f, b = fwd_plan(torch.bfloat16, dp), bwd_plan(torch.bfloat16, B * H, N, dp)
+    for dp in WIDE_DPS:  # the column groups, bf16 and float32
+        plans = [(fwd_plan(dt, dp), bwd_plan(dt, B * H, N, dp))
+                 for dt in (torch.bfloat16, torch.float32)]
         got = [lib.v1t_flash_attention_smem(dp, 0), lib.v1t_flash_attention_bwd_smem(dp, 0),
                lib.v1t_flash_attention_smem(dp, 1), lib.v1t_flash_attention_bwd_smem(dp, 1)]
-        if got != [f.smem, b.smem, 0, 0]:
+        if got != [p.smem for pair in plans for p in pair]:
             raise AssertionError(f"the column groups' plans at DP {dp} disagree: {got}")
-        log(f"  bf16 flash at DP {dp} (column groups): forward {f.groups} groups of "
-            f"{f.group_cols} columns, {f.queries} query rows a block, q and K chunks of 64 "
-            f"columns in a ring {f.stages} deep, {f.smem} bytes a block; backward "
-            f"{' -> '.join(b.kernels)}, {b.groups} groups of {b.group_cols}, {b.keys} keys a "
-            f"block, {b.smem} bytes a block, {b.order} fixed-order counters at B*H {B * H}")
+        for (f, b), kind in zip(plans, ("bf16", "float32")):
+            log(f"  {kind} flash at DP {dp} (column groups): forward {f.groups} groups of "
+                f"{f.group_cols} columns, {f.queries} query rows a block, q and K chunks of 64 "
+                f"columns in a ring {f.stages} deep, {f.smem} bytes a block; backward "
+                f"{' -> '.join(b.kernels)}, {b.groups} groups of {b.group_cols}, {b.keys} keys "
+                f"a block, {b.smem} bytes a block, {b.order} fixed-order counters at B*H "
+                f"{B * H}")
     wide_fwd = {"qkv": (3 * H * WIDE_EMB, WIDE_EMB, H, True, True, False),
                 "out_proj": (WIDE_EMB, H * WIDE_EMB, 0, False, True, True),
                 "fc1": (WIDE_MLP, WIDE_EMB, 0, True, True, False),
@@ -3725,6 +3897,7 @@ def main() -> int:
                                 if m.group(1).startswith("flash_fwd") else "backward one pass")
                         wide[(int(m.group(2)), name)] = reading
                     m = re.match(r"flash_fwd_wide_kernelILb([01])E|flash_bwd_wide_kernel|"
+                                 r"flash_fwd_f32_wide_kernelILb([01])E|flash_bwd_f32_wide_kernel|"
                                  r"ln_rows_kernel|ln_linear_dx_kernelILi([24])ELb1ELb1E", entry)
                     if m:
                         past[m.group(0)] = reading
@@ -3740,11 +3913,11 @@ def main() -> int:
     if len(wide) != 9 or any(sp for _, sp in wide.values()):
         raise AssertionError(f"the wide instantiations' ptxas report: {wide} (9 expected, "
                              "no spill)")
-    log("  the kernels past the panels' widths (flash column groups above DP 256, the "
-        "LayerNorm past K 640), ptxas's registers a thread / spill stores: " + "; ".join(
-            f"{name} {r} / {sp} B" for name, (r, sp) in sorted(past.items())))
-    if len(past) != 6 or any(sp for _, sp in past.values()):
-        raise AssertionError(f"the instances past the panels' widths: {past} (6 expected, "
+    log("  the kernels past the panels' widths (flash column groups above DP 256, bf16 and "
+        "float32; the LayerNorm past K 640), ptxas's registers a thread / spill stores: "
+        + "; ".join(f"{name} {r} / {sp} B" for name, (r, sp) in sorted(past.items())))
+    if len(past) != 9 or any(sp for _, sp in past.values()):
+        raise AssertionError(f"the instances past the panels' widths: {past} (9 expected, "
                              "no spill)")
     widths = range(32, 257, 32)
     log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
@@ -3807,6 +3980,12 @@ def main() -> int:
           (1, 36, 64), CYCLES, WIDE_LAUNCHES_PER_STEP, WIDE_TOL, text, warm=False,
           paths=("kernel", "plain", "f32"), seed=1)
     torch.cuda.empty_cache()
+    log(f"phase 5m: the V1T at emb {WIDE_EMB} (MLP {WIDE_MLP}, {H} heads of {WIDE_EMB}) in "
+        "float32 on the float32 flash column groups")
+    f32_wide = composed_path(f"fp32 emb-{WIDE_EMB}",
+                             flagship_config(precision="fp32", emb_dim=WIDE_EMB, mlp_dim=WIDE_MLP),
+                             (1, 36, 64), 1, 1, F32_WIDE_LAUNCHES_PER_STEP, F32_TOL, text)
+    torch.cuda.empty_cache()
     dropped = drop_path_and_checkpointing(text)
     torch.cuda.empty_cache()
     modes = patch_modes(text)
@@ -3867,8 +4046,26 @@ def main() -> int:
         if missing or "attention_bwd_" in names or "flash_fwd_wgmma_kernel" in names:
             raise AssertionError(f"emb-{WIDE_EMB} {kind}: kernels {missing} missing from the "
                                  "profile, or a narrower core's ran")
+    f32_wide_device = {}
+    for kind, fn in (("serving", f32_wide["serve_one"]), ("training", f32_wide["train_one"])):
+        seen = where_the_time_goes(f"one fp32 emb-{WIDE_EMB} {kind} "
+                                   f"{'batch' if kind == 'serving' else 'step'} of {B}", fn)
+        if seen is None:
+            continue
+        f32_wide_device[kind] = seen[0]
+        # the float32 column groups ran, and no float32 flash kernel of a
+        # width within 256
+        names = " ".join(seen[1])
+        want = ["flash_fwd_f32_wide_kernel"] + (
+            ["flash_bwd_f32_wide_kernel", "flash_bwd_prep_kernel"] if kind == "training" else [])
+        missing = [w for w in want if w not in names]
+        if missing or "flash_fwd_f32_kernel<" in names or "flash_bwd_f32_kernel<" in names:
+            raise AssertionError(f"fp32 emb-{WIDE_EMB} {kind}: kernels {missing} missing from "
+                                 "the profile, or a float32 flash kernel within 256 ran")
     paths = {"training": train_launches, "full_res_training": full["launches"],
              "wide_training": wide["launches"], "wide_serving": wide["serving_launches"],
+             "fp32_wide_training": f32_wide["launches"],
+             "fp32_wide_serving": f32_wide["serving_launches"],
              "fp32_training": fp32["launches"], "sweep_widest_training": sweep["launches"],
              "serving": serving_launches, "full_res_serving": full["serving_launches"],
              "fp32_serving": fp32["serving_launches"],
@@ -3886,7 +4083,8 @@ def main() -> int:
     for row in rows:
         # launches: the path each kernel serves first (the flash kernels: the
         # full-resolution training run; the forms past the panels' widths:
-        # the emb-768 training run); every path's count beside it
+        # the emb-768 training run, bf16 or float32); every path's count
+        # beside it
         counter = row.pop("counter", row["name"])
         main_path = row.pop("main_path", "full_res_training" if counter.startswith("flash")
                             else "training")
@@ -3908,6 +4106,10 @@ def main() -> int:
         f"{wide['train_images_per_s']:.2f} train images/s (plain "
         f"{wide['plain_train_images_per_s']:.2f}); device ms "
         + ", ".join(f"{k} {v:.3f}" for k, v in wide_device.items()) + f" ({text})")
+    log(f"fp32 emb {WIDE_EMB}: {f32_wide['images_per_s']:.2f} images/s serving, "
+        f"{f32_wide['train_images_per_s']:.3f} train images/s (plain "
+        f"{f32_wide['plain_train_images_per_s']:.3f}); device ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in f32_wide_device.items()) + f" ({text})")
     log("phase 5i: " + "; ".join(
         f"{label} {r['images_per_s']:.1f} images/s serving, {r['train_images_per_s']:.1f} "
         "train images/s" for label, r in others.items())

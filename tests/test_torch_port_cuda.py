@@ -335,6 +335,11 @@ def test_float32_model_runs_on_the_card(gen):
     (2, 2, 333, 77, 70, 256, False, 0.25),
     (2, 2, 257, 257, 257, 256, True, 0.5),
     (4, 4, 1000, 1000, 1000, 230, True, 0.0),
+    # past 256, the column groups of both types at ragged lengths: a
+    # narrower last group (DP 704), rectangular with padded keys, LSA
+    (1, 1, 130, 70, 60, 300, False, 0.25),
+    (2, 2, 129, 129, 129, 700, True, 0.5),
+    (1, 1, 65, 200, 130, 768, False, 0.0),
 ], ids=lambda v: str(v))
 def test_flash_attention_matches_plain(gen, dtype, bh, heads, nq, nk, n_real, d, lsa, rate):
     """Forward (o, LSE) and backward (dq, dk, dv, with an LSE cotangent)."""
@@ -718,9 +723,10 @@ F32_KERNEL_TOL = 2e-5
 
 @pytest.mark.parametrize("lsa", [False, True], ids=["no_lsa", "lsa"])
 @pytest.mark.parametrize("n", [1, 63, 65, 129, 1654])
-@pytest.mark.parametrize("d", [27, 64, 90, 128, 155, 190, 224, 256])
+@pytest.mark.parametrize("d", [27, 64, 90, 128, 155, 190, 224, 256, 300, 768])
 def test_flash_forward_float32_matches_plain(gen, d, n, lsa):
-    """The float32 forward at every padded head width (32-256), lengths
+    """The float32 forward at every padded head width (32-256) and past it
+    (the column groups at 320 and 768), lengths
     that fill no tile of 32 keys or of 128 (64) queries, with and without
     LSA, with dropout and the LSE: o and the LSE within the float32
     tolerance, and the keep mask bit for bit (q = 0 makes every probability

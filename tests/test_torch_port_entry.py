@@ -1,8 +1,8 @@
 """The port's entry points after training against the JAX package's, on the
 CPU (``V1T_PLATFORM=cpu``): ``submission``, ``ensemble`` (with
 ``models/ensemble.py`` and ``Trainer(regularizer_fn=...)``), ``demo`` (with
-``analysis/attention_rollout.py``), ``import_checkpoint`` and
-``export_checkpoint``.
+``analysis/attention_rollout.py``), ``misc.extract_attention_maps``,
+``import_checkpoint`` and ``export_checkpoint``.
 
 A JAX run directory is made without training: a small model's JAX weights
 (2 blocks, emb 32, 2 heads, MLP 64, fp32, patch 8 stride 4: 121 tokens;
@@ -46,6 +46,7 @@ import ensemble as jax_ensemble_cli  # noqa: E402
 import export_checkpoint as jax_export_cli  # noqa: E402
 import import_checkpoint as jax_import_cli  # noqa: E402
 import submission as jax_submission_cli  # noqa: E402
+from misc import extract_attention_maps as jax_extract_cli  # noqa: E402
 from v1t_tpu import training as jax_training  # noqa: E402
 from v1t_tpu.configs import Config as JaxConfig  # noqa: E402
 from v1t_tpu.configs import save_args as jax_save_args  # noqa: E402
@@ -60,6 +61,7 @@ from v1t_tpu_torch import demo, ensemble, export_checkpoint, import_checkpoint  
 from v1t_tpu_torch import submission, training  # noqa: E402
 from v1t_tpu_torch.configs import Config  # noqa: E402
 from v1t_tpu_torch.data import loaders, synthetic  # noqa: E402
+from v1t_tpu_torch.misc import extract_attention_maps  # noqa: E402
 from v1t_tpu_torch.models import build_model  # noqa: E402
 from v1t_tpu_torch.models import ensemble as port_ensemble  # noqa: E402
 from v1t_tpu_torch.utils.scheduler import Scheduler, load_checkpoint_file  # noqa: E402
@@ -366,6 +368,34 @@ def test_demo_main_matches_jax(runs, tmp_path):
             _close(got[key], want[key], 0.0, 1e-4, key)
         else:
             _close(got[key], want[key], 1e-5, 0.0, key)
+
+
+def test_extract_attention_maps_main_matches_jax(runs):
+    """``misc/extract_attention_maps.py`` on the JAX run, the port's
+    ``python -m v1t_tpu_torch.misc.extract_attention_maps`` on its export:
+    every mouse's validation and test trials, {tier: {mouse: {...}}}."""
+    run = runs[1]
+    args = dict(batch_size=4, num_samples=None, verbose=0)
+    jax_extract_cli.main(types.SimpleNamespace(output_dir=run["jax"], **args))
+    with open(os.path.join(run["jax"], "attention_maps.pkl"), "rb") as f:
+        want = pickle.load(f)
+    got = extract_attention_maps.main(extract_attention_maps.parse_args(
+        ["--output_dir", run["exported"], "--batch_size", "4", "--verbose", "0"]))
+    with open(os.path.join(run["exported"], "attention_maps.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    assert got.keys() == want.keys() == saved.keys() == {"validation", "test"}
+    for tier in want:
+        assert got[tier].keys() == want[tier].keys() == set(MICE)
+        for mouse in want[tier]:
+            assert got[tier][mouse].keys() == want[tier][mouse].keys() == {
+                "images", "heatmaps", "pupil_centers", "behaviors"}
+            assert got[tier][mouse]["heatmaps"].shape == want[tier][mouse]["heatmaps"].shape
+            for key, value in want[tier][mouse].items():
+                assert np.array_equal(saved[tier][mouse][key], got[tier][mouse][key])
+                if key == "heatmaps":
+                    _close(got[tier][mouse][key], value, 0.0, 1e-4, key)
+                else:
+                    _close(got[tier][mouse][key], value, 1e-5, 0.0, key)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, runs, data_dir):

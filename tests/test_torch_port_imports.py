@@ -103,7 +103,8 @@ def test_port_imports_without_jax_or_yaml():
             "v1t_tpu_torch.misc.estimate_aRFs", "v1t_tpu_torch.misc.core_pca",
             "v1t_tpu_torch.misc.prediction_v_dilation",
             "v1t_tpu_torch.misc.behaviorMLP_visualization",
-            "v1t_tpu_torch.misc.figures"} <= set(modules)
+            "v1t_tpu_torch.misc.figures", "v1t_tpu_torch.misc.extract_attention_maps"
+            } <= set(modules)
     code = (
         "import sys\n"
         "class Refuse:\n"

@@ -332,7 +332,7 @@ def test_forward_launch_plan(dtype, dp):
     assert plan.smem <= SMEM
 
 
-@pytest.mark.parametrize("dp", [0, 16, 100, 288])
+@pytest.mark.parametrize("dp", [0, 16, 100, 300])
 def test_forward_launch_plan_rejects_unbuilt_widths(dp):
     with pytest.raises(ValueError):
         fa.fwd_plan(torch.float32, dp)

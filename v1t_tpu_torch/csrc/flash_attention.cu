@@ -107,11 +107,12 @@
 // ring of (K, V) pairs (more barriers and rescales per key); one block a SM
 // (203 KB at DP 160) leaves its 8 warps' loads to hide behind each other's
 // FMAs.
-// Above DP 256 (bf16 only; float32 stops at 256): the column groups, a
-// block a (query tile, group of o's columns, plane), S recomputed over the
-// whole DP in every group (flash_fwd_wide_kernel, below). At the emb-768
-// path's shape (B*H 256, N 1654, D 768) the one-pass count is 2.15 TFLOP, a
-// 2.18 ms bound; three groups make it 4.3 TFLOP of products.
+// Above DP 256, in both types: the column groups, a block a (query tile,
+// group of o's columns, plane), S recomputed over the whole DP in every
+// group (flash_fwd_wide_kernel and flash_fwd_f32_wide_kernel, below). At
+// the emb-768 path's shape (B*H 256, N 1654, D 768) the one-pass count is
+// 2.15 TFLOP, a 2.18 ms bound in bf16 and 32.1 ms at the fp32 rate; three
+// groups make it 4.3 TFLOP of products.
 #include "hopper.cuh"
 #include "wgmma_fwd.cuh"
 
@@ -1048,6 +1049,216 @@ __global__ void __launch_bounds__(F32_THREADS, 1) flash_fwd_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// float32 above DP 256 (column groups)
+//
+// o of 64 rows at DP 768 would be 192 fp32 registers a thread, and q with a
+// K and a V tile 600 KB of shared memory. So a block owns 64 query rows (4
+// a thread, as at DP 192-256) and one group of o's columns, the bf16
+// kernels' split (wide_groups, wide_group_width: at most WIDE_OG = 256
+// wide), one block a (query tile, group, plane). S is accumulated over the
+// whole DP from a q and a K chunk of WIDE_CW = 64 columns ([64][68] each) at
+// a time, in a two-stage cp.async ring that runs on across key tiles (the
+// last chunk zero-filled past DP, so that its product adds nothing); the
+// group's V columns ([64][260]) are copied while the tile's first chunks
+// are computed. The softmax, P through shared memory and o += P v on the
+// group's columns are flash_fwd_f32_kernel's. Every group recomputes S: at
+// DP 768 three times, so the products are 4/2 of the one-pass count. The
+// keep mask is keyed by element, so every group draws the same one; group
+// 0 writes the LSE. One instance a training flag serves every multiple of
+// 32 past 256 (the group's width is a multiple of 32; a warp skips the
+// column blocks past it).
+
+// the ring's two stages of a q and a K chunk, the group's V columns, P
+__host__ __device__ constexpr int f32_wide_smem_bytes() {
+  return (2 * 2 * f32_tile_floats(F32_KB, WIDE_CW) + f32_tile_floats(F32_KB, WIDE_OG) +
+          F32_KB * (F32_KB + 4)) * (int)sizeof(float);
+}
+
+template <bool TRAIN>
+__global__ void __launch_bounds__(F32_THREADS, 1) flash_fwd_f32_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, int n_real, int D, int DP,
+    RowLayout ol, int lsa, Drop drop, int gw) {
+  constexpr int RQ = 4, QB = 16 * RQ, KB = F32_KB, CW = WIDE_CW;
+  constexpr int CLD = CW + 4, VLD = WIDE_OG + 4, PLD = KB + 4, C4 = CW / 4;
+  constexpr int V4 = WIDE_OG / 4, CV = WIDE_OG / 32;
+  constexpr int CT = f32_tile_floats(KB, CW);  // a q or a K chunk (QB == KB rows)
+  static_assert(QB == KB, "a q chunk and a K chunk share one shape");
+  extern __shared__ __align__(16) float fsm[];
+  float* As = fsm;                             // [2 stages] q chunk, K chunk
+  float* Vs = As + 4 * CT;                     // the group's V columns
+  float* Ps = Vs + f32_tile_floats(KB, WIDE_OG);  // [QB][PLD] the kept probabilities
+
+  // lane = 2 cl + rl: rows rbase + 2 i (i < RQ) of the warp's 8; keys
+  // 4 cl .. 4 cl + 3 of a tile for S, float2 columns cl + 16 j of the
+  // group (j < cv) for o
+  const int tid = threadIdx.x, lane = tid & 31, cl = lane >> 1;
+  const int rbase = (tid >> 5) * 2 * RQ + (lane & 1);
+  const int qt = blockIdx.x, gi = blockIdx.y, bh = blockIdx.z;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0), cv = gcols / 32;
+  const int nc = (DP + CW - 1) / CW, ntiles = (Nk + KB - 1) / KB, steps = ntiles * nc;
+  const float* qg = q + (size_t)bh * Nq * DP;
+  const float* kg = k + (size_t)bh * Nk * DP;
+  const float* vg = v + (size_t)bh * Nk * DP;
+
+  // ring step i: key tile i / nc, chunk i % nc of the tile's q rows and keys
+  auto load_chunk = [&](int i) {
+    const int j = i / nc, c0 = (i - j * nc) * CW;
+    float* st = As + (i & 1) * 2 * CT;
+    for (int x = tid; x < KB * C4; x += F32_THREADS) {
+      const int r = x / C4, c = (x - r * C4) * 4, col = c0 + c;
+      const int row = qt * QB + r, key = j * KB + r;
+      const bool qv = row < Nq && col < DP, kv = key < Nk && col < DP;
+      cp_async16(st + f32_row(r, CLD) + c, qg + (qv ? (size_t)row * DP + col : 0), qv);
+      cp_async16(st + CT + f32_row(r, CLD) + c, kg + (kv ? (size_t)key * DP + col : 0), kv);
+    }
+    cp_async_commit();
+  };
+  auto load_v = [&](int j) {
+    for (int x = tid; x < KB * V4; x += F32_THREADS) {
+      const int r = x / V4, c = (x - r * V4) * 4, key = j * KB + r;
+      if (c >= gcols) continue;
+      const bool valid = key < Nk;
+      cp_async16(Vs + f32_row(r, VLD) + c, vg + (valid ? (size_t)key * DP + g0 + c : 0), valid);
+    }
+    cp_async_commit();
+  };
+  load_chunk(0);
+
+  float2 o[RQ][CV];
+  float m[RQ], l[RQ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = MASKED;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) o[i][j] = make_float2(0.f, 0.f);
+  }
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    // S = q k^T over DP, a chunk at a time. The copies go out in the order
+    // chunk i + 1, V_kt at chunk 0, so that chunk 1 waits for its own copy
+    // alone; V_kt has landed by chunk 2 (DP > 256: at least 5 chunks)
+    float s[RQ][4];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const int i = kt * nc + c;
+      if (c == 1) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      // chunk i has landed; every thread is done with chunk i - 1 and, at
+      // chunk 0, with P_kt-1 v_kt-1
+      __syncthreads();
+      if (i + 1 < steps) load_chunk(i + 1);
+      if (c == 0) load_v(kt);
+      const float* qs = As + (i & 1) * 2 * CT;
+      const float* ks = qs + CT;
+#pragma unroll 2
+      for (int d = 0; d < CW; d += 4) {
+        float4 a[RQ], b[4];
+#pragma unroll
+        for (int i2 = 0; i2 < RQ; ++i2)
+          a[i2] = *reinterpret_cast<const float4*>(qs + f32_row(rbase + 2 * i2, CLD) + d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          b[e] = *reinterpret_cast<const float4*>(ks + f32_row(4 * cl + e, CLD) + d);
+#pragma unroll
+        for (int i2 = 0; i2 < RQ; ++i2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i2][e] = dot4(s[i2][e], a[i2], b[e]);
+      }
+    }
+
+    // the online softmax, as flash_fwd_f32_kernel's
+    const int key0 = kt * KB + 4 * cl;
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int row = qt * QB + rbase + 2 * i;
+      float mx = MASKED;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + e;
+        float x = s[i][e] * LOG2E;
+        if (key >= Nk) x = __int_as_float(0xff800000u);  // -inf
+        else if (key >= n_real || (lsa && key == row)) x = MASKED;
+        s[i][e] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 2; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mx = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - mx);
+      m[i] = mx;
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        o[i][j].x *= alpha;
+        o[i][j].y *= alpha;
+      }
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (TRAIN && drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key0 >> 2);
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[i][e] - mx);
+        l[i] += p[e];
+        if (TRAIN && drop.on() && word_of(w, e) >= drop.threshold) p[e] = 0.f;
+      }
+      *reinterpret_cast<float4*>(Ps + (rbase + 2 * i) * PLD + 4 * cl) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+    __syncwarp();  // a warp reads back only its own rows of P
+
+    // o += P v over the group's columns (V_kt has landed: see above)
+#pragma unroll 2
+    for (int kk = 0; kk < KB; kk += 4) {
+      float4 pv[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (rbase + 2 * i) * PLD + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = Vs + f32_row(kk + e, VLD) + 2 * cl;
+#pragma unroll
+        for (int j = 0; j < CV; ++j) {
+          if (j >= cv) continue;
+          const float2 b = *reinterpret_cast<const float2*>(vr + 32 * j);
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) {
+            const float pe = lane4(pv[i], e);
+            o[i][j].x = fmaf(pe, b.x, o[i][j].x);
+            o[i][j].y = fmaf(pe, b.y, o[i][j].y);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    float li = l[i];  // the 16 lanes of a row hold partial sums
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = qt * QB + rbase + 2 * i;
+    if (row >= Nq) continue;
+    float inv = li == 0.f ? 1.f : 1.f / li;
+    if (TRAIN && drop.on()) inv *= drop.scale;
+    if (gi == 0 && lse != nullptr && cl == 0)
+      lse[(size_t)bh * Nq + row] = (m[i] + log2f(fmaxf(li, 1e-37f))) * LN2;
+    float* orow = out + ol.at(bh, row);
+#pragma unroll
+    for (int j = 0; j < CV; ++j) {
+      const int col = g0 + 2 * cl + 32 * j;
+      if (j >= cv) continue;
+      if (col < D) orow[col] = o[i][j].x * inv;
+      if (col + 1 < D) orow[col + 1] = o[i][j].y * inv;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 template <int DP, bool TRAIN>
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
@@ -1071,6 +1282,21 @@ int launch_f32_dp(bool train, const void* q, const void* k, const void* v, void*
   if (train)
     return launch_f32<DP, true>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, ol, lsa, drop, stream);
   return launch_f32<DP, false>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, ol, lsa, drop, stream);
+}
+
+template <bool TRAIN>
+int launch_f32_wide(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
+                    int Nq, int Nk, int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop,
+                    cudaStream_t stream) {
+  constexpr int bytes = f32_wide_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_wide_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((Nq + F32_KB - 1) / F32_KB), (unsigned)wide_groups(DP), (unsigned)BH);
+  flash_fwd_f32_wide_kernel<TRAIN><<<grid, F32_THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, Nq, Nk,
+      n_real, D, DP, ol, lsa, drop, wide_group_width(DP));
+  return (int)cudaGetLastError();
 }
 
 template <int DP, bool TRAIN>
@@ -1177,8 +1403,7 @@ int wgmma_fwd::smem(int dp) {
 
 // Returns a CUDA error code (0 on success). q (BH, Nq, DP), k and v (BH, Nk,
 // DP), bf16 (f32 == 0) or float32 (f32 == 1), rows zero-padded from D to
-// DP = 32, 64, ..., 256 (bf16: any multiple of 32, above 256 on column
-// groups); out in the same dtype at element (bh, row, d) ->
+// DP any multiple of 32 (above 256 on column groups); out in the same dtype at element (bh, row, d) ->
 // (bh / H) * o_batch + (bh % H) * o_head + row * o_row + d, d < D; lse, when
 // not null, (BH, Nq) float32 natural-log log-sum-exp. Keys at or past
 // n_real_k are masked, with lsa also key == row. threshold > 0 applies the
@@ -1199,6 +1424,13 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
     return wgmma_fwd::launch((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
                              (float*)lse, BH, Nq, Nk, n_real_k, D, DP, ol, lsa, drop, nullptr, 0,
                              train, s);
+  if (DP > 256) {  // the column groups
+    if (DP % 32 != 0) return (int)cudaErrorInvalidValue;
+    return train ? launch_f32_wide<true>(q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, DP, ol,
+                                         lsa, drop, s)
+                 : launch_f32_wide<false>(q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, DP, ol,
+                                          lsa, drop, s);
+  }
   switch (DP) {
     case 32: return launch_f32_dp<32>(train, q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     case 64: return launch_f32_dp<64>(train, q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
@@ -1214,9 +1446,10 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
 
 // Dynamic shared memory of a block of the bf16 (f32 == 0) or float32
 // (f32 == 1) kernel at padded head width dp (0 for a width it is not built
-// for; bf16 above 256: the column groups', one size at every width).
+// for; above 256: the column groups', one size at every width).
 extern "C" int v1t_flash_attention_smem(int dp, int f32) {
   if (f32 == 0) return wgmma_fwd::smem(dp);
+  if (dp > 256) return dp % 32 == 0 ? f32_wide_smem_bytes() : 0;
   switch (dp) {
     case 32: return f32_smem_bytes<32>();
     case 64: return f32_smem_bytes<64>();

@@ -114,10 +114,11 @@
 // 32 columns wait until its last add has read it;
 // the one pass's products and its P / dS arithmetic do not overlap within a
 // warpgroup; the float32 pass's two halves wait for each other twice a tile.
-// Above DP 256 (bf16 only; float32 stops at 256) the one pass runs on column
-// groups (flash_bwd_wide_kernel, below): at the emb-768 path's shape (B*H
-// 256, N 1654, D 768) the five products are 5.38 TFLOP, a 5.44 ms bound;
-// three groups recomputing S and dP make them 9.7 TFLOP.
+// Above DP 256, in both types, the one pass runs on column groups
+// (flash_bwd_wide_kernel and flash_bwd_f32_wide_kernel, below): at the
+// emb-768 path's shape (B*H 256, N 1654, D 768) the five products are 5.38
+// TFLOP, a 5.44 ms bound in bf16 and 80.3 ms at the fp32 rate; three groups
+// recomputing S and dP make them 9.7 TFLOP.
 #include "hopper.cuh"
 #include "one_pass_bwd.cuh"
 
@@ -1124,6 +1125,308 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// float32 above DP 256 (column groups)
+//
+// dK and dV of 32 keys at DP 768 would be 192 fp32 registers a thread, and
+// K, V, q and dO tiles 400 KB of shared memory. So a block owns 32 keys (as
+// at DP 192-256) and one group of the columns, the bf16 kernels' split
+// (wb_groups, wb_group_width: at most WB_OG = 256 wide), one block a (key
+// block, group, plane), and loops over query tiles of 32. S^T = K q^T (the
+// first half of the block) and dP^T = V dO^T (the second) are recomputed
+// over the whole DP from chunks of WB_CW = 64 columns of q, dO, K and V
+// ([32][68] each) in a two-stage cp.async ring that runs on across query
+// tiles (the last chunk zero-filled past DP); the tile's q and dO columns
+// of the group ([32][260] each) and its lse and delta are copied while its
+// first chunks are computed; the block's K columns of the group stay in
+// shared memory for dq. P, Z P, dS, dV, dK and dq are then
+// flash_bwd_f32_kernel's, on the group's columns: the block owns its
+// group's dK and dV outright (no atomics); dq's partial sums go out as float4
+// atomics, in key order under `order` (a ticket hands out the (key block,
+// group, plane) items, key block fastest, and a turn a (plane, group,
+// query tile) passes from half to half, 2 kb + grp). Every group recomputes
+// S and dP: at DP 768 the products are 9/5 of the one-pass count. One
+// instance serves every multiple of 32 past 256.
+
+// the ring's two stages of q, dO, K and V chunks; the block's K columns;
+// the tile's q and dO columns; Z P and P / dS; lse and delta
+__host__ __device__ constexpr int f32_wide_bwd_smem_bytes() {
+  return (2 * 4 * F32_QT * (WB_CW + 4) + 32 * (WB_OG + 4) + 2 * F32_QT * (WB_OG + 4) +
+          2 * F32_QT * (32 + 4) + 2 * F32_QT) * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dohm, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk,
+    float* __restrict__ dv, int Nq, int Nk, int n_real, int D, int DP, int lsa, Drop drop,
+    int* __restrict__ order, int groups, int gw) {
+  constexpr int KB = 32, QT = F32_QT, CW = WB_CW, OG = WB_OG;
+  constexpr int CLD = CW + 4, GLD = OG + 4, PLD = KB + 4, C4 = CW / 4, G4 = OG / 4;
+  constexpr int CT = QT * CLD;                // a chunk (QT == KB rows)
+  constexpr int KG = KB / 4;                  // groups of 4 keys
+  constexpr int QG = 128 / KG, QA = QT / QG;  // S / dP: query groups, queries a thread
+  constexpr int DG = 128 / KG;                // dK / dV: column groups (of quads)
+  constexpr int JB = G4 / DG;                 // dK / dV: quads a thread
+  constexpr int JC = G4 / 8;                  // dq: quads a thread (8 column groups)
+  constexpr int KH = KB / 2;                  // dq: keys of each half of the block
+  static_assert(QA * QG == QT && QT == KB && G4 % DG == 0, "tile shape");
+  extern __shared__ __align__(16) float fsm[];
+  float* Ring = fsm;               // [2 stages] q, dO, K, V chunks [32][CLD]
+  float* Kg = Ring + 2 * 4 * CT;   // [KB][GLD] the block's K columns of the group
+  float* Qg = Kg + KB * GLD;       // [QT][GLD] the tile's q columns of the group
+  float* dOg = Qg + QT * GLD;      // [QT][GLD] ... and its dO columns
+  float* Ps = dOg + QT * GLD;      // [QT][PLD] Z P
+  float* Hs = Ps + QT * PLD;       // [QT][PLD] P with the keep bit as its sign, then dS
+  float* Ls = Hs + QT * PLD;       // [QT] lse
+  float* Dl = Ls + QT;             // [QT] delta
+
+  const int tid = threadIdx.x, grp = tid >> 7, i = tid & 127;
+  __shared__ int ticket;
+  if (order != nullptr) {
+    if (tid == 0) ticket = atomicAdd(order, 1);
+    __syncthreads();
+  }
+  // the (key block, group, plane) item, key block fastest: ordered, in claim
+  // order, so that a block only waits on the lower key blocks of its (plane,
+  // group), claimed before it
+  const int nkb = gridDim.x;
+  const int item = order != nullptr ? ticket : blockIdx.y * nkb + blockIdx.x;
+  const int kb = item % nkb, rest = item / nkb, gi = rest % groups, bh = rest / groups;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0), gq = gcols / 4, jc = gcols / 32;
+  const int ntiles = (Nq + QT - 1) / QT, nc = (DP + CW - 1) / CW, steps = ntiles * nc;
+  int* turns = order != nullptr ? order + 1 + ((size_t)bh * groups + gi) * ntiles : nullptr;
+  const float* qg = q + (size_t)bh * Nq * DP;
+  const float* dog = dohm + (size_t)bh * Nq * DP;
+  const float* kg = k + (size_t)bh * Nk * DP;
+  const float* vg = v + (size_t)bh * Nk * DP;
+  const float* lrow = lse + (size_t)bh * Nq;
+  const float* drow = delta + (size_t)bh * Nq;
+
+  for (int x = tid; x < KB * G4; x += THREADS) {  // committed with the ring's first step
+    const int r = x / G4, c = (x - r * G4) * 4, key = kb * KB + r;
+    if (c >= gcols) continue;
+    const bool valid = key < Nk;
+    cp_async16(Kg + r * GLD + c, kg + (valid ? (size_t)key * DP + g0 + c : 0), valid);
+  }
+  // ring step s: query tile s / nc, chunk s % nc of its q and dO rows and of
+  // the block's K and V rows
+  auto load_chunk = [&](int s) {
+    const int it = s / nc, c0 = (s - it * nc) * CW;
+    float* st = Ring + (s & 1) * 4 * CT;
+    for (int x = tid; x < QT * C4; x += THREADS) {
+      const int r = x / C4, c = (x - r * C4) * 4, col = c0 + c;
+      const int row = it * QT + r, key = kb * KB + r;
+      const bool qv = row < Nq && col < DP, kv = key < Nk && col < DP;
+      const size_t qo = qv ? (size_t)row * DP + col : 0, ko = kv ? (size_t)key * DP + col : 0;
+      cp_async16(st + r * CLD + c, qg + qo, qv);
+      cp_async16(st + CT + r * CLD + c, dog + qo, qv);
+      cp_async16(st + 2 * CT + r * CLD + c, kg + ko, kv);
+      cp_async16(st + 3 * CT + r * CLD + c, vg + ko, kv);
+    }
+    cp_async_commit();
+  };
+  auto load_group = [&](int it) {
+    for (int x = tid; x < QT * G4; x += THREADS) {
+      const int r = x / G4, c = (x - r * G4) * 4, row = it * QT + r;
+      if (c >= gcols) continue;
+      const bool valid = row < Nq;
+      const size_t off = valid ? (size_t)row * DP + g0 + c : 0;
+      cp_async16(Qg + r * GLD + c, qg + off, valid);
+      cp_async16(dOg + r * GLD + c, dog + off, valid);
+    }
+    if (tid < QT) {
+      const int row = it * QT + tid;
+      hopper::cp_async4(Ls + tid, lrow + (row < Nq ? row : 0), row < Nq);
+      hopper::cp_async4(Dl + tid, drow + (row < Nq ? row : 0), row < Nq);
+    }
+    cp_async_commit();
+  };
+  load_chunk(0);
+
+  // S / dP, P, dS: keys 4 ka .. 4 ka + 3 (one Philox group), queries qa + QG j
+  const int ka = i / QG, qa = i % QG, key0 = kb * KB + 4 * ka;
+  // dV / dK: keys 4 kd .. 4 kd + 3, quads dd + DG j of the group
+  const int kd = i / DG, dd = i % DG;
+  // dq: queries qc and qc + 16, quads dc + 8 j of the group
+  const int qc = i / 8, dc = i % 8;
+  float4 acc[4][JB];  // dV (grp 0) or dK (grp 1) of keys 4 kd + e
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int j = 0; j < JB; ++j) acc[e][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < ntiles; ++it) {
+    // S^T = K q^T (grp 0) or dP^T = V dO^T (grp 1) over DP, a chunk at a
+    // time. The copies go out in the order chunk s + 1, the tile's group
+    // columns at chunk 0, so that chunk 1 waits for its own copy alone; the
+    // group columns have landed by chunk 2 (DP > 256: at least 5 chunks)
+    float s[4][QA];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int j = 0; j < QA; ++j) s[e][j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const int step = it * nc + c;
+      if (c == 1) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      // chunk `step` has landed; every thread is done with the chunk before
+      // it and, at chunk 0, with the previous tile's group columns, P and dS
+      __syncthreads();
+      if (step + 1 < steps) load_chunk(step + 1);
+      if (c == 0) load_group(it);
+      const float* st = Ring + (step & 1) * 4 * CT;
+      const float* a_rows = st + (grp ? 3 : 2) * CT + 4 * ka * CLD;
+      const float* b_rows = st + (grp ? CT : 0) + qa * CLD;
+#pragma unroll 2
+      for (int d = 0; d < CW; d += 4) {
+        float4 a[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = *reinterpret_cast<const float4*>(a_rows + e * CLD + d);
+#pragma unroll
+        for (int j = 0; j < QA; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(b_rows + j * QG * CLD + d);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[e][j] = dot4(s[e][j], a[e], b);
+        }
+      }
+    }
+    if (grp == 0) {
+      // P, its keep mask (one Philox per query), Z P and the signed hand-over
+#pragma unroll
+      for (int j = 0; j < QA; ++j) {
+        const int ql = qa + QG * j, row = it * QT + ql;
+        const float l2 = __fmul_rn(Ls[ql], LOG2E);
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if (drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key0 >> 2);
+        const bool edge = key0 + 4 > n_real || row >= Nq || lsa;
+        float zp[4], sp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + e;
+          float p;
+          if (!edge) {
+            p = exp2f(s[e][j] * LOG2E - l2);
+          } else {
+            const bool masked = key >= n_real || (lsa && key == row);
+            p = key >= Nk || row >= Nq ? 0.f : exp2f((masked ? MASKED : s[e][j] * LOG2E) - l2);
+          }
+          const bool keep = !drop.on() || word_of(w, e) < drop.threshold;
+          zp[e] = keep ? p : 0.f;
+          sp[e] = keep ? p : -p;
+        }
+        *reinterpret_cast<float4*>(Ps + ql * PLD + 4 * ka) = make_float4(zp[0], zp[1], zp[2], zp[3]);
+        *reinterpret_cast<float4*>(Hs + ql * PLD + 4 * ka) = make_float4(sp[0], sp[1], sp[2], sp[3]);
+      }
+    }
+    __syncthreads();  // P and Z P are in shared memory
+    if (grp == 1) {
+      // dS = P (Z dP - delta), over P's hand-over slot
+#pragma unroll
+      for (int j = 0; j < QA; ++j) {
+        const int ql = qa + QG * j;
+        const float del = Dl[ql];
+        float4* slot = reinterpret_cast<float4*>(Hs + ql * PLD + 4 * ka);
+        const float4 h = *slot;
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pk = lane4(h, e);
+          const float z = drop.on() ? (pk > 0.f ? drop.scale : 0.f) : 1.f;
+          ds[e] = fabsf(pk) * (z * s[e][j] - del);
+        }
+        *slot = make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+      named_arrive(1, THREADS);  // dS is in shared memory, for grp 0's dq
+      named_sync(2, 128);        // ... and for this half's dK
+    }
+
+    // dV += (Z P)^T dO (grp 0) or dK += dS^T q (grp 1) on the group's columns
+    {
+      const float* a_t = (grp ? Hs : Ps) + 4 * kd;
+      const float* b_t = (grp ? Qg : dOg) + 4 * dd;
+#pragma unroll 4
+      for (int qq = 0; qq < QT; ++qq) {
+        const float4 a = *reinterpret_cast<const float4*>(a_t + qq * PLD);
+#pragma unroll
+        for (int j = 0; j < JB; ++j) {
+          if (dd + DG * j >= gq) continue;
+          const float4 b = *reinterpret_cast<const float4*>(b_t + qq * GLD + 4 * DG * j);
+          fma4(acc[0][j], a.x, b);
+          fma4(acc[1][j], a.y, b);
+          fma4(acc[2][j], a.z, b);
+          fma4(acc[3][j], a.w, b);
+        }
+      }
+    }
+    if (grp == 0) named_sync(1, THREADS);  // dS is in shared memory
+
+    // dq[tile rows, group columns] += dS[:, half's keys] K[half's keys,
+    // group columns], added to dq with float4 atomics
+    {
+      float4 g[2][JC];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < JC; ++j) g[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* a0 = Hs + qc * PLD + KH * grp;
+      const float* a1 = a0 + 16 * PLD;
+      const float* k_t = Kg + KH * grp * GLD + 4 * dc;
+#pragma unroll 2
+      for (int kk = 0; kk < KH; kk += 4) {
+        const float4 x0 = *reinterpret_cast<const float4*>(a0 + kk);
+        const float4 x1 = *reinterpret_cast<const float4*>(a1 + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int j = 0; j < JC; ++j) {
+            if (j >= jc) continue;
+            const float4 b = *reinterpret_cast<const float4*>(k_t + (kk + e) * GLD + 32 * j);
+            fma4(g[0][j], lane4(x0, e), b);
+            fma4(g[1][j], lane4(x1, e), b);
+          }
+      }
+      if (turns != nullptr) {  // the halves before this one have added into tile it
+        if (i == 0) wait_turn(turns + it, 2 * kb + grp);
+        named_sync(3 + grp, 128);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = it * QT + qc + 16 * r;
+        if (row < Nq) {
+          float* dst = dq + ((size_t)bh * Nq + row) * DP + g0 + 4 * dc;
+#pragma unroll
+          for (int j = 0; j < JC; ++j)
+            if (j < jc) atomicAdd(reinterpret_cast<float4*>(dst + 32 * j), g[r][j]);
+        }
+      }
+      if (turns != nullptr) {  // the half's adds are done: the next half's turn
+        named_sync(3 + grp, 128);
+        if (i == 0) red_release(turns + it, 1);
+      }
+    }
+  }
+
+  // dV (grp 0, times 1 / keep) and dK (grp 1) of the block's keys on the
+  // group's columns, zero past D
+  const float out_scale = grp == 0 && drop.on() ? drop.scale : 1.f;
+  float* out = (grp ? dk : dv) + (size_t)bh * Nk * DP;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = kb * KB + 4 * kd + e;
+    if (key >= Nk) continue;
+#pragma unroll
+    for (int j = 0; j < JB; ++j) {
+      if (dd + DG * j >= gq) continue;
+      const int col = g0 + 4 * (dd + DG * j);
+      const float4 x = acc[e][j];
+      *reinterpret_cast<float4*>(out + (size_t)key * DP + col) =
+          make_float4(col < D ? x.x * out_scale : 0.f, col + 1 < D ? x.y * out_scale : 0.f,
+                      col + 2 < D ? x.z * out_scale : 0.f, col + 3 < D ? x.w * out_scale : 0.f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 template <int DP>
 int launch_one_pass(const void* q, const void* k, const void* v, const void* dohm,
@@ -1154,12 +1457,12 @@ int launch_one_pass(const void* q, const void* k, const void* v, const void* doh
   return (int)cudaGetLastError();
 }
 
-// the float32 backward: prep, dq zeroed, one FFMA pass
-template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const void* lse, const void* dlse, void* dq, void* dk, void* dv, void* dohm,
-               void* delta, int* order, int BH, int Nq, int Nk, int n_real, int D, RowLayout ol,
-               int lsa, Drop drop, cudaStream_t stream) {
+// the float32 backward's first steps: prep, dq zeroed (the key blocks add
+// dq's partial sums into dq itself), and the fixed-order counters zeroed:
+// the ticket and `turns` turn counters
+int f32_prep(const void* o, const void* dout, const void* dlse, void* dq, void* dohm,
+             void* delta, int* order, size_t turns, int BH, int Nq, int D, int DP, RowLayout ol,
+             cudaStream_t stream) {
   const long long rows = (long long)BH * Nq;
   const unsigned prep_blocks = (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
   flash_bwd_prep_kernel<float><<<prep_blocks, THREADS, 0, stream>>>(
@@ -1167,23 +1470,56 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
       BH, Nq, D, DP, ol);
   cudaError_t err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // the key blocks add dq's partial sums into dq itself
   err = cudaMemsetAsync(dq, 0, (size_t)rows * DP * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  if (order != nullptr) {  // the ticket and a turn counter per (plane, query tile)
-    err = cudaMemsetAsync(order, 0, (1 + (size_t)BH * ((Nq + F32_QT - 1) / F32_QT)) * sizeof(int),
-                          stream);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (order != nullptr) err = cudaMemsetAsync(order, 0, (1 + turns) * sizeof(int), stream);
+  return (int)err;
+}
+
+// the float32 backward: prep, dq zeroed, one FFMA pass
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, const void* dlse, void* dq, void* dk, void* dv, void* dohm,
+               void* delta, int* order, int BH, int Nq, int Nk, int n_real, int D, RowLayout ol,
+               int lsa, Drop drop, cudaStream_t stream) {
+  // a turn counter per (plane, query tile)
+  int rc = f32_prep(o, dout, dlse, dq, dohm, delta, order,
+                    (size_t)BH * ((Nq + F32_QT - 1) / F32_QT), BH, Nq, D, DP, ol, stream);
+  if (rc != 0) return rc;
   constexpr int bytes = f32_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(flash_bwd_f32_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_kernel<DP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   constexpr int KB = f32_keys<DP>();
   flash_bwd_f32_kernel<DP><<<dim3((Nk + KB - 1) / KB, BH), THREADS, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dohm,
       (const float*)lse, (const float*)delta, (float*)dq, (float*)dk, (float*)dv, Nq, Nk,
       n_real, D, lsa, drop, order);
+  return (int)cudaGetLastError();
+}
+
+// the float32 backward above DP 256: prep, dq zeroed, the column groups'
+// FFMA pass
+int launch_f32_wide(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const void* lse, const void* dlse, void* dq, void* dk,
+                    void* dv, void* dohm, void* delta, int* order, int BH, int Nq, int Nk,
+                    int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop,
+                    cudaStream_t stream) {
+  const int groups = wb_groups(DP);
+  if (DP % 32 != 0 || (long long)BH * groups > 65535) return (int)cudaErrorInvalidValue;
+  // a turn counter per (plane, group, query tile)
+  int rc = f32_prep(o, dout, dlse, dq, dohm, delta, order,
+                    (size_t)BH * groups * ((Nq + F32_QT - 1) / F32_QT), BH, Nq, D, DP, ol,
+                    stream);
+  if (rc != 0) return rc;
+  constexpr int bytes = f32_wide_bwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_wide_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_f32_wide_kernel<<<dim3((Nk + 31) / 32, BH * groups), THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dohm,
+      (const float*)lse, (const float*)delta, (float*)dq, (float*)dk, (float*)dv, Nq, Nk,
+      n_real, D, DP, lsa, drop, order, groups, wb_group_width(DP));
   return (int)cudaGetLastError();
 }
 
@@ -1238,8 +1574,9 @@ int one_pass::launch(const void* q, const void* k, const void* v, const void* do
 }
 
 // Returns a CUDA error code (0 on success). q (BH, Nq, DP), k, v (BH, Nk,
-// DP) as the forward read them (bf16 when f32 == 0, float32 when 1; DP =
-// 32, 64, ..., 256; bf16 any multiple of 32, above 256 on column groups); o and dout at element (bh, row, d) -> (bh / H) *
+// DP) as the forward read them (bf16 when f32 == 0, float32 when 1; DP any
+// multiple of 32, above 256 on column groups); o and dout at element (bh,
+// row, d) -> (bh / H) *
 // o_batch + (bh % H) * o_head + row * o_row + d, d < D, in the same dtype;
 // lse (BH, Nq) float32 natural log from the forward; dlse (BH, Nq) float32
 // or null. Writes dq (BH, Nq, DP), dk and dv (BH, Nk, DP), zero past D.
@@ -1271,7 +1608,10 @@ extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void*
     case 192: return launch_f32<192>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     case 224: return launch_f32<224>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     case 256: return launch_f32<256>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:  // the column groups
+      if (DP <= 256) return (int)cudaErrorInvalidValue;
+      return launch_f32_wide(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order,
+                             BH, Nq, Nk, n_real_k, D, DP, ol, lsa, drop, s);
   }
 }
 
@@ -1284,11 +1624,11 @@ int bwd_smem(bool f32) {
 
 // Dynamic shared memory of a block of the backward's main kernel at padded
 // head width dp: in bf16 the one pass (which attention_bwd.cu launches too
-// up to DP 160; above 256 the column groups'), with f32 the float32 pass. 0
+// up to DP 160), with f32 the float32 pass; above 256 the column groups'. 0
 // for a width it is not built for.
 extern "C" int v1t_flash_attention_bwd_smem(int dp, int f32) {
   const bool f = f32 != 0;
-  if (!f && dp > 256) return dp % 32 == 0 ? wide_bwd_smem_bytes() : 0;
+  if (dp > 256) return dp % 32 != 0 ? 0 : f ? f32_wide_bwd_smem_bytes() : wide_bwd_smem_bytes();
   switch (dp) {
     case 32: return bwd_smem<32>(f);
     case 64: return bwd_smem<64>(f);

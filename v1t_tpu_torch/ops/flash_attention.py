@@ -23,11 +23,10 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   kernels run and on which tiles: in bf16 one wgmma pass that adds dq into
   a float32 accumulator (above ``WIDE_DP`` on blocks of 64 keys, dK and dV
   split by columns); in float32 one FFMA pass that adds dq into the output
-  itself. bf16 takes any padded head width: above ``MAX_HEAD_PAD`` (256)
-  both kernels split o's (and dK's, dV's, dq's) columns into groups of at
-  most ``WIDE_GROUP``, a block a group, each recomputing the scores over
-  the whole width from chunks of ``WIDE_CHUNK`` columns. float32 stops at
-  ``MAX_HEAD_PAD``.
+  itself. Both types take any padded head width: above ``MAX_HEAD_PAD``
+  (256) both kernels split o's (and dK's, dV's, dq's) columns into groups
+  of at most ``WIDE_GROUP``, a block a group, each recomputing the scores
+  over the whole width from chunks of ``WIDE_CHUNK`` columns.
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -58,9 +57,9 @@ Tensor = torch.Tensor
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 MASKED = -1e30  # the kernels' masked score (log2 units)
-MAX_HEAD_PAD = 256  # padded head widths of the float32 kernels, and of the bf16 ones' panels
+MAX_HEAD_PAD = 256  # the widest padded head the kernels hold whole (above: column groups)
 WIDE_DP = 160  # the bf16 kernels' tiles change above this padded head width
-WIDE_GROUP, WIDE_CHUNK = 256, 64  # bf16 past MAX_HEAD_PAD: o's columns a block, S's a chunk
+WIDE_GROUP, WIDE_CHUNK = 256, 64  # past MAX_HEAD_PAD: o's columns a block, S's a chunk
 PLAIN_CHUNK_ELEMENTS = 1 << 26  # the plain versions' (B*H, chunk, Nk) float32 scores
 
 
@@ -127,17 +126,22 @@ class FwdPlan(t.NamedTuple):
 
 
 def column_groups(dp: int) -> t.Tuple[int, int]:
-    """(groups, columns a group) of a bf16 padded head width past
+    """(groups, columns a group) of a padded head width past
     ``MAX_HEAD_PAD``: ceil(DP / 256) groups of one width, a multiple of 32
-    (the last may be narrower), as both kernels split it."""
+    (the last may be narrower), as the kernels of both types split it."""
     groups = -(-dp // WIDE_GROUP)
     return groups, 32 * -(-(dp // 32) // groups)
 
 
 def _check_width(dtype: torch.dtype, dp: int, name: str) -> None:
-    if dp % 32 or dp < 32 or (dtype == torch.float32 and dp > MAX_HEAD_PAD):
-        raise ValueError(f"{name}: padded head width {dp} in {dtype} (float32 up to "
-                         f"{MAX_HEAD_PAD}: ROADMAP queue 3 item 1)")
+    if dp % 32 or dp < 32:
+        raise ValueError(f"{name}: padded head width {dp} in {dtype} is not a multiple of 32")
+
+
+def _f32_tile(rows: int, width: int) -> int:
+    """Floats of a float32 forward tile: rows padded by 4 floats, and 4
+    more every 8 rows (``f32_tile_floats``)."""
+    return rows * (width + 4) + 4 * -(-rows // 8)
 
 
 def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
@@ -151,19 +155,23 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     rows padded by 4 floats and 4 more every 8 rows. bf16 past
     ``MAX_HEAD_PAD``: a block a (128-query tile, column group, plane), no q
     panel (q and K stream in chunks of 64 columns through a ring 4 deep, the
-    group's V columns through one 2 deep)."""
+    group's V columns through one 2 deep). float32 past ``MAX_HEAD_PAD``: a
+    block a (64-query tile, column group, plane), no q tile (a q and a K
+    chunk of 64 columns at a time through a cp.async ring 2 deep, the
+    group's V columns, P)."""
     _check_width(dtype, dp, "flash_attention")
+    f32 = dtype == torch.float32
     if dp > MAX_HEAD_PAD:
         groups, cols = column_groups(dp)
+        if f32:
+            smem = (2 * 2 * _f32_tile(64, WIDE_CHUNK) + _f32_tile(64, WIDE_GROUP) + 64 * 68) * 4
+            return FwdPlan(64, 64, smem, 0, 2, groups, cols)
         smem = 1024 + 4 * (128 + 64) * WIDE_CHUNK * 2 + 2 * 64 * WIDE_GROUP * 2 + 2 * (4 + 2) * 8
         return FwdPlan(128, 64, smem, 0, 4, groups, cols)
-    if dtype == torch.float32:
+    if f32:
         queries = 128 if dp <= 160 else 64
-
-        def tile(rows):
-            return rows * (dp + 4) + 4 * -(-rows // 8)
-
-        return FwdPlan(queries, 64, (tile(queries) + 2 * tile(64) + queries * 68) * 4, 1, 2, 1, dp)
+        smem = (_f32_tile(queries, dp) + 2 * _f32_tile(64, dp) + queries * 68) * 4
+        return FwdPlan(queries, 64, smem, 1, 2, 1, dp)
     wide = dp > WIDE_DP
     q_panels, stages = (1 if wide else 2), (3 if dp <= 224 else 2)
     bars = 4 + 2 * stages * (2 if wide else 1)  # q; K and V (wide: K, V apart)
@@ -311,14 +319,23 @@ def bwd_plan(dtype: torch.dtype, bh: int, nq: int, dp: int) -> BwdPlan:
     also takes ``order`` int32 counters (zeroed by the call): a ticket that
     hands out the (plane, key block) items in order, and a turn a (plane,
     query tile) that the key blocks (in float32, each half of one) take in
-    key order to add into the tile's rows of dq. bf16 past ``MAX_HEAD_PAD``:
-    the one pass on column groups, a block a (64-key block, group, plane)
-    (q, dO, K and V chunks of 64 columns in a ring 2 deep; the group's K,
-    q and dO panels; P and dS; a float32 dq box a warp), and a turn a
-    (plane, group, query tile)."""
+    key order to add into the tile's rows of dq. Past ``MAX_HEAD_PAD`` the
+    pass runs on column groups, a block a (key block, group, plane), and a
+    turn a (plane, group, query tile): bf16 on 64-key blocks (q, dO, K and
+    V chunks of 64 columns in a TMA ring 2 deep; the group's K, q and dO
+    panels; P and dS; a float32 dq box a warp); float32 on 32-key blocks
+    (q, dO, K and V chunks of 64 columns in a cp.async ring 2 deep; the
+    group's K columns, the query tile's q and dO columns; P and dS; lse and
+    delta; dq added into the output with atomics)."""
     _check_width(dtype, dp, "flash_attention_bwd")
     if dp > MAX_HEAD_PAD:
         groups, cols = column_groups(dp)
+        if dtype == torch.float32:
+            qt, keys = 32, 32
+            smem = (2 * 4 * qt * (WIDE_CHUNK + 4) + keys * (WIDE_GROUP + 4)
+                    + 2 * qt * (WIDE_GROUP + 4) + 2 * qt * (keys + 4) + 2 * qt) * 4
+            return BwdPlan(("prep", "one_pass_f32_wide"), None, keys, smem,
+                           1 + bh * groups * -(-nq // qt), None, groups, cols)
         smem = (1024 + 3 * 64 * WIDE_GROUP * 2 + 2 * 4 * 64 * WIDE_CHUNK * 2 + 2 * 64 * 64 * 2
                 + 8 * 16 * 32 * 4 + (2 + 2 * 2) * 8)
         return BwdPlan(("prep", "one_pass_wide", "dq_convert"), (bh, nq, dp), 64, smem,
