@@ -9,7 +9,8 @@ Phases, one line each as they go:
    into ``v1t_tpu_torch/_build``), each kernel's registers and spills (none
    allowed in the bf16 flash kernels' wide instantiations, padded head
    widths 192-256, nor in the instances past the panels' widths: the flash
-   column groups in both types, the LayerNorm past K 640), the flash
+   column groups in both types, the LayerNorm past K 640, the wgmma dX of
+   every projection past K 640), the flash
    kernels' shared memory a block, and the
    launch plans of the flash forward and backward (``fwd_plan``,
    ``bwd_plan``), of ``ln_linear`` (``linear_plan``), ``ln_linear_dx``
@@ -87,9 +88,13 @@ Phases, one line each as they go:
    path's shape (batch 64 x 4 heads of 768, timed, each type); ``ln_linear`` with a
    LayerNorm at K 672, 768 and 1024 (qkv head-major with bias_row; fc1 with
    bias, GELU, keep mask and the saved activation) and ``ln_linear_bwd``'s
-   dX with the LayerNorm backward (qkv's head-major dY with bias_row and
-   the residual's cotangent; fc1's), twice, bit for bit, timed beside the
-   bound and the library (phase 3b also checks the sampling at C 768);
+   dX on the wgmma kernel: with the LayerNorm backward (qkv's head-major dY
+   with bias_row and the residual's cotangent; fc1's; at K 2304, past one
+   cluster, the mma.sync kernel with its d(ln) rows in device memory) and
+   in the plain form at K 3072 and 1030 (the out-projection with dY's keep mask, fc2 with
+   GELU'(pre) and fc1's mask; the masks bit-identical), twice, bit for bit,
+   timed beside the bound, the plain version and the library (phase 3b
+   also checks the sampling at C 768);
 5. training: ``Trainer.train_step`` on the flagship model (dropout on,
    readout noise on), two mice of 7000 neurons, batch 64, two cycles with
    cross-mouse accumulation and one AdamW update each, with the counters set
@@ -111,8 +116,9 @@ Phases, one line each as they go:
    5l (run after 5d). the V1T at ViT-Base's width: emb 768, MLP 3072, 4
    heads of 768 (batch 64, two mice): 1 serving batch and two cycles of 2
    train steps, the attention on the flash column groups and the LayerNorm
-   projections past K 640 (per step the launches of 5d), held against the
-   plain path (``WIDE_TOL``), its serving batch and training step profiled;
+   projections past K 640 (per step the launches of 5d; every dX on the
+   wgmma kernel), held against the plain path (``WIDE_TOL``), its serving
+   batch and training step profiled;
    the training also from a second seed, and from each seed through the
    plain path in float32 as well, the witness of how far each bf16 path
    lies from float32;
@@ -217,8 +223,9 @@ Phases, one line each as they go:
    ``torch.profiler`` (and one step of each composed path, phase 5d's,
    5l's and 5m's serving batch, phase 5f's step with checkpointing, a cct
    and a stacked2d step and a cct serving batch);
-7. a ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}``.
+7. the wall time of each phase on the host's clock (from one "phase" line
+   to the next, summed by phase), a ``kernels`` JSON line, then the result
+   line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the result line, if there is no CUDA device, if
 the port is not beside it, or if any phase fails. It imports nothing of JAX.
@@ -369,7 +376,7 @@ SWEEP_LAUNCHES_PER_STEP = {
 # Table 1: emb 768, MLP 3072) with V1T's 4 heads as wide as the embedding:
 # padded head width 768, past the bf16 flash kernels' panels (the column
 # groups) and a LayerNorm of K 768, past the projections' panels (its rows
-# normalised first forward, its d(ln) rows in device memory backward).
+# normalised first forward; every dX on the wgmma kernel backward).
 # Launches written down before the first run: the sweep-widest path's.
 # Held at phase 5's bounds against the plain path, trained from two seeds,
 # each also through the plain path in float32 (the witness): a loss or
@@ -398,6 +405,10 @@ F32_WIDE_LAUNCHES_PER_STEP = dict(F32_LAUNCHES_PER_STEP)
 WIDE_DPS = (288, 384, 512, 768, 1024)
 # the LayerNorm widths checked past K 640 (phase 3d)
 WIDE_KS = (672, 768, 1024)
+# a LayerNorm dX past one cluster's 8 x 256 columns (phase 3d): the
+# mma.sync form with its d(ln) rows in device memory, no configuration's
+DLN_GLOBAL_K = 2304
+WIDE_DX_PER_STEP = 16  # the emb-768 step's dX calls: 4 blocks x (qkv, fc1, out-projection, fc2)
 
 # phase 5i, the other cores and readouts. cct at full width: emb 160, 4
 # heads of 160 // 4 // 4 = 10 (padded to 32), 4 blocks, MLP 488, patch 8
@@ -486,8 +497,27 @@ SWEEP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs
                             "sweep_v1t.yaml")
 
 
+# (phase, host clock) at each line that opens a phase: wall_times() sums
+# the spans between them by phase
+PHASE_MARKS = [("start-up", time.perf_counter())]
+
+
 def log(*args) -> None:
+    text = " ".join(map(str, args))
+    if text.startswith("phase "):
+        PHASE_MARKS.append((text.split(":", 1)[0], time.perf_counter()))
     print(*args, flush=True)
+
+
+def wall_times() -> str:
+    """Each phase's wall time, in seconds, summed over its spans, in the
+    order the phases first opened, and the whole run's."""
+    marks = PHASE_MARKS + [("end", time.perf_counter())]
+    spans = {}
+    for (phase, at), (_, end) in zip(marks, marks[1:]):
+        spans[phase] = spans.get(phase, 0.0) + end - at
+    return (", ".join(f"{phase} {sec:.1f}" for phase, sec in spans.items())
+            + f"; whole run {marks[-1][1] - marks[0][1]:.1f}")
 
 
 def card_line() -> str:
@@ -567,12 +597,23 @@ def kernel_counters() -> dict:
 
 
 def zero_counts() -> None:
+    from v1t_tpu_torch.ops.ln_linear import ln_linear_bwd
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    ln_linear_bwd.form_launches = dict.fromkeys(ln_linear_bwd.form_launches, 0)
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_dx_forms() -> dict:
+    """ln_linear_bwd's launches by kernel (its counter's split): the
+    mma.sync kernel, the wgmma kernel with and without the LayerNorm."""
+    from v1t_tpu_torch.ops.ln_linear import ln_linear_bwd
+
+    return dict(ln_linear_bwd.form_launches)
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> tuple:
@@ -1620,13 +1661,15 @@ def check_wide_projections(gen: torch.Generator) -> list:
     against their plain versions at K 672, 768 and 1024: ln_linear's
     LayerNorm with bias_row into the head-major QKV output and with bias,
     GELU, the keep mask and the saved pre-GELU activation (fc1); and
-    ln_linear_bwd's dX with the LayerNorm backward (d(ln) rows in device
-    memory) for a head-major dY with bias_row and the residual's cotangent,
-    and fc1's row-major dY; each dX twice, bit for bit (its column sums are
-    fixed-order). At K 768 the emb-768 path's rows (B 64 x 1654) and times
-    beside the bound, the plain version and the library (F.layer_norm +
-    F.linear; the product dY W on the materialised dY); 8 x 1654 rows at
-    the other widths, checked and timed alike."""
+    ln_linear_bwd's dX with the LayerNorm backward on the wgmma kernel (a
+    cluster's row sums) for a head-major dY with bias_row and the residual's
+    cotangent, and fc1's row-major dY; each dX twice, bit for bit (its sums
+    are fixed-order). At K 768 the emb-768 path's rows (B 64 x 1654) and
+    times beside the bound, the plain version and the library (F.layer_norm
+    + F.linear; the product dY W on the materialised dY); 8 x 1654 rows at
+    the other widths, checked and timed alike; the dX also at
+    DLN_GLOBAL_K, past one cluster (the mma.sync kernel). Then the plain
+    form (check_wide_plain_dx)."""
     from v1t_tpu_torch.ops.dropout import Dropout
     from v1t_tpu_torch.ops.ln_linear import (
         _masked_dy, dx_plan, linear_plan, ln_linear, ln_linear_bwd, ln_linear_bwd_plain,
@@ -1638,6 +1681,52 @@ def check_wide_projections(gen: torch.Generator) -> list:
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(*shape, generator=gen) * scale).to(DEVICE, dtype)
+
+    def check_dx(k, b, x, row, gamma, beta, wqkv, w1, cases):
+        """The dX with the LayerNorm backward at K over b x N rows into
+        ``cases``: dY head-major (zero past no column: D = DP here) with
+        bias_row and the residual's cotangent, and fc1's row-major dY with
+        the residual's; twice, bit for bit; timed beside the bound, the
+        plain version and the library."""
+        m, hid = b * N, 4 * k
+        dres = randn(b, N, k)
+        uses_b = {"qkv": dict(dy=randn(3, b, H, N, k), w=wqkv, heads=(H, k), x=x, pro_row=row,
+                              gamma=gamma, beta=beta, dres=dres),
+                  "fc1": dict(dy=randn(b, N, hid, scale=0.2), w=w1, x=x, gamma=gamma, beta=beta,
+                              dres=dres)}
+        names = ("dz", "ln_out", "dgamma", "dbeta", "dbias_row")
+        for use, kw in uses_b.items():
+            args = {n_: v for n_, v in kw.items() if n_ not in ("dy", "w")}
+            label = f"ln_linear_bwd[{use}, K {k}]"
+            ref = ln_linear_bwd_plain(kw["dy"], kw["w"], **args)
+            got = ln_linear_bwd(kw["dy"], kw["w"], **args)
+            errs = [compare(f"{label} {n_}", g_, r_, KERNEL_TOL)
+                    for n_, g_, r_ in zip(names, got, ref) if r_ is not None]
+            errs.append(fixed_order_twice(label, lambda: ln_linear_bwd(kw["dy"], kw["w"], **args),
+                                          ref, KERNEL_TOL, names))
+            err = max(errs)
+            nout = kw["w"].shape[0]
+            moved = m * nout * 2 + nbytes(kw["w"], *(g_ for g_ in got if g_ is not None), x,
+                                          kw.get("pro_row"), gamma, beta, dres)
+            b_ms, b_by = bound(moved, 2.0 * m * nout * k, "bf16")
+            del got, ref
+            plan = dx_plan(k, nout, True, True)
+            ms = cuda_ms(lambda: ln_linear_bwd(kw["dy"], kw["w"], **args))
+            plain_ms = cuda_ms(lambda: ln_linear_bwd_plain(kw["dy"], kw["w"], **args), iters=1)
+            dy_rm = _masked_dy(kw["dy"], kw.get("heads"), None).reshape(m, nout)
+            lib_ms = cuda_ms(lambda: torch.matmul(dy_rm, kw["w"]))
+            del dy_rm
+            cases[f"{use}_{k}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+                                       rel_err=err[1], rows=m, plan=plan._asdict())
+            form = (f"the wgmma kernel, tiles of {plan.rows} rows x 256 columns, a cluster of "
+                    f"{plan.cluster} blocks a row" if plan.wgmma else
+                    f"the mma.sync kernel, {plan.k_tiles} tiles of {plan.rows} rows x 160 "
+                    "columns, the d(ln) rows in device memory")
+            log(f"  {label} ({m}x{nout} @ {nout}x{k}; {form}): kernel_ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} matmul_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); kernel / "
+                f"library {ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}")
+        del dres, uses_b
 
     fwd_cases, bwd_cases = {}, {}
     for k in WIDE_KS:
@@ -1700,58 +1789,33 @@ def check_wide_projections(gen: torch.Generator) -> list:
                 f"{plan.tiles} tiles of {plan.tile}): kernel_ms {ms:.4f} plain_ms "
                 f"{plain_ms:.4f} layer_norm+linear_ms {lib_ms:.4f} bound_ms {b_ms:.4f} "
                 f"({b_by}); kernel / library {ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}")
-        # the backward: dY head-major (zero past no column: D = DP here) and
-        # fc1's row-major dY, the LayerNorm backward with the residual's
-        # cotangent (and bias_row's for qkv)
-        dres = randn(b, N, k)
-        uses_b = {"qkv": dict(dy=randn(3, b, H, N, k), w=wqkv, heads=(H, k), x=x, pro_row=row,
-                              gamma=gamma, beta=beta, dres=dres),
-                  "fc1": dict(dy=randn(b, N, hid, scale=0.2), w=w1, x=x, gamma=gamma, beta=beta,
-                              dres=dres)}
-        names = ("dz", "ln_out", "dgamma", "dbeta", "dbias_row")
-        for use, kw in uses_b.items():
-            args = {n_: v for n_, v in kw.items() if n_ not in ("dy", "w")}
-            label = f"ln_linear_bwd[{use}, K {k}]"
-            ref = ln_linear_bwd_plain(kw["dy"], kw["w"], **args)
-            got = ln_linear_bwd(kw["dy"], kw["w"], **args)
-            errs = [compare(f"{label} {n_}", g_, r_, KERNEL_TOL)
-                    for n_, g_, r_ in zip(names, got, ref) if r_ is not None]
-            errs.append(fixed_order_twice(label, lambda: ln_linear_bwd(kw["dy"], kw["w"], **args),
-                                          ref, KERNEL_TOL, names))
-            err = max(errs)
-            nout = kw["w"].shape[0]
-            moved = m * nout * 2 + nbytes(kw["w"], *(g_ for g_ in got if g_ is not None), x,
-                                          kw.get("pro_row"), gamma, beta, dres)
-            b_ms, b_by = bound(moved, 2.0 * m * nout * k, "bf16")
-            del got, ref
-            plan = dx_plan(k, nout, True, True)
-            ms = cuda_ms(lambda: ln_linear_bwd(kw["dy"], kw["w"], **args))
-            plain_ms = cuda_ms(lambda: ln_linear_bwd_plain(kw["dy"], kw["w"], **args), iters=1)
-            dy_rm = _masked_dy(kw["dy"], kw.get("heads"), None).reshape(m, nout)
-            lib_ms = cuda_ms(lambda: torch.matmul(dy_rm, kw["w"]))
-            del dy_rm
-            bwd_cases[f"{use}_{k}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
-                                           rel_err=err[1], rows=m, plan=plan._asdict())
-            log(f"  {label} ({m}x{nout} @ {nout}x{k}; {plan.rows} rows a block, the d(ln) rows "
-                f"in device memory): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                f"matmul_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); kernel / library "
-                f"{ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}")
-        del x, row, wqkv, w1, dres, uses, uses_b
+        check_dx(k, b, x, row, gamma, beta, wqkv, w1, bwd_cases)
+        del x, row, wqkv, w1, uses
         torch.cuda.empty_cache()
+    # a LayerNorm past one cluster's 8 x 256 columns (no configuration):
+    # the mma.sync form, its fp32 d(ln) rows in device memory
+    k, b = DLN_GLOBAL_K, 8
+    dln_cases = {}
+    f32 = torch.float32
+    check_dx(k, b, randn(b, N, k), randn(b, k, scale=0.5), 1.0 + randn(k, scale=0.1, dtype=f32),
+             randn(k, scale=0.1, dtype=f32), randn(3 * H * k, k, scale=k ** -0.5),
+             randn(4 * k, k, scale=k ** -0.5), dln_cases)
+    torch.cuda.empty_cache()
+    plain_cases = check_wide_plain_dx(randn)
     rows = []
-    for name, cases, src, replaces, lib in (
-            ("ln_linear (LayerNorm past K 640)", fwd_cases, "ln_linear.cu",
+    for name, counter, cases, src, replaces, lib in (
+            ("ln_linear (LayerNorm past K 640)", "ln_linear", fwd_cases, "ln_linear.cu",
              "v1t_tpu/ops/fused_mha.py:567 (_mha_fwd_kernel_dt2: +bias_row, LayerNorm, QKV); "
              "v1t_tpu/ops/fused_mlp.py:111 (_mlp_fwd_kernel: LayerNorm, fc1, GELU)",
              "F.layer_norm + F.linear (bf16)"),
-            ("ln_linear_bwd (LayerNorm past K 640)", bwd_cases, "ln_linear_bwd.cu",
+            ("ln_linear_bwd (LayerNorm past K 640)", "ln_linear_bwd:wgmma_layernorm", bwd_cases,
+             "ln_linear_bwd.cu",
              "v1t_tpu/ops/fused_mha.py:676 (_mha_bwd_kernel_dt2: QKV dX + LayerNorm backward); "
              "v1t_tpu/ops/fused_mlp.py:150 (_mlp_bwd_kernel: fc1 dX + LayerNorm backward)",
              "torch.matmul(dY, W) on the materialised row-major dY")):
         at = [cases[f"{use}_{WIDE_EMB}"] for use in ("qkv", "fc1")]
         rows.append(dict(
-            name=name, counter=name.split(" ")[0], main_path="wide_training", route="cuda",
+            name=name, counter=counter, main_path="wide_training", route="cuda",
             source=f"v1t_tpu_torch/csrc/{src}", replaces=replaces,
             max_abs_err=max(c["max_abs_err"] for c in cases.values()),
             rel_err=max(c["rel_err"] for c in cases.values()),
@@ -1761,7 +1825,108 @@ def check_wide_projections(gen: torch.Generator) -> list:
             library_ms=sum(c["library_ms"] for c in at), library=lib,
             note=f"times summed over qkv and fc1 at emb {WIDE_EMB} (B {B} x {N} rows); "
                  "per_case holds each use at K 672, 768 and 1024", per_case=cases))
+    rows[-1]["past_one_cluster"] = dict(
+        note=f"K {DLN_GLOBAL_K}, 8 x {N} rows, qkv and fc1: not the wgmma kernel but the "
+             "mma.sync one with its fp32 d(ln) rows in device memory (a LayerNorm past 8 x 256)",
+        per_case=dln_cases)
+    at = [plain_cases[f"{use}_{WIDE_MLP}"] for use in ("out_proj", "fc2")]
+    rows.append(dict(
+        name="ln_linear_bwd (plain dX past K 640)", counter="ln_linear_bwd:wgmma_plain",
+        main_path="wide_training", route="cuda", source="v1t_tpu_torch/csrc/ln_linear_bwd.cu",
+        replaces="v1t_tpu/ops/fused_mha.py:676 (_mha_bwd_kernel_dt2: the out-projection's "
+                 "masked cotangent, do = Wp dout); v1t_tpu/ops/fused_mlp.py:150 "
+                 "(_mlp_bwd_kernel: fc2's da with fc1's keep mask and GELU')",
+        max_abs_err=max(c["max_abs_err"] for c in plain_cases.values()),
+        rel_err=max(c["rel_err"] for c in plain_cases.values()),
+        ms=sum(c["ms"] for c in at), plain_ms=sum(c["plain_ms"] for c in at),
+        bound_ms=sum(c["bound_ms"] for c in at),
+        bound_by="bytes" if {c["bound_by"] for c in at} == {"bytes"} else "operations",
+        library_ms=sum(c["library_ms"] for c in at),
+        library="torch.matmul(dY, W) on the unmasked row-major dY",
+        note=f"times summed over the out-projection's and fc2's dX at emb {WIDE_EMB} (K "
+             f"{WIDE_MLP}, B {B} x {N} rows); per_case holds each also at K 1030",
+        per_case=plain_cases))
     return rows
+
+
+def check_wide_plain_dx(randn) -> dict:
+    """Phase 3d, the plain form of ln_linear_bwd's dX past K 640 on the
+    wgmma kernel: the out-projection's dX with dY's keep mask and fc2's with
+    GELU'(pre) and fc1's keep mask, at the emb-768 path's K 3072 (B 64 x
+    1654 rows) and at K 1030 (8 x 1654 rows; no multiple of 256, fc2 over a
+    155-wide dY that is not 16-byte aligned), against the plain version,
+    twice bit for bit, the keep masks bit-identical, timed beside the bound,
+    the plain version and torch.matmul(dY, W)."""
+    from v1t_tpu_torch.ops.dropout import Dropout
+    from v1t_tpu_torch.ops.ln_linear import (
+        _masked_dy, dx_plan, ln_linear_bwd, ln_linear_bwd_plain,
+    )
+
+    drop_o, drop1, drop2 = (Dropout(T_DROP, 20261017, site) for site in (1, 2, 3))
+    cases = {}
+    for use, k, nout in (("out_proj", WIDE_MLP, WIDE_EMB), ("fc2", WIDE_MLP, WIDE_EMB),
+                         ("out_proj", 1030, WIDE_EMB), ("fc2", 1030, E)):
+        b = B if k == WIDE_MLP else 8
+        m = b * N
+        dy, w = randn(b, N, nout), randn(nout, k, scale=nout ** -0.5)
+        kw = (dict(drop=drop_o) if use == "out_proj"
+              else dict(drop=drop2, pre=randn(b, N, k), pre_drop=drop1))
+        label = f"ln_linear_bwd[{use}, K {k}]"
+        ref = ln_linear_bwd_plain(dy, w, **kw)
+        got = ln_linear_bwd(dy, w, **kw)
+        err = max(compare(label, got, ref, KERNEL_TOL),
+                  fixed_order_twice(label, lambda: ln_linear_bwd(dy, w, **kw), (ref,),
+                                    KERNEL_TOL, ("dx",)))
+        # the keep masks, through a W whose column j selects dY's column j
+        # mod N: the out-projection's dX is dY' itself, column by column;
+        # fc2's, at a pre-activation of 1 (GELU' 1.083), is zero exactly
+        # where either mask drops, in every column
+        cols = torch.arange(k, device=w.device)
+        eye = torch.zeros(nout, k, dtype=w.dtype, device=w.device)
+        eye[cols % nout, cols] = 1
+        if use == "fc2":
+            ones = torch.ones_like(kw["pre"])
+            through = ln_linear_bwd(dy, eye, **{**kw, "pre": ones})
+            plain = ln_linear_bwd_plain(dy, eye, **{**kw, "pre": ones})
+            torch.cuda.synchronize()
+            if not torch.equal(through == 0, plain == 0):
+                raise AssertionError(f"{label}: the keep masks differ at "
+                                     f"{int(((through == 0) != (plain == 0)).sum())} elements")
+            # on the random inputs a zero may also be a product's rounding:
+            # those elements are shown, the masks are the identity case's
+            differ = (got == 0) != (ref == 0)
+            worst = max(got[differ].float().abs().max().item() if differ.any() else 0.0,
+                        ref[differ].float().abs().max().item() if differ.any() else 0.0)
+            log(f"  {label} keep masks (dY's and fc1's): bit-identical to the plain version's "
+                f"(through a selecting W at pre 1, {int((plain == 0).sum())} zeros); on the "
+                f"random inputs {int(differ.sum())} elements are 0 on one side only, the "
+                f"largest {worst:.3e} against max|ref| {ref.float().abs().max().item():.3e}")
+            del ones, plain
+        else:
+            through = ln_linear_bwd(dy, eye, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(through, _masked_dy(dy, None, drop_o)[..., cols % nout]):
+                raise AssertionError(f"{label}: dY's keep mask differs from the plain one")
+            log(f"  {label} dY's keep mask: bit-identical to the plain version's (dX through a "
+                "W that selects dY's columns equals the plain dY')")
+        del cols, eye, through
+        b_ms, b_by = bound(nbytes(dy, w, got, kw.get("pre")), 2.0 * m * nout * k, "bf16")
+        del got, ref
+        plan = dx_plan(k, -(-nout // 32) * 32, nout % 8 == 0, False)
+        ms = cuda_ms(lambda: ln_linear_bwd(dy, w, **kw))
+        plain_ms = cuda_ms(lambda: ln_linear_bwd_plain(dy, w, **kw), iters=1)
+        dy_rm = dy.reshape(m, nout)
+        lib_ms = cuda_ms(lambda: torch.matmul(dy_rm, w))
+        cases[f"{use}_{k}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=err[0], rel_err=err[1], rows=m,
+                                   plan=plan._asdict())
+        log(f"  {label} ({m}x{nout} @ {nout}x{k}; the wgmma kernel, {plan.k_tiles} tiles of "
+            f"{plan.rows} rows x 256 columns a row, dY' masked once first): kernel_ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} matmul_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+            f"kernel / library {ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}")
+        del dy, w, kw, dy_rm
+        torch.cuda.empty_cache()
+    return cases
 
 
 @functools.lru_cache(maxsize=None)
@@ -2046,7 +2211,7 @@ def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dic
                                    for name, p in model.named_parameters() if p.grad is not None}
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        launches = read_counts()
+        launches, dx_forms = read_counts(), read_dx_forms()
         losses = [float(v) for v in losses]
         log(f"  {path} path: {steps} train steps of {b} images in {seconds:.4f} s = "
             f"{steps * b / seconds:.1f} train images/s ({card_text}); losses "
@@ -2055,7 +2220,7 @@ def train(label: str, config, image_shape, cycles: int, per_step: dict, tol: dic
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{label}, {path} path: non-finite loss")
         runs[path] = dict(losses=losses, grads=first_grads, launches=launches,
-                          images_per_s=steps * b / seconds, trainer=trainer,
+                          dx_forms=dx_forms, images_per_s=steps * b / seconds, trainer=trainer,
                           peak_bytes=torch.cuda.max_memory_allocated())
         del model
     expected = {name: n * steps for name, n in per_step.items()}
@@ -2206,6 +2371,7 @@ def composed_path(label: str, config, image_shape, serve_batches: int, cycles: i
         f"{runs['plain']['images_per_s']:.3f}) ({card_text})")
     return dict(serving_launches=serving, launches=launches, train_one=train_one,
                 serve_one=serve_one, images_per_s=images_per_s,
+                dx_forms=runs["kernel"]["dx_forms"],
                 train_images_per_s=runs["kernel"]["images_per_s"],
                 plain_train_images_per_s=runs["plain"]["images_per_s"])
 
@@ -3686,7 +3852,7 @@ def where_the_time_goes(label: str, fn, phase: str = "6"):
     log(f"  device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled call)")
     for e in sorted(events, key=device_us, reverse=True)[:16]:
         log(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return busy_ms, [e.key for e in events]
+    return busy_ms, [e.key for e in events], {e.key: e.count for e in events}
 
 
 def check_launch_plans(lib) -> None:
@@ -3749,13 +3915,17 @@ def check_launch_plans(lib) -> None:
                "fc2": (WIDE_MLP, WIDE_EMB, True, False)}
     for use, (k, ns, aligned, ln) in wide_dx.items():
         plan = dx_plan(k, ns, aligned, ln)
-        if plan is None or lib.v1t_ln_linear_dx_smem(k, ns, int(aligned), int(ln)) != plan.smem:
-            raise AssertionError(f"dx_plan of {use} at emb {WIDE_EMB} disagrees with the library")
+        got = [lib.v1t_ln_linear_dx_plan(k, ns, int(aligned), int(ln), f) for f in range(8)]
+        if plan is None or not plan.wgmma or got != [
+                plan.rows, plan.stages, int(plan.resident), plan.k_tiles, int(plan.dln_global),
+                int(plan.wgmma), plan.cluster, plan.smem]:
+            raise AssertionError(f"dx_plan of {use} at emb {WIDE_EMB} disagrees with the "
+                                 f"library: {got}")
         log(f"  ln_linear_dx[{use}, emb {WIDE_EMB}] (K {k}, {ns} stored reduction columns): "
-            f"{plan.rows} rows a block, {plan.stages} stages, "
-            f"{'resident' if plan.resident else 'streamed'}, dY' read {plan.dy_reads}x, "
-            + ("the d(ln) rows in device memory, " if plan.dln_global else "")
-            + f"{plan.smem} bytes of shared memory a block")
+            f"the wgmma kernel, {plan.k_tiles} tiles of {plan.rows} rows x 256 columns a row, "
+            f"{plan.stages} stages, a cluster of {plan.cluster} block(s), dY' copied by "
+            f"{plan.dy_reads} blocks (its L2 hits not measured), {plan.smem} bytes of shared "
+            "memory a block")
     dp = -(-E // 32) * 32
     plan = attention_plan(B, H, N, dp)
     log(f"  attention (row 1's core, the bf16 flash forward in log2 units): {plan.items} items "
@@ -3799,7 +3969,7 @@ def check_launch_plans(lib) -> None:
     }
     for use, (k, ns, aligned, ln) in uses.items():
         plan = dx_plan(k, ns, aligned, ln)
-        if plan is None or lib.v1t_ln_linear_dx_smem(k, ns, int(aligned), int(ln)) != plan.smem:
+        if plan is None or lib.v1t_ln_linear_dx_plan(k, ns, int(aligned), int(ln), 7) != plan.smem:
             raise AssertionError(f"dx_plan of {use} disagrees with the library")
         log(f"  ln_linear_dx[{use}] (K {k}, {ns} stored reduction columns): {plan.rows} rows "
             f"a block, {plan.stages} stages, {'resident' if plan.resident else 'streamed'}, "
@@ -3869,8 +4039,8 @@ def main() -> int:
     log(f"  kernels ready in {time.perf_counter() - start:.1f} s ({so_path})")
     wide = {}  # the bf16 flash kernels' wide instantiations: (registers, spill stores)
     # the kernels past the panels' widths (the flash column groups, the
-    # LayerNorm's rows, the dX with its d(ln) rows in device memory):
-    # (registers, spill stores)
+    # LayerNorm's rows, the dX with its d(ln) rows in device memory, the
+    # wgmma dX): (registers, spill stores)
     past = {}
     try:  # each kernel's registers and spills (ptxas -v), one line each
         with open(so_path + ".log") as f:
@@ -3878,10 +4048,16 @@ def main() -> int:
             for line in f:
                 if "Compiling entry function" in line:
                     mangled = line.split("'")[1] if "'" in line else line.strip()
-                    # _ZN..._cu_<8 hex><length><name>I<template args>...
-                    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
-                    entry = (mangled[m.end():m.end() + int(m.group(1)) + 16] if m
-                             else mangled[:60])
+                    # _ZN..._cu_<8 hex>[<length><namespace>...]<length><name>I<template args>
+                    m = re.search(r"_cu_[0-9a-f]{8}", mangled)
+                    entry = mangled[:60]
+                    at = m.end() if m else len(mangled)
+                    while m and (d := re.match(r"\d+", mangled[at:])):
+                        start = at + len(d.group(0))
+                        at = start + int(d.group(0))
+                        if not mangled[at:at + 1].isdigit():  # not a namespace: the name
+                            entry = mangled[start:at + 16]
+                            break
                 elif "spill" in line:
                     spills = line.split(":", 1)[-1].strip()
                 elif "registers" in line:
@@ -3898,7 +4074,8 @@ def main() -> int:
                         wide[(int(m.group(2)), name)] = reading
                     m = re.match(r"flash_fwd_wide_kernelILb([01])E|flash_bwd_wide_kernel|"
                                  r"flash_fwd_f32_wide_kernelILb([01])E|flash_bwd_f32_wide_kernel|"
-                                 r"ln_rows_kernel|ln_linear_dx_kernelILi([24])ELb1ELb1E", entry)
+                                 r"ln_rows_kernel|ln_linear_dx_kernelILi([24])ELb1ELb1E|"
+                                 r"dx_wgmma_kernelILb([01])E", entry)
                     if m:
                         past[m.group(0)] = reading
     except FileNotFoundError:
@@ -3914,10 +4091,11 @@ def main() -> int:
         raise AssertionError(f"the wide instantiations' ptxas report: {wide} (9 expected, "
                              "no spill)")
     log("  the kernels past the panels' widths (flash column groups above DP 256, bf16 and "
-        "float32; the LayerNorm past K 640), ptxas's registers a thread / spill stores: "
+        "float32; the LayerNorm past K 640; the wgmma dX, its registers the launch's allotment "
+        "with setmaxnreg giving its consumers 232), ptxas's registers a thread / spill stores: "
         + "; ".join(f"{name} {r} / {sp} B" for name, (r, sp) in sorted(past.items())))
-    if len(past) != 9 or any(sp for _, sp in past.values()):
-        raise AssertionError(f"the instances past the panels' widths: {past} (9 expected, "
+    if len(past) != 11 or any(sp for _, sp in past.values()):
+        raise AssertionError(f"the instances past the panels' widths: {past} (11 expected, "
                              "no spill)")
     widths = range(32, 257, 32)
     log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
@@ -3971,9 +4149,21 @@ def main() -> int:
                                                         loss=LOSS_TOL, grad=GRAD_TOL), text)
     torch.cuda.empty_cache()
     log(f"phase 5l: the V1T core at ViT-Base's width (emb {WIDE_EMB}, MLP {WIDE_MLP}, {H} heads "
-        f"of {WIDE_EMB}) on the bf16 flash column groups and the LayerNorm past K 640")
+        f"of {WIDE_EMB}) on the bf16 flash column groups, the LayerNorm past K 640 and the "
+        "wgmma dX")
     wide = composed_path(f"emb-{WIDE_EMB}", flagship_config(emb_dim=WIDE_EMB, mlp_dim=WIDE_MLP),
                          (1, 36, 64), 1, CYCLES, WIDE_LAUNCHES_PER_STEP, WIDE_TOL, text)
+    # every dX on the wgmma kernel, half of them with the LayerNorm (qkv,
+    # fc1), half without (out-projection, fc2); the flagship's on mma.sync
+    dx_total = wide["launches"]["ln_linear_bwd"]
+    for label, forms, want in (
+            (f"emb-{WIDE_EMB} training", wide["dx_forms"],
+             dict(mma_sync=0, wgmma_layernorm=dx_total // 2, wgmma_plain=dx_total // 2)),
+            ("flagship training", runs["kernel"]["dx_forms"],
+             dict(mma_sync=train_launches["ln_linear_bwd"], wgmma_layernorm=0, wgmma_plain=0))):
+        log(f"  {label}: ln_linear_bwd's launches by kernel {forms}")
+        if forms != want:
+            raise AssertionError(f"{label}: ln_linear_bwd's launches by kernel {forms} != {want}")
     torch.cuda.empty_cache()
     log(f"  emb-{WIDE_EMB} training from a second seed, held as the first")
     train(f"emb-{WIDE_EMB} training, seed 1", flagship_config(emb_dim=WIDE_EMB, mlp_dim=WIDE_MLP),
@@ -4041,8 +4231,17 @@ def main() -> int:
             ["flash_bwd_wide_kernel", "flash_bwd_prep_kernel", "flash_bwd_dq_convert_kernel"]
             if kind == "training" else [])
         missing = [w for w in want if w not in names]
-        if kind == "training" and not re.search(r"ln_linear_dx_kernel<\d, true, true>", names):
-            missing.append("ln_linear_dx_kernel<., true, true>")
+        if kind == "training":
+            # every dX of the step (4 blocks x qkv, fc1, out-projection, fc2)
+            # on the wgmma kernel, and none on the mma.sync one
+            dx = {key: c for key, c in seen[2].items() if "dx_wgmma_kernel" in key}
+            forms = [(re.search(r"dx_wgmma_kernel<\w+>", key).group(0), c)
+                     for key, c in sorted(dx.items())]
+            log(f"  emb-{WIDE_EMB} step: the wgmma dX kernel launched "
+                + ", ".join(f"{c}x as {form}" for form, c in forms))
+            if sum(dx.values()) != WIDE_DX_PER_STEP or "ln_linear_dx_kernel" in names:
+                missing.append(f"dx_wgmma_kernel x{WIDE_DX_PER_STEP} (seen {dx}), and no "
+                               "ln_linear_dx_kernel")
         if missing or "attention_bwd_" in names or "flash_fwd_wgmma_kernel" in names:
             raise AssertionError(f"emb-{WIDE_EMB} {kind}: kernels {missing} missing from the "
                                  "profile, or a narrower core's ran")
@@ -4080,16 +4279,24 @@ def main() -> int:
                 for label, r in others.items()},
              **{f"{label.replace(' + ', '_')}_serving": r["serving"]
                 for label, r in others.items()}}
+    # ln_linear_bwd's launches by kernel, on the training paths that
+    # record them
+    dx_forms = {"training": runs["kernel"]["dx_forms"], "full_res_training": full["dx_forms"],
+                "fp32_training": fp32["dx_forms"], "sweep_widest_training": sweep["dx_forms"],
+                "wide_training": wide["dx_forms"], "fp32_wide_training": f32_wide["dx_forms"]}
     for row in rows:
         # launches: the path each kernel serves first (the flash kernels: the
         # full-resolution training run; the forms past the panels' widths:
         # the emb-768 training run, bf16 or float32); every path's count
-        # beside it
+        # beside it ("ln_linear_bwd:<form>": that kernel's own count)
         counter = row.pop("counter", row["name"])
         main_path = row.pop("main_path", "full_res_training" if counter.startswith("flash")
                             else "training")
-        row["launches"] = paths[main_path][counter]
-        row["launches_by_path"] = {p: c[counter] for p, c in paths.items()}
+        by_path = paths
+        if ":" in counter:
+            counter, by_path = counter.split(":")[1], dx_forms
+        row["launches"] = by_path[main_path][counter]
+        row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
     log(f"training throughput: kernel path {runs['kernel']['images_per_s']:.1f}, plain path "
         f"{runs['plain']['images_per_s']:.1f} train images/s; launches are those of the "
         f"training phase ({CYCLES * len(MICE)} steps)")
@@ -4121,6 +4328,8 @@ def main() -> int:
         f"{name} pretraining {r['images_per_s']:.1f} train images/s, device "
         + ("not measured" if r["busy_ms"] is None else f"{r['busy_ms']:.3f} ms") + " a step"
         for name, r in pretraining["steps"].items()) + f" ({text})")
+    log("wall time by phase, s on the host's clock (from each phase's line to the next, "
+        "summed by phase): " + wall_times())
     log(text)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

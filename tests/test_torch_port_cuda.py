@@ -3,7 +3,7 @@ the card: rows, outputs and K that are no multiple of a tile, one row, one
 key tile, every padded head width, batch 1, dropout rates 0 and 0.5 (the
 kernels and the plain versions draw the same masks), the widths of the sweep
 space (head widths 192 and 256, projection K up to 2048, LayerNorms up to
-640), the flash kernels of the composed path (bf16 and float32, N > 4096,
+640), the wgmma dX kernel past K 640 (K 641 to 3072, both forms), the flash kernels of the composed path (bf16 and float32, N > 4096,
 rectangular with padded keys and an LSE cotangent), and the small model end
 to end in bf16 and float32, forward and training step, the latter also from
 a batch on the bf16 image wire staged in pinned memory.
@@ -899,6 +899,87 @@ def test_attention_backward_pads_stay_zero_for_the_dx_kernel(gen):
     _check_dx(dqkv, w, kw)
 
 
+# --- the wgmma dX kernel past K 640 ----------------------------------------------
+
+
+@pytest.mark.parametrize("row,res", [(False, False), (True, True)], ids=["bare", "row+res"])
+@pytest.mark.parametrize("use,k,nout", [
+    ("qkv", 641, None), ("qkv", 672, None), ("qkv", 1030, None), ("qkv", 2048, None),
+    ("qkv", 2304, None),
+    ("fc1", 641, 1000), ("fc1", 672, 1024), ("fc1", 1030, 1000), ("fc1", 2048, 512),
+    ("fc1", 2304, 1000),
+], ids=str)
+def test_wgmma_dx_layernorm_matches_plain(gen, use, k, nout, row, res):
+    """The LayerNorm form past K 640, a cluster of 3 to 8 blocks a row tile:
+    head-major dY as ln_linear writes it, two heads as wide as K (641 and
+    1030 pad to 672 and 1056, so that chunks meet pad columns and a plane
+    ends mid-chunk), row-major dY aligned (1024, 512) and not (1000 columns:
+    copied to aligned scratch first), 2 x 300 rows (no multiple of 128), with
+    and without bias_row and the residual's cotangent. At K 2304, past one
+    cluster's 8 x 256 columns, the mma.sync kernel with its d(ln) rows in
+    device memory takes the same cases."""
+    if use == "qkv":
+        dy, w, kw = _dx_case(gen, use, 2, 300, k, 3 * 2 * k, 0.0, head_dim=k, row=row, res=res)
+    else:
+        dy, w, kw = _dx_case(gen, use, 2, 300, k, nout, 0.0, row=row, res=res)
+    _check_dx(dy, w, kw)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("use,k,nout", [
+    ("out_proj", 641, 155), ("fc2", 672, 768), ("out_proj", 1030, 256), ("fc2", 2048, 155),
+    ("out_proj", 3072, 768), ("fc2", 3072, 768),
+], ids=str)
+def test_wgmma_dx_plain_matches_plain(gen, use, k, nout, rate, offset):
+    """The plain form past K 640 (K 641 to 3072, the out-projection's dX
+    with dY's keep mask and fc2's with GELU'(pre) and fc1's mask) over 3 x
+    111 rows, dY aligned and not: 155 columns, or any width from a start 2
+    bytes past a 16-byte boundary (masked once into aligned scratch)."""
+    dy, w, kw = _dx_case(gen, use, 3, 111, k, nout, rate)
+    _check_dx(_offset(dy) if offset else dy, w, kw)
+
+
+def test_wgmma_dx_reruns_agree(gen):
+    """The wgmma kernel adds no float atomically: two runs agree bit for bit
+    on every output of the LayerNorm form (its row sums over the cluster in
+    rank order, its column sums in tiles) and of the plain form."""
+    for use, k, nout, hd in (("qkv", 768, 3 * 2 * 768, 768), ("fc1", 1030, 1000, None),
+                             ("fc2", 3072, 768, None)):
+        dy, w, kw = _dx_case(gen, use, 3, 700, k, nout, 0.5, head_dim=hd)
+        first, second = (ln_linear_bwd(dy, w, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        if torch.is_tensor(first):
+            first, second = (first,), (second,)
+        assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_wgmma_dx_refuses_a_masked_head_major_dy(gen):
+    """Past K 640 a head-major dY takes no keep mask (no caller masks one):
+    the wrapper raises instead of launching."""
+    dy, w, kw = _dx_case(gen, "qkv", 1, 40, 768, 3 * 2 * 768, 0.0, head_dim=768)
+    with pytest.raises(ValueError):
+        ln_linear_bwd(dy, w, drop=_drop(0.5), **kw)
+
+
+def test_wgmma_dx_plans_match_the_library(gen):
+    """ops/ln_linear.py dx_plan mirrors the library's every field past K 640
+    (and below it, where the mma.sync kernel's plan stays)."""
+    from v1t_tpu_torch import _build
+    from v1t_tpu_torch.ops.ln_linear import dx_plan
+
+    lib = _build.library()
+    for k in (155, 640, 641, 672, 768, 1024, 1030, 2048, 2049, 3072):
+        for ns in (160, 768, 3072, 9216):
+            for aligned in (0, 1):
+                for ln in (0, 1):
+                    p = dx_plan(k, ns, bool(aligned), bool(ln))
+                    want = [p.rows, p.stages, int(p.resident), p.k_tiles, int(p.dln_global),
+                            int(p.wgmma), p.cluster, p.smem]
+                    assert [lib.v1t_ln_linear_dx_plan(k, ns, aligned, ln, f)
+                            for f in range(8)] == want, (k, ns, aligned, ln)
+
+
 def test_launch_plans_match_the_library(gen):
     """ops/ln_linear.py dx_plan, ops/flash_attention.py fwd_plan and
     bwd_plan and ops/interp_matmul.py sample_fwd_plan and sample_bwd_plan
@@ -932,7 +1013,7 @@ def test_launch_plans_match_the_library(gen):
             for aligned in (0, 1):
                 for ln in (0, 1) if k <= 640 else (0,):
                     plan = dx_plan(k, ns, bool(aligned), bool(ln))
-                    assert lib.v1t_ln_linear_dx_smem(k, ns, aligned, ln) == plan.smem
+                    assert lib.v1t_ln_linear_dx_plan(k, ns, aligned, ln, 7) == plan.smem
 
 
 # the sweep space (configs/sweep_v1t.yaml): emb, heads, MLP width

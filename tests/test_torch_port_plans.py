@@ -131,9 +131,11 @@ def test_dx_launch_plan_reads_the_flagship_cotangents_once(use):
 @pytest.mark.parametrize("mlp", [128, 487, 768])
 def test_dx_launch_plan_covers_the_sweep(emb, num_heads, mlp):
     """Every width of the sweep space (configs/sweep_v1t.yaml) has a launch:
-    the out-projection and fc2 keep dY' resident (read once); qkv and fc1
-    read it at most once per 160-column output tile (once up to emb 160, or
-    when their dY' rows fit in shared memory)."""
+    up to K 640 the out-projection and fc2 keep dY' resident (read once);
+    qkv and fc1 read it at most once per 160-column output tile (once up to
+    emb 160, or when their dY' rows fit in shared memory). Past K 640 (the
+    out-projection at 8 heads of 155 or 256, fc2 at MLP 768) the wgmma
+    kernel's blocks copy it once per 256-column output tile."""
     dp = padded_head_dim(emb)
     pad = lambda n: -(-n // 32) * 32  # noqa: E731
     uses = {
@@ -145,7 +147,9 @@ def test_dx_launch_plan_covers_the_sweep(emb, num_heads, mlp):
     for use, (k, ns, aligned, ln) in uses.items():
         plan = dx_plan(k, ns, aligned, ln)
         assert plan is not None and plan.smem <= SMEM, use
-        if use in ("out_proj", "fc2") or emb <= 160:
+        if k > 640:
+            assert plan.wgmma and plan.dy_reads == plan.k_tiles == -(-k // 256), (use, plan)
+        elif use in ("out_proj", "fc2") or emb <= 160:
             assert plan.dy_reads == 1, (use, plan)
         else:
             assert plan.dy_reads <= 2, (use, plan)

@@ -1,7 +1,8 @@
 """The port past the kernels' panels, against the JAX package on the CPU:
 attention heads padded wider than 256 (the bf16 flash kernels' column
-groups on the card) and LayerNorms wider than 640 (the projections'
-LayerNorm rows normalised first, their d(ln) rows in device memory).
+groups on the card) and projections wider than 640 (the LayerNorm rows
+normalised first; the dX on the wgmma kernel, a LayerNorm's row sums across
+a cluster of blocks).
 
 The JAX package has no such limit. Here the port's plain versions (a CPU
 tensor takes them) are held against
@@ -10,7 +11,8 @@ tensor takes them) are held against
 - its composed path (XLA) in float32,
 on the same inputs and cotangents, made with numpy from a seed:
 ``fused_mha`` forward and backward at E 288 and 672 (2 heads as wide as the
-embedding, 24 tokens, batch 2), ``fused_mlp`` at E 672, ``flash_attention``
+embedding, 24 tokens, batch 2), ``fused_mlp`` at E 672 and with a 768-wide
+hidden layer (fc2's dX past K 640), ``flash_attention``
 and ``flash_attention_with_lse`` at D 288 (LSA; Nq != Nk with keys past
 n_real_k masked and an LSE cotangent), and one V1T block at emb 672 (a
 1-block model, 121 tokens): its responses and the gradients of a weighted
@@ -178,17 +180,17 @@ MLP_NAMES = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
 E_MLP, FH = 672, 256
 
 
-def _mlp_inputs(seed):
+def _mlp_inputs(seed, e=E_MLP, fh=FH):
     rng = np.random.default_rng(seed)
     return dict(
-        x=_bf16(rng.normal(size=(B, N, E_MLP))),
-        gamma=(1.0 + 0.1 * rng.normal(size=E_MLP)).astype(np.float32),
-        beta=(0.1 * rng.normal(size=E_MLP)).astype(np.float32),
-        w1=_bf16(E_MLP ** -0.5 * rng.normal(size=(E_MLP, FH))),  # JAX layout (in, out)
-        b1=(0.1 * rng.normal(size=FH)).astype(np.float32),
-        w2=_bf16(FH ** -0.5 * rng.normal(size=(FH, E_MLP))),
-        b2=(0.1 * rng.normal(size=E_MLP)).astype(np.float32),
-        dout=_bf16(rng.normal(size=(B, N, E_MLP))),
+        x=_bf16(rng.normal(size=(B, N, e))),
+        gamma=(1.0 + 0.1 * rng.normal(size=e)).astype(np.float32),
+        beta=(0.1 * rng.normal(size=e)).astype(np.float32),
+        w1=_bf16(e ** -0.5 * rng.normal(size=(e, fh))),  # JAX layout (in, out)
+        b1=(0.1 * rng.normal(size=fh)).astype(np.float32),
+        w2=_bf16(fh ** -0.5 * rng.normal(size=(fh, e))),
+        b2=(0.1 * rng.normal(size=e)).astype(np.float32),
+        dout=_bf16(rng.normal(size=(B, N, e))),
     )
 
 
@@ -215,15 +217,50 @@ def test_fused_mlp_past_640_bf16_matches_pallas_interpret(interpret):
         _close(got, ref, BF16_TOL, name=name)
 
 
-def test_fused_mlp_past_640_fp32_matches_composed():
-    inp = _mlp_inputs(34)
-
+def _jax_composed_mlp(e, fh):
     def f(x, gamma, beta, w1, b1, w2, b2):
         params = {"ln_scale": gamma, "ln_bias": beta, "fc1_kernel": w1, "fc1_bias": b1,
                   "fc2_kernel": w2, "fc2_bias": b2}
-        return JaxMLP(hidden_dim=FH, out_dim=E_MLP).apply({"params": params}, x) + x
+        return JaxMLP(hidden_dim=fh, out_dim=e).apply({"params": params}, x) + x
 
-    ref_out, vjp = jax.vjp(f, *[jnp.asarray(inp[k]) for k in MLP_NAMES])
+    return f
+
+
+def test_fused_mlp_past_640_fp32_matches_composed():
+    inp = _mlp_inputs(34)
+    ref_out, vjp = jax.vjp(_jax_composed_mlp(E_MLP, FH), *[jnp.asarray(inp[k]) for k in MLP_NAMES])
+    refs = vjp(jnp.asarray(inp["dout"]))
+    out, grads = _port_mlp(inp, torch.float32)
+    _close(out, ref_out, F32_TOL, F32_ATOL, "out")
+    for name, got, ref in zip(MLP_NAMES, grads, refs):
+        _close(got, ref, F32_TOL, F32_ATOL, name)
+
+
+# --- fused_mlp with a hidden layer past 640: fc2's dX in the plain form -----------
+# (the out-projection's is held above at E 672: K = 2 heads x 672)
+
+E_NARROW, FH_WIDE = 64, 768
+
+
+def test_fused_mlp_hidden_past_640_bf16_matches_pallas_interpret(interpret):
+    """fc2's dX at K 768 (a 768-wide hidden layer, the sweep's widest MLP):
+    the plain form with GELU'(pre) on the way, which the card runs on the
+    wgmma dX kernel, against the TPU kernel under the interpreter."""
+    inp = _mlp_inputs(36, E_NARROW, FH_WIDE)
+    args = [jnp.asarray(inp[k], jnp.bfloat16 if k in ("x", "w1", "w2") else jnp.float32)
+            for k in MLP_NAMES]
+    ref_out, vjp = jax.vjp(lambda *a: jax_fused_mlp(*a, fold_residual=True), *args)
+    refs = vjp(jnp.asarray(inp["dout"], jnp.bfloat16))
+    out, grads = _port_mlp(inp, torch.bfloat16)
+    _close(out, ref_out, BF16_TOL, name="out")
+    for name, got, ref in zip(MLP_NAMES, grads, refs):
+        _close(got, ref, BF16_TOL, name=name)
+
+
+def test_fused_mlp_hidden_past_640_fp32_matches_composed():
+    inp = _mlp_inputs(37, E_NARROW, FH_WIDE)
+    ref_out, vjp = jax.vjp(_jax_composed_mlp(E_NARROW, FH_WIDE),
+                           *[jnp.asarray(inp[k]) for k in MLP_NAMES])
     refs = vjp(jnp.asarray(inp["dout"]))
     out, grads = _port_mlp(inp, torch.float32)
     _close(out, ref_out, F32_TOL, F32_ATOL, "out")
@@ -462,18 +499,20 @@ def test_column_group_constants_match_the_kernel_sources():
 @pytest.mark.parametrize("heads", [None, (4, 768)], ids=["row_major", "head_major"])
 def test_layernorm_past_640_plans(k, heads):
     """A LayerNorm wider than a panel: the forward normalises the rows
-    first and streams them (ln_rows); the dX keeps its fp32 d(ln) rows in
-    device memory and only 4 statistics a row in shared memory
-    (dln_global), 128 rows a block; both within a block's shared memory.
-    Up to K 640 neither, as before."""
+    first and streams them (ln_rows); the dX takes the wgmma kernel, its
+    row in one cluster of ceil(K / 256) blocks of 128 rows x 256 columns
+    that add the row sums in distributed shared memory, no d(ln) rows in
+    device memory; both within a block's shared memory. Up to K 640
+    neither, as before."""
     n = 3 * 4 * 768 if heads else 3072
     plan = linear_plan(64 * 1654, n, k, heads, True, False, False)
     assert plan.ln_rows and plan.stream and plan.rows == 128 and plan.smem <= SMEM_LIMIT
     assert not linear_plan(64 * 1654, n, 640, heads, True, False, False).ln_rows
     ns = n if heads else -(-n // 32) * 32
     dx = dx_plan(k, ns, True, True)
-    assert dx.dln_global and dx.rows == 128 and dx.smem <= SMEM_LIMIT
-    assert not dx_plan(640, ns, True, True).dln_global
+    assert dx.wgmma and not dx.dln_global and dx.rows == 128 and dx.smem <= SMEM_LIMIT
+    assert dx.cluster == dx.k_tiles == -(-k // 256)
+    assert not dx_plan(640, ns, True, True).wgmma
     assert k > MAX_LN_K == 640
 
 
@@ -482,10 +521,15 @@ def test_layernorm_past_640_matches_the_kernel_sources():
     assert "p.ln_rows = ln && KP > MAX_PANEL_K;" in fwd
     assert "p.stream = (!ln && x_aligned) || p.ln_rows;" in fwd
     assert "__global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(" in fwd
-    assert "p.dln_global = ln && K > MAX_LN_K;" in bwd
-    assert "const int e = p.dln_global ? bm * 16" in bwd
-    assert "template <int WM, bool LN, bool DLN_GLOBAL = false>" in bwd
-    # the column sums stay block partials added in a fixed order: no atomics
+    # past K 640 the wgmma kernel; its LayerNorm form with the cluster's row
+    # sums, its statistics in shared memory, no (M, K) float32 scratch
+    assert "if (K > MAX_LN_K && !(ln && K > wx::LN_MAX_K)) {" in bwd
+    assert "template <bool LN>\n__global__ void __launch_bounds__(THREADS, 1) dx_wgmma_kernel(" \
+        in bwd
+    assert "return wx::launch<true>(plan, dymap, wmap, g, s, (bf16*)dx, nullptr, dout," in bwd
+    wx = bwd[bwd.index("dx_wgmma_kernel("):bwd.index("dx_prep_kernel(")]
+    assert "float4* stats" in wx and "dln" not in wx
+    # the column sums stay tile partials added in a fixed order: no atomics
+    assert "atomicAdd" not in wx
     assert "atomicAdd" not in bwd[bwd.index("ln_linear_dx_kernel("):bwd.index(
         "ln_dx_column_sums_kernel(")]
-

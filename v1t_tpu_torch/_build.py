@@ -45,8 +45,8 @@ _DROP = [_U] * 3 + [_F]  # seed, site, threshold, scale
 SIGNATURES = {
     "v1t_ln_linear": [_P] * 11 + [_I] * 9 + _DROP + [_P],
     "v1t_ln_linear_plan": [_I] * 11,
-    "v1t_ln_linear_dx": [_P] * 3 + [_I] * 8 + [_U] * 3 + [_P] + [_U] * 2 + [_F] + [_P] * 12,
-    "v1t_ln_linear_dx_smem": [_I] * 4,
+    "v1t_ln_linear_dx": [_P] * 3 + [_I] * 8 + [_U] * 3 + [_P] + [_U] * 2 + [_F] + [_P] * 13,
+    "v1t_ln_linear_dx_plan": [_I] * 5,
     "v1t_ln_linear_wgrad": [_P] * 4 + [_I] * 7 + _DROP + [_P],
     "v1t_ln_linear_wgrad_plan": [_I] * 10,
     "v1t_attention": [_P] * 4 + [_I] * 7 + _DROP + [_P],

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import os
 
-SS_WIDTHS = (32, 64, 96, 128, 160)  # both operands in shared memory
+SS_WIDTHS = (32, 64, 96, 128, 160, 256)  # both operands in shared memory
 RS_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)  # A in registers
 
 HEAD = """\

@@ -51,6 +51,15 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t panel, int rows, int row0, i
               16, GROUP_BYTES);
 }
 
+// the same in a panel of 128-byte-swizzled rows of 64 bf16 (make_map128's
+// boxes): rows row0 .. (8-row groups 1024 bytes apart), columns 16 kk .. 16
+// kk + 15 of the row's 64 (kk < 4)
+__device__ __forceinline__ uint64_t desc_k128(uint32_t panel, int row0, int kk) {
+  const uint32_t a = panel + (uint32_t)(row0 * 128 + kk * 32);
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
 // operand of a product whose K runs along the panel's rows: rows 16 kk ..
 // 16 kk + 15, columns from sub-tile sub0 on
 __device__ __forceinline__ uint64_t desc_mn(uint32_t panel, int rows, int sub0, int kk) {
@@ -106,7 +115,7 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 // links against the CUDA runtime alone. Returns a CUDA error code.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                       CUtensorMapSwizzle swizzle, const void* base, int planes, int rows,
-                      int cols, int ld, int box_rows) {
+                      int cols, int ld, int box_rows, int box_cols = 32) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -124,7 +133,7 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes
   }
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * elem_bytes, (cuuint64_t)rows * ld * elem_bytes};
-  const cuuint32_t box[3] = {32u, (cuuint32_t)box_rows, 1u};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1u};
   const cuuint32_t elem[3] = {1u, 1u, 1u};
   const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -138,6 +147,15 @@ inline int make_map(CUtensorMap* map, const void* base, int planes, int rows, in
                     int box_rows) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_64B, base,
                     planes, rows, cols, ld, box_rows);
+}
+
+// a bf16 array whose boxes are [box_rows][64] with the 128-byte swizzle: in
+// shared memory, 128-byte rows whose 16-byte chunk c lies at chunk c ^ (row
+// & 7), the pattern repeating every 1024 bytes (desc_k128 reads them)
+inline int make_map128(CUtensorMap* map, const void* base, int planes, int rows, int cols, int ld,
+                       int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B, base,
+                    planes, rows, cols, ld, box_rows, 64);
 }
 
 // a float32 (planes, rows, cols) array whose boxes are [box_rows][32] with
@@ -193,6 +211,31 @@ __device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* m
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ask L2 for `bytes` (a multiple of 16) of device memory from p (16-byte aligned)
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// bar_wait that traps after about 2^34 clocks (seconds) instead of spinning
+// for ever: a pipeline fault surfaces as a launch error, not a hang
+__device__ __forceinline__ void bar_wait_or_trap(uint64_t* bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > (1ll << 34)) __trap();
+  }
 }
 
 // Add a float32 box of shared memory into the array of a make_f32_map

@@ -54,12 +54,54 @@
 //      without --deterministic. It replaced one float atomic a column and
 //      block: qkv 0.645 and fc1 0.283 ms against the parent's 0.652 and
 //      0.296 (tools/ab_fixed_order.py, an NVIDIA H100 80GB HBM3 at 700 W).
-//      Past K 640 (emb 768) the BM x K rows no longer fit: each output
-//      tile's fp32 products go to (M, K) float32 scratch in device memory
-//      (dln), shared memory keeps the 4 statistics a row, and the same
-//      block reads its rows back (L2) for the row sums and dz; the column
-//      sums stay block partials in a fixed order. One block a SM (255
-//      registers a thread: the 128-register bound of two spilled).
+//      A LayerNorm past wx::LN_MAX_K (2048; no configuration reaches it)
+//      sends each output tile's fp32 products to (M, K) float32 scratch in
+//      device memory (dln), shared memory keeps the 4 statistics a row, and
+//      the same block reads its rows back (L2) for the row sums and dz. One
+//      block a SM (255 registers a thread: the 128-register bound of two
+//      spilled).
+//    Past K 640 (ViT-Base width: qkv and fc1 at K 768, the out-projection
+//    and fc2 at K 3072, and the sweep's out-projections and fc2 past 640)
+//    every dX runs on wx::dx_wgmma_kernel, which is bound by operations
+//    (2 M N K over ~2 (M N + N K + M K) bytes: ~480 FLOP/byte at emb 768):
+//    - the products on wgmma m64n256k16 (both operands in shared memory,
+//      fp32 accumulators in registers): a block owns 128 rows x 256 output
+//      columns, two consumer warpgroups of 64 rows (setmaxnreg 232); a
+//      producer thread fills a ring of 4 stages of 64 reduction columns
+//      ([128][64] of dY', [256][64] of W^T, 48 KB, 128-byte swizzled TMA
+//      boxes) behind mbarriers. A head-major dY is read as it lies, in
+//      chunks within each (s, h) plane (a 3-D map over column, row, plane;
+//      zeros past head_pad), so its pad columns meet zero weights and a row
+//      tile lies within a batch;
+//    - each block copies its own stages. TMA multicast of dY' to the
+//      blocks of a row tile was built and timed first, and was slower: a
+//      stage then has to be free in every block before any block's copy
+//      may land in it, and the cross-block releases (remote mbarrier
+//      arrivals, from the consumers or forwarded by the producer) sat on
+//      the products' path. A row tile's blocks run side by side (one
+//      cluster, or consecutive blocks), so that all but the first find each
+//      dY' chunk in L2: dY' comes from device memory about once;
+//    - dY's keep mask is drawn once per element: a masked or unaligned
+//      row-major dY is first written masked into (M, NS) aligned scratch by
+//      dx_prep_kernel (one Philox per 4 columns; a read and a write of dY,
+//      tools/ab_dx.py times the out-projection with and without it), since
+//      drawing it in each block would redraw every word once per output
+//      tile (12 times at K 3072);
+//    - the epilogues work from the fp32 tile staged over the freed ring
+//      (rolled loops, coalesced 8- or 16-byte accesses). Plain: 4 columns
+//      an item, fc1's keep mask (one Philox) and GELU'(pre), loads of 8
+//      items ahead of their arithmetic (the producer asks L2 for the
+//      tile's pre rows before the products start). LayerNorm: the row lies
+//      in one cluster of ceil(K / 256) blocks (3 at K 768); each block's
+//      per-row sums of z, of the squared deviations from its own mean, of
+//      d(ln) gamma and of d(ln) gamma (z - its mean) are added across the
+//      cluster in distributed shared memory in rank order, in one exchange
+//      (the variance by Chan et al.'s pairwise update); then 8 columns a
+//      thread over the tile's rows write dz (+ the residual's cotangent)
+//      and the LayerNorm output, and the tile's d(gamma), d(beta) and
+//      d(bias_row) partials (one a tile: a tile lies within a batch), which
+//      ln_dx_column_sums_kernel adds in a fixed order. No (M, K) scratch, no
+//      float atomic.
 // 2. ln_linear_wgrad: dW = dY'^T A and db = colsum(dY') over the M =
 //    B x N rows, A the layer's input (the saved activation, or the LayerNorm
 //    output from 1); the TPU kernels' per-batch weight-gradient products
@@ -99,9 +141,11 @@
 // Bound on the H100 at the flagship shapes: every call moves more bytes
 // than its FLOPs need time (100..150 FLOP/byte, under the ~295 ridge of bf16):
 // bound by memory bytes, like the forward.
-// Not yet: ln_linear_dx on wgmma, with W^T multicast to a cluster; dY
+// Not yet: ln_linear_dx on wgmma at K <= 640; the wgmma dX's epilogue
+// overlapped with the next tile's products (a persistent block); dY
 // multicast to the tiles of A in ln_linear_wgrad; the two halves in one pass.
 #include <cooperative_groups.h>
+#include <initializer_list>
 #include <string.h>
 
 #include "hopper.cuh"
@@ -116,6 +160,22 @@ constexpr int DX_MAX_SMEM = 232448;  // a block's shared memory on an H100
 // the LayerNorm backward keeps its BM x K fp32 d(ln) rows in shared memory
 // up to K = MAX_LN_K; wider ones go to device memory (dln_global)
 constexpr int MAX_LN_K = 640;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ln_linear_dx past MAX_LN_K on wgmma (wx::dx_wgmma_kernel): a block owns
+// a tile of ROWS rows x TILE output columns, STAGES stages of CHUNK
+// reduction columns. A LayerNorm's row lies in one cluster of ceil(K /
+// TILE) <= MAX_CLUSTER blocks, which add its sums in distributed shared
+// memory (K <= LN_MAX_K; wider ones keep dln_global); the plain form needs
+// no cluster.
+namespace wx {
+constexpr int ROWS = 128, TILE = 256, CHUNK = 64, STAGES = 4;
+constexpr int MAX_CLUSTER = 8, LN_MAX_K = MAX_CLUSTER * TILE;
+constexpr int A_BYTES = ROWS * CHUNK * 2, STAGE_BYTES = A_BYTES + TILE * CHUNK * 2;
+constexpr int HEAD = 8192;  // barriers, the rows' partial sums and their statistics
+constexpr int SMEM = 1024 + HEAD + STAGES * STAGE_BYTES;
+}  // namespace wx
 
 // Where logical element (row, col) of an (M, N) operand lives: row-major, or
 // head-major (N / (heads * head_dim), B, heads, rows_per_batch, head_pad).
@@ -136,7 +196,9 @@ struct DxPlan {
   int k_tiles;   // output tiles of DX_KT columns
   int aligned;   // dY' rows copied straight into the product's tiles (else staged)
   int a_off, s_off, e_off, smem;  // byte offsets of the regions; the total
-  int dln_global;  // LayerNorm past MAX_LN_K: the d(ln) rows in (M, K) fp32 scratch
+  int dln_global;  // LayerNorm past wx::LN_MAX_K: the d(ln) rows in (M, K) fp32 scratch
+  int wgmma;       // past MAX_LN_K: wx::dx_wgmma_kernel, k_tiles of wx::TILE
+  int cluster;     // its blocks a cluster: a LayerNorm's k_tiles, else 1
 };
 
 // Shared memory, from 0: the W^T ring [stages][DX_KT][DX_LD]; the dY' tiles
@@ -150,11 +212,24 @@ struct DxPlan {
 // device memory).
 // Resident is chosen over the rest, 128 rows over 64; then the deepest
 // ring of 4, 3, 2 that leaves room for two blocks a SM, else the deepest
-// that fits; smem 0 when no launch fits.
+// that fits; smem 0 when no launch fits. Past MAX_LN_K every K goes to
+// wx::dx_wgmma_kernel, but a LayerNorm past wx::LN_MAX_K (more than a
+// cluster's 8 x 256 columns; no configuration reaches it), which keeps
+// its d(ln) rows in device memory.
 DxPlan dx_plan(int K, int NS, bool aligned, bool ln) {
   DxPlan p{};
-  p.k_tiles = (K + DX_KT - 1) / DX_KT;
   p.aligned = aligned;
+  if (K > MAX_LN_K && !(ln && K > wx::LN_MAX_K)) {
+    p.wgmma = 1;
+    p.bm = wx::ROWS;
+    p.stages = wx::STAGES;
+    p.k_tiles = cdiv(K, wx::TILE);
+    p.cluster = ln ? p.k_tiles : 1;
+    p.smem = wx::SMEM;
+    return p;
+  }
+  p.cluster = 1;
+  p.k_tiles = (K + DX_KT - 1) / DX_KT;
   p.dln_global = ln && K > MAX_LN_K;
   for (int resident = p.k_tiles > 1; resident >= 0; --resident)
     for (int bm = 128; bm >= 64; bm /= 2)
@@ -568,12 +643,14 @@ __global__ void __launch_bounds__(64 * WM, LN && !DLN_GLOBAL ? 2 : 1) ln_linear_
 // d(gamma) and d(beta) over the blocks, 2 + b d(bias_row) of batch b over
 // the blocks that hold its rows; a block takes 32 columns, warp w the
 // partials w, w + SUM_WARPS, ... in turn, and its first warp adds the warps'
-// sums in warp order
+// sums in warp order. wx::dx_wgmma_kernel's row tiles lie within a batch,
+// tiles_pb of them a batch (0: ln_linear_dx_kernel's blocks of bm rows):
+// its d(bias_row) partials are [blocks][K], one a tile.
 constexpr int SUM_WARPS = 32;
 
 __global__ void __launch_bounds__(SUM_WARPS * 32) ln_dx_column_sums_kernel(
     const float* __restrict__ col_part, float* __restrict__ dgamma, float* __restrict__ dbeta,
-    float* __restrict__ dbrow, int K, int blocks, int bm, int rows_per_batch) {
+    float* __restrict__ dbrow, int K, int blocks, int bm, int rows_per_batch, int tiles_pb) {
   __shared__ float sums[SUM_WARPS][33];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, k = blockIdx.x * 32 + lane;
   const float* part;
@@ -583,6 +660,11 @@ __global__ void __launch_bounds__(SUM_WARPS * 32) ln_dx_column_sums_kernel(
     part = col_part + (size_t)blockIdx.y * blocks * K;
     out = blockIdx.y ? dbeta : dgamma;
     n = blocks;
+  } else if (tiles_pb) {
+    const long long b = blockIdx.y - 2;
+    part = col_part + (2 * (size_t)blocks + b * tiles_pb) * K;
+    out = dbrow + b * K;
+    n = tiles_pb;
   } else {
     const long long b = blockIdx.y - 2;
     const int first = (int)(b * rows_per_batch / bm);
@@ -621,9 +703,450 @@ int launch_dx(const DxPlan& P, cudaStream_t stream, const bf16* dy, Layout L, in
   const int rows = dbrow != nullptr ? L.batches : 0;
   ln_dx_column_sums_kernel<<<dim3((unsigned)((K + 31) / 32), 2 + rows), SUM_WARPS * 32, 0,
                              stream>>>(col_part, dgamma, dbeta, dbrow, K, blocks, 32 * WM,
-                                       L.rows_per_batch);
+                                       L.rows_per_batch, 0);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// ln_linear_dx past MAX_LN_K on wgmma
+
+namespace wx {
+
+constexpr int THREADS = 384;                      // two consumer warpgroups, a producer warpgroup
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+struct Args {
+  int K, NS;                    // dX (., K) over NS stored reduction columns
+  int rows, batches, tiles_pb;  // the row space: batches x rows, tiles_pb tiles a batch
+  int heads, head_pad;          // head-major dY: (NS / (heads head_pad), batches, heads, rows, head_pad)
+  int ctiles;                   // output tiles of a row tile
+  int vec;                      // K % 8 == 0 and every (M, K) operand 16-byte aligned
+};
+
+constexpr int ELD = TILE + 8;  // row stride of the staged fp32 tile: float2 stores on distinct banks
+
+// columns k .. k + W - 1 of a row (element `at` is column k) written in
+// bf16, those from K on left alone; vec: one 8- or 16-byte store
+template <int W>
+__device__ __forceinline__ void store_cols(bf16* p, size_t at, int k, int K, bool vec,
+                                           const float (&v)[W]) {
+  if (vec) {
+    uint32_t w[W / 2];
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) w[i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+    if constexpr (W == 8)
+      *reinterpret_cast<uint4*>(p + at) = make_uint4(w[0], w[1], w[2], w[3]);
+    else
+      *reinterpret_cast<uint2*>(p + at) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      if (k + e < K) p[at + e] = __float2bfloat16_rn(v[e]);
+  }
+}
+
+// the same columns read in float, zeros from K on
+template <int W>
+__device__ __forceinline__ void load_cols(const bf16* p, size_t at, int k, int K, bool vec,
+                                          float (&v)[W]) {
+  if (vec && k < K) {
+    uint32_t w[W / 2];
+    if constexpr (W == 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + at);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p + at);
+      w[0] = u.x, w[1] = u.y;
+    }
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = k + e < K ? to_f(p[at + e]) : 0.f;
+  }
+}
+
+// dX = dY' W for a tile of ROWS rows and TILE output columns a block. dymap
+// reads dY' (row-major (batches, rows, NS), or head-major) in boxes of
+// [ROWS][CHUNK], wmap W^T (K, NS) in boxes of [TILE][CHUNK], both in
+// 128-byte swizzled rows. Block c of a row tile owns output columns k0 = c
+// TILE ..; a LayerNorm's row tile is one cluster (ctiles blocks, rank c).
+// Each block copies its stages itself: a row tile's blocks run side by side
+// (one cluster, or consecutive block indices), so that all but the first
+// find each dY' chunk in L2.
+template <bool LN>
+__global__ void __launch_bounds__(THREADS, 1) dx_wgmma_kernel(
+    const __grid_constant__ CUtensorMap dymap, const __grid_constant__ CUtensorMap wmap, Args g,
+    bf16* __restrict__ dx, const bf16* __restrict__ pre, Drop drop_out,
+    const bf16* __restrict__ x, const bf16* __restrict__ pro_row,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    const bf16* __restrict__ dres, bf16* __restrict__ ln_out, float* __restrict__ col_part,
+    int brow) {
+  using namespace hopper;
+  namespace cg = cooperative_groups;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);  // [STAGES] a stage's boxes landed
+  uint64_t* empty = full + STAGES;                     // [STAGES] its products are done
+  float* part = reinterpret_cast<float*>(base + 1024);  // [4][ROWS] the rows' partial sums
+  float4* stats = reinterpret_cast<float4*>(base + 3072);  // [ROWS]: mean, rstd, mean(dxh), mean(dxh xhat)
+  unsigned char* ring = base + HEAD;
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int tile = blockIdx.x / g.ctiles, k0 = (blockIdx.x - tile * g.ctiles) * TILE;
+  const int b = tile / g.tiles_pb, n0 = (tile - b * g.tiles_pb) * ROWS;
+  // chunks of the reduction: head-major, cpp a (s, h) plane of head_pad
+  const int cpp = g.heads ? cdiv(g.head_pad, CHUNK) : 0;
+  const int NC = g.heads ? g.NS / g.head_pad * cpp : cdiv(g.NS, CHUNK);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // the producer: one thread keeps the ring full; first its warp asks L2
+    // for the tile's rows of fc1's pre-GELU activation, so that they are
+    // there when the products are done (the LayerNorm's x and dres were
+    // slower so: they evict what the products stream)
+    regs_dec<PRODUCER_REGS>();
+    if (!LN && pre != nullptr && tid < 288 && g.vec && k0 < g.K) {
+      const uint32_t bytes = (uint32_t)min(TILE, g.K - k0) * 2;
+      for (int r = tid - 256; r < min(ROWS, g.rows - n0); r += 32)
+        prefetch_l2(pre + ((size_t)b * g.rows + n0 + r) * g.K + k0, bytes);
+    }
+    if (tid == 256) {
+      for (int it = 0; it < NC; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) bar_wait_or_trap(&empty[s], (uint32_t)((it / STAGES - 1) & 1));
+        unsigned char* st = ring + s * STAGE_BYTES;
+        bar_expect(&full[s], STAGE_BYTES);
+        // chunk it: columns col .. col + 63 of dY's plane `plane` (head-major:
+        // plane (s, h)'s chunk j, zeros past head_pad), W^T's columns wcol ..
+        int col = it * CHUNK, plane = b, wcol = col;
+        if (g.heads) {
+          const int p = it / cpp, hs = p / g.heads;
+          col = (it - p * cpp) * CHUNK;
+          wcol = p * g.head_pad + col;
+          plane = (hs * g.batches + b) * g.heads + (p - hs * g.heads);
+        }
+        tma_box(st, &dymap, col, n0, plane, &full[s]);
+        tma_box(st + A_BYTES, &wmap, wcol, k0, 0, &full[s]);
+      }
+    }
+    __syncwarp();
+    if (LN)
+      for (int i = 0; i < 2; ++i) cg::this_cluster().sync();  // the consumers' exchange, exit
+    return;
+  }
+
+  // consumers: warpgroup wgi owns the tile's rows 64 wgi .. 64 wgi + 63
+  regs_inc<CONSUMER_REGS>();
+  float acc[TILE / 2];
+#pragma unroll
+  for (int i = 0; i < TILE / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int it = 0; it < NC; ++it) {
+    const int s = it % STAGES;
+    bar_wait_or_trap(&full[s], (uint32_t)((it / STAGES) & 1));
+    const uint32_t a_s = smem_u32(ring + s * STAGE_BYTES), b_s = a_s + A_BYTES;
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CHUNK / 16; ++kk)
+      wgmma::Mma<TILE>::template ss<0, 0>(acc, desc_k128(a_s, 64 * wgi, kk),
+                                          desc_k128(b_s, 0, kk), 1);
+    mma_commit();
+    mma_wait<1>();  // the previous stage's products are done: free it
+    if (it > 0 && (tid & 127) == 0) bar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  mma_wait<0>();
+  fence_regs(acc);
+
+  // the tile in fp32 over the freed ring, [ROWS][ELD], so that the
+  // epilogues below walk it in rolled loops with coalesced accesses
+  named_sync(1, 256);  // both warpgroups are done with the ring
+  float* Es = reinterpret_cast<float*>(ring);
+  {
+    const int w = (tid >> 5) & 3, lane = tid & 31;
+    float* er = Es + (64 * wgi + 16 * w + (lane >> 2)) * ELD + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(er + 8 * h * ELD + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  named_sync(1, 256);
+  const int K = g.K, nr = min(ROWS, g.rows - n0);  // the tile's rows
+  const bool vec = g.vec != 0;
+  const size_t m0 = (size_t)b * g.rows + n0;       // its first row of dX
+
+  if constexpr (!LN) {
+    // plain epilogue: 4 columns an item (one Philox group of fc1's mask),
+    // rows written whole by consecutive threads; the loads of BATCH items
+    // issued before any of their arithmetic
+    constexpr int ITEMS = ROWS * (TILE / 4) / 256, BATCH = 8;
+#pragma unroll 1
+    for (int u0 = 0; u0 < ITEMS; u0 += BATCH) {
+      float v[BATCH][4], p[BATCH][4];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = tid + 256 * (u0 + u), r = i / (TILE / 4), c = (i - r * (TILE / 4)) * 4;
+        const float4 a4 = *reinterpret_cast<const float4*>(Es + r * ELD + c);
+        v[u][0] = a4.x, v[u][1] = a4.y, v[u][2] = a4.z, v[u][3] = a4.w;
+        if (pre != nullptr && r < nr && k0 + c < K)
+          load_cols<4>(pre, (m0 + r) * K + k0 + c, k0 + c, K, vec, p[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = tid + 256 * (u0 + u), r = i / (TILE / 4), k = k0 + (i - r * (TILE / 4)) * 4;
+        if (r >= nr || k >= K) continue;
+        const size_t at = (m0 + r) * K + k;
+        if (pre != nullptr) {
+          uint4 kw = make_uint4(0u, 0u, 0u, 0u);
+          if (drop_out.on()) kw = keep_words(drop_out, 0u, (uint32_t)(m0 + r), (uint32_t)k >> 2);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (drop_out.on())
+              v[u][e] = word_of(kw, e) < drop_out.threshold ? v[u][e] * drop_out.scale : 0.f;
+            v[u][e] *= gelu_grad(p[u][e]);
+          }
+        }
+        store_cols<4>(dx, at, k, K, vec, v[u]);
+      }
+    }
+    return;
+  } else {
+    // LayerNorm epilogue. 1) the rows' statistics: warp wi takes rows RW wi
+    // .. RW wi + RW - 1, lane l the block's columns 8 l .. 8 l + 7. Each
+    // block sums, for each row over its columns, z, the squared deviations
+    // from its own mean mb, d(ln) gamma and d(ln) gamma (z - mb) (the lane's
+    // columns, then the warp: warp_sum), and the cluster adds the blocks'
+    // sums in rank order in distributed shared memory, exactly as one pass
+    // over the row (Chan et al.'s pairwise update for the variance; the
+    // deviations re-centred on the row's mean): one exchange, the same
+    // bits in every block and every run.
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = (int)cluster.num_blocks();
+    constexpr int RW = ROWS / 8;
+    const int wi = tid >> 5, lane = tid & 31, kl = k0 + 8 * lane;
+    const int nk = min(TILE, K - k0);  // the block's columns
+    const bf16* br = pro_row != nullptr ? pro_row + (size_t)b * K : nullptr;
+    float rb[8], gm[8];
+    if (br != nullptr) load_cols<8>(br, kl, kl, K, vec, rb);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gm[e] = kl + e < K ? gamma[kl + e] : 0.f;
+#pragma unroll 4
+    for (int u = 0; u < RW; ++u) {
+      const int r = RW * wi + u;
+      float z[8];
+      if (r < nr && kl < K) {
+        load_cols<8>(x, (m0 + r) * K + kl, kl, K, vec, z);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) z[e] = 0.f;
+      }
+      if (br != nullptr)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) z[e] = kl + e < K ? round_bf16(z[e] + rb[e]) : 0.f;
+      const float* er = Es + r * ELD + 8 * lane;
+      const float4 d0 = *reinterpret_cast<const float4*>(er);
+      const float4 d1 = *reinterpret_cast<const float4*>(er + 4);
+      const float dl[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+      float sz = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sz += z[e];
+      sz = warp_sum(sz);
+      const float mb = sz / nk;
+      float d2 = 0.f, a = 0.f, c = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = kl + e < K ? z[e] - mb : 0.f, dxh = dl[e] * gm[e];
+        d2 += d * d;
+        a += dxh;
+        c += dxh * d;
+      }
+      d2 = warp_sum(d2);
+      a = warp_sum(a);
+      c = warp_sum(c);
+      if (lane == 0) {
+        part[r] = sz;
+        part[ROWS + r] = d2;
+        part[2 * ROWS + r] = a;
+        part[3 * ROWS + r] = c;
+      }
+    }
+    cluster.sync();
+    if (lane < RW) {  // lane u: row RW wi + u over the cluster's blocks, in rank order
+      const int r = RW * wi + lane;
+      float v[4][MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < C) {
+          const float* pq = cluster.map_shared_rank(part, q);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i][q] = pq[i * ROWS + r];
+        }
+      float mu = 0.f, m2 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < C) mu += v[0][q];
+      mu /= K;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < C) {
+          const int n = min(TILE, K - q * TILE);
+          const float shift = v[0][q] / n - mu;  // the block's mean from the row's
+          m2 += v[1][q] + n * shift * shift;
+          s1 += v[2][q];
+          s2 += v[3][q] + shift * v[2][q];
+        }
+      const float rs = rsqrtf(m2 / K + 1e-5f);
+      stats[r] = make_float4(mu, rs, s1 / K, rs * s2 / K);
+    }
+    named_sync(1, 256);  // every row's statistics
+
+    // 2) dz (+ the residual's cotangent), the LayerNorm output and the
+    // column sums: thread (rg, cg) takes the block's columns 8 cg .. 8 cg + 7
+    // of rows rg, rg + 8, ..., RB rows at a time with their loads issued
+    // first; its sums run over its rows in order, then over the 8 row
+    // groups in order (shared memory)
+    constexpr int RB = 8;
+    const int rg = tid >> 5, kc = k0 + 8 * lane;
+    float gk[8], bk[8], rk[8], dg[8], db[8], dr[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gk[e] = kc + e < K ? gamma[kc + e] : 0.f;
+      bk[e] = kc + e < K ? beta[kc + e] : 0.f;
+      rk[e] = dg[e] = db[e] = dr[e] = 0.f;
+    }
+    if (br != nullptr && kc < K) load_cols<8>(br, kc, kc, K, vec, rk);
+#pragma unroll 1
+    for (int r0 = rg; r0 < ROWS; r0 += 8 * RB) {
+      float xv[RB][8], rv[RB][8];
+#pragma unroll
+      for (int u = 0; u < RB; ++u) {
+        const int r = r0 + 8 * u;
+        const size_t at = (m0 + r) * K + kc;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xv[u][e] = rv[u][e] = 0.f;
+        if (r < nr && kc < K) {
+          load_cols<8>(x, at, kc, K, vec, xv[u]);
+          if (dres != nullptr) load_cols<8>(dres, at, kc, K, vec, rv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RB; ++u) {
+        const int r = r0 + 8 * u;
+        if (r >= nr || kc >= K) continue;
+        const size_t at = (m0 + r) * K + kc;
+        const float4 st = stats[r];
+        const float* er = Es + r * ELD + 8 * lane;
+        const float4 d0 = *reinterpret_cast<const float4*>(er);
+        const float4 d1 = *reinterpret_cast<const float4*>(er + 4);
+        const float dl[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+        float lo[8], dz[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float zk = xv[u][e];
+          if (br != nullptr) zk = round_bf16(zk + rk[e]);
+          const float xhat = (zk - st.x) * st.y;
+          dg[e] += dl[e] * xhat;
+          db[e] += dl[e];
+          lo[e] = xhat * gk[e] + bk[e];
+          dz[e] = st.y * (dl[e] * gk[e] - st.z - xhat * st.w) + rv[u][e];
+          dr[e] += dz[e];
+        }
+        if (ln_out != nullptr) store_cols<8>(ln_out, at, kc, K, vec, lo);
+        store_cols<8>(dx, at, kc, K, vec, dz);
+      }
+    }
+    float* cs = Es + ROWS * ELD;  // [3][8][TILE]: each row group's column sums
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      cs[(0 * 8 + rg) * TILE + 8 * lane + e] = dg[e];
+      cs[(1 * 8 + rg) * TILE + 8 * lane + e] = db[e];
+      cs[(2 * 8 + rg) * TILE + 8 * lane + e] = dr[e];
+    }
+    named_sync(1, 256);
+    // the tile's partials: [tiles][K] of d(gamma), of d(beta), then of
+    // d(bias_row) (a tile lies within one batch), which
+    // ln_dx_column_sums_kernel adds in a fixed order
+    const int k = k0 + tid, tiles = g.batches * g.tiles_pb;
+    if (k < K) {
+      float sum[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum[q] += cs[(q * 8 + i) * TILE + tid];
+      col_part[(size_t)tile * K + k] = sum[0];
+      col_part[((size_t)tiles + tile) * K + k] = sum[1];
+      if (brow) col_part[(2 * (size_t)tiles + tile) * K + k] = sum[2];
+    }
+    cluster.sync();  // no block leaves while another may read its partials
+  }
+}
+
+// dY' row-major (M, NP) bf16 from dy (M, N), any 2-byte aligned start: the
+// keep mask applied and scaled (one Philox a thread, 4 columns), zeros past
+// N, so that TMA reads it in aligned boxes and each keep word is drawn once
+__global__ void __launch_bounds__(256) dx_prep_kernel(const bf16* __restrict__ dy,
+                                                      bf16* __restrict__ out, long long M, int N,
+                                                      int NP, Drop drop) {
+  const long long groups = M * (NP / 4);
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < groups; i += (long long)gridDim.x * 256) {
+    const long long row = i / (NP / 4);
+    const int c = (int)(i - row * (NP / 4)) * 4;
+    uint4 kw = make_uint4(0u, 0u, 0u, 0u);
+    if (drop.on()) kw = keep_words(drop, 0u, (uint32_t)row, (uint32_t)c >> 2);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = c + e < N ? to_f(dy[row * N + c + e]) : 0.f;
+      if (drop.on()) v[e] = word_of(kw, e) < drop.threshold ? v[e] * drop.scale : 0.f;
+    }
+    *reinterpret_cast<uint2*>(out + row * NP + c) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  }
+}
+
+template <bool LN>
+int launch(const DxPlan& P, const CUtensorMap& dymap, const CUtensorMap& wmap, const Args& g,
+           cudaStream_t stream, bf16* dx, const bf16* pre, Drop dout, const bf16* x,
+           const bf16* pro_row, const float* gamma, const float* beta, const bf16* dres,
+           bf16* ln_out, float* dgamma, float* dbeta, float* dbrow, float* col_part) {
+  cudaError_t err = cudaFuncSetAttribute(dx_wgmma_kernel<LN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = g.batches * g.tiles_pb;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * g.ctiles), 1u, 1u);
+  cfg.blockDim = dim3(THREADS, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)P.cluster;
+  attr[0].val.clusterDim.y = 1u;
+  attr[0].val.clusterDim.z = 1u;
+  cfg.attrs = attr;
+  cfg.numAttrs = P.cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, dx_wgmma_kernel<LN>, dymap, wmap, g, dx, pre, dout, x, pro_row,
+                           gamma, beta, dres, ln_out, col_part, (int)(dbrow != nullptr));
+  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess || !LN) return (int)err;
+  ln_dx_column_sums_kernel<<<dim3((unsigned)((g.K + 31) / 32), 2 + (dbrow ? g.batches : 0)),
+                             SUM_WARPS * 32, 0, stream>>>(col_part, dgamma, dbeta, dbrow, g.K,
+                                                          tiles, ROWS, g.rows, g.tiles_pb);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wx
 
 // ---------------------------------------------------------------------------
 // ln_linear_wgrad: dW^T = A^T dY' on wgmma (hopper.cuh)
@@ -645,7 +1168,6 @@ constexpr int HEAD = 1024;                      // barriers and the block's colu
 constexpr int MAX_SMEM = 232448;
 enum Copy { TMA = 0, SPAN = 1, SEGMENTS = 2 };  // how an operand reaches shared memory
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int up(int a, int b) { return cdiv(a, b) * b; }
 
 // The launch of one call (ops/ln_linear.py wgrad_plan mirrors it). Rows are
@@ -1098,13 +1620,15 @@ int launch(const Plan& P, const CUtensorMap& dymap, const CUtensorMap& amap, con
 // (a multiple of 32), NP = N / head_dim * head_pad. threshold_in > 0
 // applies the keep mask (seed, site_in) to dy. Plain epilogue (x == null):
 // dx (M, K) bf16, with pre (M, K) set also fc1's keep mask (seed, site_out,
-// threshold_out) and GELU'(pre). LayerNorm epilogue (x != null; K > 640
-// takes dln, (M, K) float32 scratch for the d(ln) rows): dx receives dz = the LayerNorm backward of dX at z = x (+ pro_row), plus
-// dres when not null; ln_out, when not null, the bf16 LayerNorm output;
-// dgamma, dbeta (K) and dbrow (B, K) (null: none) receive fp32 sums, added
-// in an order fixed by the shape through col_part, float32 scratch of (2
-// blocks + (dbrow ? blocks + B - 1 : 0)) x K floats, blocks = ceil(M / the
-// plan's rows a block) (ops/ln_linear.py dx_col_parts).
+// threshold_out) and GELU'(pre). LayerNorm epilogue (x != null): dx receives
+// dz = the LayerNorm backward of dX at z = x (+ pro_row), plus dres when not
+// null; ln_out, when not null, the bf16 LayerNorm output; dgamma, dbeta (K)
+// and dbrow (B, K) (null: none) receive fp32 sums, added in an order fixed by
+// the shape through col_part, float32 scratch of ops/ln_linear.py
+// dx_col_parts's size. K > 2048 with LayerNorm takes dln, (M, K) float32
+// scratch for the d(ln) rows. Past K 640 (dx_plan's wgmma) a row-major dy
+// that is masked or not 16-byte aligned is first written to dy_prep, (M, NP)
+// bf16 scratch; a head-major dy takes no mask there.
 extern "C" int v1t_ln_linear_dx(const void* dy, void* dx, const void* wt, int M, int N, int K,
                                 int NP, int rows_per_batch, int heads, int head_dim,
                                 int head_pad, unsigned seed, unsigned site_in,
@@ -1112,14 +1636,13 @@ extern "C" int v1t_ln_linear_dx(const void* dy, void* dx, const void* wt, int M,
                                 unsigned threshold_out, float drop_scale, const void* x,
                                 const void* pro_row, const void* gamma, const void* beta,
                                 const void* dres, void* ln_out, void* dgamma, void* dbeta,
-                                void* dbrow, void* col_part, void* dln, void* stream) {
+                                void* dbrow, void* col_part, void* dln, void* dy_prep,
+                                void* stream) {
   const bool ln = x != nullptr;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(dy);
   const int shift = (int)((addr & 15) >> 1);
   if (M < 1 || N < 1 || K < 1 || rows_per_batch < 1 || M % rows_per_batch != 0 ||
-      (ln && (col_part == nullptr || M / rows_per_batch > 65533 ||
-              (K > MAX_LN_K && dln == nullptr))) ||
-      (addr & 1))
+      (ln && (col_part == nullptr || M / rows_per_batch > 65533)) || (addr & 1))
     return (int)cudaErrorInvalidValue;
   if (heads ? head_dim < 1 || head_pad < head_dim || head_pad % DX_BC != 0 ||
                   N % (heads * head_dim) != 0 || NP != N / head_dim * head_pad || shift != 0
@@ -1127,14 +1650,56 @@ extern "C" int v1t_ln_linear_dx(const void* dy, void* dx, const void* wt, int M,
     return (int)cudaErrorInvalidValue;
   const bool aligned = heads || (N % 8 == 0 && shift == 0);
   const DxPlan plan = dx_plan(K, NP, aligned, ln);
-  if (plan.smem == 0) return (int)cudaErrorInvalidValue;
-  const bf16* dyb = reinterpret_cast<const bf16*>(aligned ? addr : addr & ~(uintptr_t)15);
-  const Layout L{N, rows_per_batch, M / rows_per_batch, heads, head_dim, head_pad};
+  if (plan.smem == 0 || (plan.dln_global && dln == nullptr)) return (int)cudaErrorInvalidValue;
   const Drop din{seed, site_in, threshold_in, drop_scale};
   const Drop dout{seed, site_out, threshold_out, drop_scale};
-  const int sh = aligned ? 0 : shift;
   cudaStream_t s = (cudaStream_t)stream;
   auto* w = (const bf16*)wt;
+  if (plan.wgmma) {
+    const bool prep = !heads && (threshold_in != 0u || !aligned);
+    if ((heads && threshold_in != 0u) || (prep && dy_prep == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const bool per_batch = ln || heads;  // LayerNorm row tiles lie within a batch
+    wx::Args g{K, NP, per_batch ? rows_per_batch : M, per_batch ? M / rows_per_batch : 1, 0,
+               heads, head_pad, plan.k_tiles, 0};
+    g.tiles_pb = cdiv(g.rows, wx::ROWS);
+    if ((long long)g.batches * g.tiles_pb * g.ctiles > 0x7fffffffll)
+      return (int)cudaErrorInvalidValue;
+    uintptr_t ors = reinterpret_cast<uintptr_t>(dx);
+    for (const void* p : {pre, x, pro_row, dres, (const void*)ln_out})
+      ors |= reinterpret_cast<uintptr_t>(p);
+    g.vec = K % 8 == 0 && (ors & 15) == 0;
+    int rc;
+    if (prep) {
+      const long long groups = (long long)M * (NP / 4);
+      const long long blocks = (groups + 255) / 256;
+      wx::dx_prep_kernel<<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, s>>>(
+          (const bf16*)dy, (bf16*)dy_prep, M, N, NP, din);
+      if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    }
+    CUtensorMap dymap, wmap;
+    memset(&dymap, 0, sizeof(dymap));
+    memset(&wmap, 0, sizeof(wmap));
+    if (heads)
+      rc = hopper::make_map128(&dymap, dy, N / head_dim * g.batches, rows_per_batch, head_pad,
+                               head_pad, wx::ROWS);
+    else if (prep)
+      rc = hopper::make_map128(&dymap, dy_prep, g.batches, g.rows, NP, NP, wx::ROWS);
+    else
+      rc = hopper::make_map128(&dymap, dy, g.batches, g.rows, N, N, wx::ROWS);
+    if (rc != 0 || (rc = hopper::make_map128(&wmap, wt, 1, K, NP, NP, wx::TILE)) != 0) return rc;
+    if (ln)
+      return wx::launch<true>(plan, dymap, wmap, g, s, (bf16*)dx, nullptr, dout, (const bf16*)x,
+                              (const bf16*)pro_row, (const float*)gamma, (const float*)beta,
+                              (const bf16*)dres, (bf16*)ln_out, (float*)dgamma, (float*)dbeta,
+                              (float*)dbrow, (float*)col_part);
+    return wx::launch<false>(plan, dymap, wmap, g, s, (bf16*)dx, (const bf16*)pre, dout, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr);
+  }
+  const bf16* dyb = reinterpret_cast<const bf16*>(aligned ? addr : addr & ~(uintptr_t)15);
+  const Layout L{N, rows_per_batch, M / rows_per_batch, heads, head_dim, head_pad};
+  const int sh = aligned ? 0 : shift;
   if (ln) {
     auto run = plan.dln_global ? (plan.bm == 128 ? &launch_dx<4, true, true> : &launch_dx<2, true, true>)
                                : (plan.bm == 128 ? &launch_dx<4, true> : &launch_dx<2, true>);
@@ -1149,11 +1714,16 @@ extern "C" int v1t_ln_linear_dx(const void* dy, void* dx, const void* wt, int M,
              nullptr);
 }
 
-// Dynamic shared memory of the ln_linear_dx launch for a K-wide output and
-// NP stored reduction columns, dY rows 16-byte aligned (aligned != 0) or
-// not, with the LayerNorm epilogue (ln != 0) or not; 0 when none fits.
-extern "C" int v1t_ln_linear_dx_smem(int K, int NP, int aligned, int ln) {
-  return dx_plan(K, NP, aligned != 0, ln != 0).smem;
+// One number of the ln_linear_dx launch for a K-wide output and NP stored
+// reduction columns, dY rows 16-byte aligned (aligned != 0) or not, with
+// the LayerNorm epilogue (ln != 0) or not (field: 0 rows a block, 1 ring
+// stages, 2 resident, 3 output tiles, 4 dln_global, 5 wgmma, 6 blocks a
+// cluster, 7 dynamic shared memory, 0 when none fits), -1 for another field.
+extern "C" int v1t_ln_linear_dx_plan(int K, int NP, int aligned, int ln, int field) {
+  const DxPlan p = dx_plan(K, NP, aligned != 0, ln != 0);
+  const int values[8] = {p.bm, p.stages, p.resident, p.k_tiles, p.dln_global,
+                         p.wgmma, p.cluster, p.smem};
+  return field >= 0 && field < 8 ? values[field] : -1;
 }
 
 // Returns a CUDA error code (0 on success). dw_part (slices, N, K) float32

@@ -20,7 +20,8 @@ GELU' reads: saved, not recomputed). The backward is two kernels
 (``csrc/ln_linear_bwd.cu``): ``ln_linear_bwd`` (dX = dY' W, with fc1's
 mask and GELU' or the LayerNorm backward fused; it reads each dY' element
 once a call when K <= 160 or dY' fits in shared memory, ``dx_plan``, against
-the W^T of ``dx_weight``) and ``ln_linear_wgrad`` (dW = dY'^T A and db on
+the W^T of ``dx_weight``; past K 640 on wgmma, a LayerNorm's row sums added
+across a cluster of blocks) and ``ln_linear_wgrad`` (dW = dY'^T A and db on
 wgmma, one fp32 partial per slice of the rows, ``wgrad_plan``, summed
 here in slice order). The forward's launch is ``linear_plan``.
 
@@ -34,14 +35,17 @@ version (bf16 or float32). Any K runs on the card. Up to ``MAX_LN_K`` the
 kernels hold a LayerNorm's whole rows (a panel of K bf16 columns forward,
 fp32 rows in shared memory backward); past it the forward first normalises
 the rows into bf16 scratch (``ln_rows_kernel``), which then streams like an
-aligned x (``LinearPlan.ln_rows``), and the backward keeps its fp32 d(ln)
+aligned x (``LinearPlan.ln_rows``), and the backward's dX runs on the wgmma
+kernel (``DxPlan.wgmma``; a masked or unaligned row-major dY first masked
+once into aligned scratch); a LayerNorm wider than 2048 keeps its fp32 d(ln)
 rows in scratch of device memory (``DxPlan.dln_global``). The kernels copy
 operands by TMA (16-byte aligned rows) or as the contiguous span of whole
 rows (rows of 155 bf16 are 310 bytes), the weight gradient also row by row;
 only a forward x without LayerNorm, rows not 16-byte aligned and K > 640,
 is zero-padded here to a multiple of 8 columns first (no flagship use).
 ``ln_linear.launches`` (and ``ln_linear_bwd``'s, ``ln_linear_wgrad``'s)
-counts kernel launches.
+counts kernel launches; ``ln_linear_bwd.form_launches`` counts the dX's
+again by kernel (``DX_FORMS``).
 """
 
 from __future__ import annotations
@@ -420,30 +424,60 @@ class DxPlan(t.NamedTuple):
     rows: int  # rows a block: 128 or 64
     stages: int  # depth of the copy ring
     resident: bool  # the block's dY' rows stay in shared memory for every output tile
-    k_tiles: int  # output tiles of DX_TILE columns
+    k_tiles: int  # output tiles of DX_TILE columns (wgmma: of WX_TILE)
     smem: int  # dynamic shared memory a block, bytes
-    dln_global: bool = False  # a LayerNorm past MAX_LN_K: its fp32 d(ln) rows in device memory
+    dln_global: bool = False  # a LayerNorm past WX_LN_MAX_K: its fp32 d(ln) rows in device memory
+    wgmma: bool = False  # past MAX_LN_K: the wgmma kernel, tiles of 128 rows x 256 columns
+    cluster: int = 1  # its blocks a cluster: a LayerNorm's k_tiles (its row sums), else 1
 
     @property
     def dy_reads(self) -> int:
-        """How many times each dY' element is read from device memory."""
+        """How many blocks copy each dY' element: one per output tile, or
+        one when the block's dY' rows stay in shared memory (resident). How
+        many of the wgmma kernel's copies find it in L2 (its row tile's
+        blocks run side by side) is not measured."""
         return 1 if self.resident else self.k_tiles
 
 
 DX_TILE, DX_CHUNK, DX_MAX_SMEM = 160, 32, 232448
+# the wgmma dX kernel: tiles of 128 rows x 256 output columns a block, a ring
+# of 4 stages of 64 reduction columns ([128][64] of dY', [256][64] of W^T), a
+# LayerNorm's row in one cluster of up to 8 blocks
+WX_ROWS, WX_TILE, WX_CHUNK, WX_STAGES, WX_MAX_CLUSTER = 128, 256, 64, 4, 8
+WX_LN_MAX_K = WX_MAX_CLUSTER * WX_TILE
+WX_SMEM = 1024 + 8192 + WX_STAGES * (WX_ROWS + WX_TILE) * WX_CHUNK * 2
+DX_FORMS = ("mma_sync", "wgmma_layernorm", "wgmma_plain")  # ln_linear_bwd.form_launches' keys
+
+
+def _dx_wgmma(k: int, ln: bool) -> bool:
+    """Whether a K-wide dX takes the wgmma kernel: every K past ``MAX_LN_K``
+    but a LayerNorm wider than one cluster's 8 x 256 columns."""
+    return k > MAX_LN_K and not (ln and k > WX_LN_MAX_K)
 
 
 def dx_plan(k: int, ns: int, aligned: bool, ln: bool) -> t.Optional[DxPlan]:
     """The launch ``csrc/ln_linear_bwd.cu`` ``dx_plan`` picks for a K-wide
     dX over NS stored reduction columns, dY rows 16-byte aligned or not,
-    with the LayerNorm epilogue or not (None: no launch fits). A block owns
-    a 160-column output tile; its dY' rows stay in shared memory across the
-    tiles when they fit (resident), else dY streams once per tile; 128 rows
-    before 64; of the ring depths 4, 3, 2 the deepest that leaves room for
-    two blocks a SM, else the deepest that fits. The products go through an
-    fp32 tile; the LayerNorm's fp32 rows reuse the ring when K fits one
-    tile; past ``MAX_LN_K`` they go to (M, K) float32 scratch in device
-    memory and shared memory keeps only 4 statistics a row."""
+    with the LayerNorm epilogue or not (None: no launch fits).
+
+    Up to ``MAX_LN_K``: a block owns a 160-column output tile; its dY' rows
+    stay in shared memory across the tiles when they fit (resident), else
+    dY streams once per tile; 128 rows before 64; of the ring depths 4, 3, 2
+    the deepest that leaves room for two blocks a SM, else the deepest that
+    fits. The products go through an fp32 tile; the LayerNorm's fp32 rows
+    reuse the ring when K fits one tile.
+
+    Past it, every K takes the wgmma kernel: a block owns a tile of 128
+    rows x 256 output columns, accumulated in registers; a LayerNorm's row
+    lies in one cluster of ceil(K / 256) <= 8 blocks, which add its sums in
+    distributed shared memory. A LayerNorm wider than 8 x 256 (no
+    configuration) keeps its fp32 d(ln) rows in (M, K) float32 scratch in
+    device memory and only 4 statistics a row in shared memory
+    (``dln_global``)."""
+    if _dx_wgmma(k, ln):
+        k_tiles = _cdiv(k, WX_TILE)
+        return DxPlan(WX_ROWS, WX_STAGES, False, k_tiles, WX_SMEM, False, True,
+                      k_tiles if ln else 1)
     k_tiles = -(-k // DX_TILE)
     dln_global = ln and k > MAX_LN_K
     ld = DX_CHUNK + 8
@@ -468,9 +502,14 @@ def dx_col_parts(plan: DxPlan, m: int, k: int, batches: int, brow: bool) -> t.Tu
     """The (rows, K) float32 scratch of the LayerNorm epilogue's column sums
     over M rows: each block's d(gamma) and d(beta) partials and, with
     ``brow``, the d(bias_row) partial of each (block, batch) pair its rows
-    meet (blocks + batches - 1 of them); a last kernel adds each column's
-    partials in an order fixed by the shape (``csrc/ln_linear_bwd.cu``
-    ``ln_dx_column_sums_kernel``), so that reruns agree bit for bit."""
+    meet (blocks + batches - 1 of them); the wgmma kernel's row tiles lie
+    within a batch, ceil(rows / 128) a batch, one partial of each a tile. A
+    last kernel adds each column's partials in an order fixed by the shape
+    (``csrc/ln_linear_bwd.cu`` ``ln_dx_column_sums_kernel``), so that
+    reruns agree bit for bit."""
+    if plan.wgmma:
+        tiles = batches * _cdiv(m // batches, plan.rows)
+        return (3 if brow else 2) * tiles, k
     blocks = -(-m // plan.rows)
     return 2 * blocks + (blocks + batches - 1 if brow else 0), k
 
@@ -557,14 +596,22 @@ def ln_linear_bwd(
     wt = dx_weight(w, heads)  # (K, NS)
     num_heads, head_dim = heads or (0, 0)
     head_pad = padded_head_dim(head_dim) if heads else 0
+    aligned = heads is not None or _aligned(dy)
+    wgmma = _dx_wgmma(k, x is not None)
+    masked = drop is not None and drop.active
+    if wgmma and heads is not None and masked:
+        raise ValueError("ln_linear_bwd: past K 640 a head-major dy takes no keep mask")
     dx = torch.empty((b, n, k), dtype=bf, device=dy.device)
-    ln_out = dgamma = dbeta = dbrow = col_part = dln = None
+    ln_out = dgamma = dbeta = dbrow = col_part = dln = dy_prep = None
+    if wgmma and heads is None and (masked or not aligned):
+        # scratch: dY' masked once and in 16-byte aligned rows, for TMA
+        dy_prep = torch.empty((b * n, wt.shape[1]), dtype=bf, device=dy.device)
     if x is not None:
         ln_out = torch.empty_like(dx)
         dgamma = torch.empty(k, dtype=f32, device=dy.device)
         dbeta = torch.empty(k, dtype=f32, device=dy.device)
         dbrow = torch.empty((b, k), dtype=f32, device=dy.device) if pro_row is not None else None
-        plan = dx_plan(k, wt.shape[1], heads is not None or _aligned(dy), True)
+        plan = dx_plan(k, wt.shape[1], aligned, True)
         col_part = torch.empty(dx_col_parts(plan, b * n, k, b, pro_row is not None),
                                dtype=f32, device=dy.device)
         if plan.dln_global:  # scratch: the fp32 d(ln) rows
@@ -579,14 +626,20 @@ def ln_linear_bwd(
         thr_out, scale, _build.ptr(x), _build.ptr(pro_row),
         _build.ptr(gamma), _build.ptr(beta), _build.ptr(dres), _build.ptr(ln_out),
         _build.ptr(dgamma), _build.ptr(dbeta), _build.ptr(dbrow), _build.ptr(col_part),
-        _build.ptr(dln), _build.stream_of(dy),
+        _build.ptr(dln), _build.ptr(dy_prep), _build.stream_of(dy),
     )
     _build.check_launch("ln_linear_bwd", rc)
     ln_linear_bwd.launches += 1
+    ln_linear_bwd.form_launches[
+        "mma_sync" if not wgmma else "wgmma_layernorm" if x is not None else "wgmma_plain"] += 1
     return dx if x is None else (dx, ln_out, dgamma, dbeta, dbrow)
 
 
 ln_linear_bwd.launches = 0
+# the same launches by kernel: the mma.sync ln_linear_dx_kernel (K <= 640,
+# and a LayerNorm past 2048) and the wgmma dx_wgmma_kernel with and without
+# the LayerNorm epilogue
+ln_linear_bwd.form_launches = dict.fromkeys(DX_FORMS, 0)
 
 
 def ln_linear_wgrad_plain(dy: Tensor, a: Tensor, *, heads=None,
