@@ -280,6 +280,9 @@ FULLRES_TOL = dict(model=MODEL_TOL, core=CORE_TOL, loss=LOSS_TOL, grad=GRAD_TOL)
 F32_TOL = dict(model=1e-6, core=1e-6, loss=1e-6, grad=5e-6)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
+# dense tensor-core TF32: the float32 column groups' second bound, their
+# products taken three times (3xTF32)
+TF32_FLOPS = 495e12
 
 B, N, E, H, F_HID, NEURONS = 64, 1654, 155, 4, 488, 7000
 MAP_H, MAP_W = 29, 57
@@ -295,6 +298,19 @@ PARENT_MS = {"attention serving": 2.303, "attention training": 3.358,
 # row 8w): the backward with and without dropout, the forward serving
 PARENT_WIDE_MS = {192: dict(bwd=5.051, bwd_no_dropout=3.430, serving=0.350),
                   256: dict(bwd=5.689, bwd_no_dropout=4.051, serving=0.717)}
+# the parent design's readings of the float32 column groups (FFMA, every
+# group recomputing S and dP; PERF.md rows 7f / 8f, this script on an NVIDIA
+# H100 80GB HBM3 at 700 W): (B*H, head width) -> the training and serving
+# forward, the backward with dropout (at the emb-768 shape also without it
+# and in key order)
+PARENT_F32_WIDE_MS = {
+    (64, 288): dict(training=17.140, serving=17.169, bwd=49.492),
+    (64, 384): dict(training=20.232, serving=20.265, bwd=57.921),
+    (64, 512): dict(training=25.086, serving=25.333, bwd=73.490),
+    (64, 768): dict(training=46.395, serving=47.229, bwd=137.868),
+    (64, 1024): dict(training=75.405, serving=77.145, bwd=220.949),
+    (256, 768): dict(training=185.359, serving=188.723, bwd=549.420, bwd_no_dropout=546.989,
+                     bwd_fixed_order=575.166)}
 # phase 5e, the training loop from disk: the kernel path's first epoch
 # against the plain path's, same weights, seeds, masks and batches:
 # |d|/|ref| of the epoch's mean train and validation losses, |d| of the
@@ -1413,6 +1429,18 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                         bound_by=b_by, library_ms=lib_ms, bwd_ms=bwd_ms,
                         bwd_no_dropout_ms=bwd0_ms, bwd_plain_ms=plain_bwd_ms,
                         bwd_bound_ms=bb_ms, bwd_bound_by=bb_by, bwd_library_ms=lib_bwd_ms)
+            if dtype == f32 and q.shape[-1] > 256:
+                # the 3xTF32 column groups: their products three times at the
+                # TF32 rate, beside the FFMA bound
+                case.update(bound_tf32_ms=3 * 4.0 * bh * nq * nk * d / TF32_FLOPS * 1e3,
+                            bwd_bound_tf32_ms=3 * 10.0 * bh * nq * nk * d / TF32_FLOPS * 1e3)
+                parent = PARENT_F32_WIDE_MS.get((bh, d), {})
+                log(f"  flash_attention[{label}] in 3xTF32: bound {case['bound_tf32_ms']:.4f} ms "
+                    f"(share {case['bound_tf32_ms'] / serve_ms:.3f} serving), backward "
+                    f"{case['bwd_bound_tf32_ms']:.4f} ms (share "
+                    f"{case['bwd_bound_tf32_ms'] / bwd0_ms:.3f} without dropout); the parent "
+                    "design (FFMA, PERF.md rows 7f / 8f): " + (", ".join(
+                        f"{k_} {v_} ms" for k_, v_ in parent.items()) or "not measured"))
             log(f"  flash_attention[{label}] (BH {bh}, N {nq}, D {d}, {kind}): kernel_ms "
                 f"{ms:.4f} (serving {serve_ms:.4f}) plain_ms {plain_ms:.4f} sdpa_ms "
                 f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); serving / sdpa "
@@ -1548,10 +1576,19 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         cases[f"f32wide_{d}_lsa"] = check(f"fp32 head width {d}, lsa, no dropout", 8, 4, 333,
                                           333, d, f32, lsa=True, fixed=True)
         masks_bit_identical(f"fp32 head width {d}", 4, 300, d, f32)
+    # the widest cluster (8 groups, DP 2048) and past it (9 groups, DP 2080:
+    # the FFMA column groups)
+    for d in (2048, 2080):
+        cases[f"f32wide_{d}_rect"] = check(
+            f"fp32 head width {d}, rectangular 300 x 460, n_real_k 400, dlse, dropout", 8, 4,
+            300, 460, d, f32, n_real=400, dlse=True, drp=drop, fixed=True)
+        cases[f"f32wide_{d}_lsa"] = check(f"fp32 head width {d}, lsa, no dropout", 8, 4, 200,
+                                          200, d, f32, lsa=True, fixed=True)
+    masks_bit_identical("fp32 head width 2080", 4, 300, 2080, f32)
     masked_rows(WIDE_EMB, f32)
     cases["f32wide_padding_block"] = check(
         f"fp32 head width {WIDE_EMB}, a block of padding keys, n_real_k 0, dlse", 8, 4, 600, 700,
-        WIDE_EMB, f32, n_real=0, dlse=True)
+        WIDE_EMB, f32, n_real=0, dlse=True, fixed=True)
     cases["f32emb_768"] = check(f"fp32 emb {WIDE_EMB}: batch 64 x {H} heads of {WIDE_EMB}, "
                                 "dropout", B * H, H, N, N, WIDE_EMB, f32, drp=drop, timed=True,
                                 fixed=True, iters=2)
@@ -1645,13 +1682,16 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                     + f" in float32 ({wide['sdpa_backend']} backend at DP {WIDE_EMB})",
             ms_like_for_like=wide["bwd_no_dropout_ms" if pre else "serving_ms"],
             like_for_like="no dropout" + ("" if pre else ", no LSE (serving)"),
+            bound_tf32_ms=wide[f"{pre}bound_tf32_ms"],
+            bound_tf32="the products three times (3xTF32) at 495 TFLOP/s dense TF32",
             **({"fixed_order_ms": wide["bwd_fixed_order_ms"]} if pre else {}),
             note=f"times at the fp32 emb-{WIDE_EMB} path's shape (B*H {B * H}, N {N}, D "
                  f"{WIDE_EMB}, float32, dropout on; ms_like_for_like without dropout, as the "
-                 "library call runs); max_abs_err the largest over every float32 column-group "
+                 "library call runs); 3xTF32 in a cluster of the column groups up to 8 groups, "
+                 "FFMA past them; max_abs_err the largest over every float32 column-group "
                  "case; per_case holds head widths 288, 384, 512, 768 and 1024 at B*H 64 "
-                 "(timed), rectangular with n_real_k and an LSE cotangent, LSA and a block of "
-                 "padding keys (checked)",
+                 "(timed), rectangular with n_real_k and an LSE cotangent, LSA, 2048 (a "
+                 "cluster of 8) and 2080 (past 8 groups) and a block of padding keys (checked)",
             per_case=f32_cases))
     return rows
 
@@ -4074,6 +4114,8 @@ def main() -> int:
                         wide[(int(m.group(2)), name)] = reading
                     m = re.match(r"flash_fwd_wide_kernelILb([01])E|flash_bwd_wide_kernel|"
                                  r"flash_fwd_f32_wide_kernelILb([01])E|flash_bwd_f32_wide_kernel|"
+                                 r"flash_fwd_f32_cluster_kernelILb([01])E|"
+                                 r"flash_bwd_f32_cluster_kernel|"
                                  r"ln_rows_kernel|ln_linear_dx_kernelILi([24])ELb1ELb1E|"
                                  r"dx_wgmma_kernelILb([01])E", entry)
                     if m:
@@ -4090,12 +4132,13 @@ def main() -> int:
     if len(wide) != 9 or any(sp for _, sp in wide.values()):
         raise AssertionError(f"the wide instantiations' ptxas report: {wide} (9 expected, "
                              "no spill)")
-    log("  the kernels past the panels' widths (flash column groups above DP 256, bf16 and "
-        "float32; the LayerNorm past K 640; the wgmma dX, its registers the launch's allotment "
-        "with setmaxnreg giving its consumers 232), ptxas's registers a thread / spill stores: "
+    log("  the kernels past the panels' widths (flash column groups above DP 256, bf16, "
+        "float32 in 3xTF32 clusters to 8 groups and on FFMA past them; the LayerNorm past K "
+        "640; the wgmma dX, its registers the launch's allotment with setmaxnreg giving its "
+        "consumers 232), ptxas's registers a thread / spill stores: "
         + "; ".join(f"{name} {r} / {sp} B" for name, (r, sp) in sorted(past.items())))
-    if len(past) != 11 or any(sp for _, sp in past.values()):
-        raise AssertionError(f"the instances past the panels' widths: {past} (11 expected, "
+    if len(past) != 14 or any(sp for _, sp in past.values()):
+        raise AssertionError(f"the instances past the panels' widths: {past} (14 expected, "
                              "no spill)")
     widths = range(32, 257, 32)
     log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
@@ -4255,12 +4298,15 @@ def main() -> int:
         # the float32 column groups ran, and no float32 flash kernel of a
         # width within 256
         names = " ".join(seen[1])
-        want = ["flash_fwd_f32_wide_kernel"] + (
-            ["flash_bwd_f32_wide_kernel", "flash_bwd_prep_kernel"] if kind == "training" else [])
+        want = ["flash_fwd_f32_cluster_kernel"] + (
+            ["flash_bwd_f32_cluster_kernel", "flash_bwd_prep_kernel"] if kind == "training"
+            else [])
         missing = [w for w in want if w not in names]
-        if missing or "flash_fwd_f32_kernel<" in names or "flash_bwd_f32_kernel<" in names:
+        if missing or "flash_fwd_f32_kernel<" in names or "flash_bwd_f32_kernel<" in names \
+                or "f32_wide_kernel" in names:
             raise AssertionError(f"fp32 emb-{WIDE_EMB} {kind}: kernels {missing} missing from "
-                                 "the profile, or a float32 flash kernel within 256 ran")
+                                 "the profile, or a float32 flash kernel within 256 or an "
+                                 "FFMA column-group kernel ran")
     paths = {"training": train_launches, "full_res_training": full["launches"],
              "wide_training": wide["launches"], "wide_serving": wide["serving_launches"],
              "fp32_wide_training": f32_wide["launches"],

@@ -772,6 +772,41 @@ def test_flash_forward_float32_rectangular_matches_plain(gen):
         _close(got, ref, F32_KERNEL_TOL)
 
 
+@pytest.mark.parametrize("form", ["rectangular", "lsa"])
+@pytest.mark.parametrize("d", [288, 700, 1024, 2048, 2080])
+def test_flash_float32_column_group_clusters_match_plain(gen, d, form):
+    """The float32 column groups in 3xTF32 clusters (2, 3, 4 and 8 groups)
+    and on FFMA past 8 (2080), forward and backward against the plain
+    versions: rectangular with keys past n_real_k masked, an LSE cotangent
+    and dropout, or square with LSA; the backward twice in key order, bit
+    for bit."""
+    bh, heads = 4, 2
+    rect = form == "rectangular"
+    nq, nk, n_real, lsa = (70, 130, 100, False) if rect else (97, 97, None, True)
+    drp = _drop(0.25, site=13) if rect else None
+    dp = -(-d // 32) * 32
+    q, k, v = (torch.zeros(bh, n, dp, device="cuda") for n in (nq, nk, nk))
+    for x in (q, k, v):
+        x[..., :d] = _randn(gen, bh, x.shape[1], d, dtype=torch.float32) * d ** -0.25
+    kw = dict(n_real_k=n_real, use_lsa=lsa, drop=drp)
+    (o, lse), (o_ref, lse_ref) = (fn(q, k, v, d, heads, with_lse=True, **kw)
+                                  for fn in (flash_fwd, flash_fwd_plain))
+    _close(o, o_ref, F32_KERNEL_TOL)
+    _close(lse, lse_ref, F32_KERNEL_TOL)
+    do = _randn(gen, *o.shape, dtype=torch.float32)
+    dlse = _randn(gen, bh, nq, scale=0.5, dtype=torch.float32) if rect else None
+    ref = flash_bwd_plain(q, k, v, o_ref, do, lse_ref, d, heads, dlse=dlse, **kw)
+    for got, want in zip(flash_bwd(q, k, v, o_ref, do, lse_ref, d, heads, dlse=dlse, **kw), ref):
+        _close(got, want, F32_KERNEL_TOL)
+    with _deterministic():
+        first, second = (flash_bwd(q, k, v, o_ref, do, lse_ref, d, heads, dlse=dlse, **kw)
+                         for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b_, want in zip(first, second, ref):
+        assert torch.equal(a, b_)
+        _close(a, want, F32_KERNEL_TOL)
+
+
 def _offset(x):
     """x as a contiguous view that starts 2 bytes past a 16-byte boundary."""
     buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)

@@ -133,25 +133,39 @@ def _source(name):
 
 
 @pytest.mark.parametrize("dp,groups,cols", [(288, 2, 160), (384, 2, 192), (704, 3, 256),
-                                            (768, 3, 256), (1024, 4, 256), (2080, 9, 256)])
+                                            (768, 3, 256), (1024, 4, 256), (2048, 8, 256),
+                                            (2080, 9, 256), (4096, 16, 256)])
 def test_float32_column_group_plans(dp, groups, cols):
     """float32 past DP 256: the bf16 kernels' groups; one shared-memory size
-    at every width, within a block's 232,448 bytes (hand-computed: forward
-    two stages of a q and a K chunk [64][68] + 4 floats every 8 rows, V's
-    group [64][260] + 32, P [64][68]: (4 x 4384 + 16,672 + 4352) x 4 =
-    154,240; backward two stages of four [32][68] chunks, the K, q and dO
-    group columns [32][260], P and dS [32][36], lse and delta: (17,408 +
-    3 x 8320 + 2304 + 64) x 4 = 178,944); the fixed-order counters a turn a
-    (plane, group, query tile of 32)."""
+    at every width of a form, within a block's 232,448 bytes; the
+    fixed-order counters a turn a (plane, group, query tile of 32). Up to 8
+    groups (DP 2048) the 3xTF32 cluster kernels, the groups of a tile one
+    cluster (hand-computed, tiles unpadded: forward q [64][256], K and V
+    [2][32][256], two partial score buffers and P's two parts [64][32], 64
+    rescales: (16,384 + 32,768 + 8192 + 64) x 4 = 229,632; backward K and V
+    [32][256], q and dO [2][32][256], the S and dP partials [2][2][32][32],
+    the parts of Z P and dS [4][32][32], lse and delta [2][32] each:
+    (49,152 + 4096 + 4096 + 128) x 4 = 229,888). Past 8 groups the FFMA
+    kernels, no cluster (forward two stages of a q and a K chunk [64][68] +
+    4 floats every 8 rows, V's group [64][260] + 32, P [64][68]: (4 x 4384 +
+    16,672 + 4352) x 4 = 154,240; backward two stages of four [32][68]
+    chunks, the K, q and dO group columns [32][260], P and dS [32][36], lse
+    and delta: (17,408 + 3 x 8320 + 2304 + 64) x 4 = 178,944)."""
     f = fa.fwd_plan(torch.float32, dp)
     b = fa.bwd_plan(torch.float32, 8, 1000, dp)
-    assert (f.groups, f.group_cols, f.queries, f.keys, f.q_panels, f.stages) == (
-        groups, cols, 64, 64, 0, 2)
-    assert f.smem == 154240 <= SMEM_LIMIT
-    assert (b.groups, b.group_cols, b.keys) == (groups, cols, 32)
-    assert b.kernels == ("prep", "one_pass_f32_wide") and b.dq_acc is None
-    assert b.smem == 178944 <= SMEM_LIMIT
-    assert b.order == 1 + 8 * groups * 32
+    assert (f.groups, f.group_cols, b.groups, b.group_cols, b.keys) == (
+        groups, cols, groups, cols, 32)
+    assert b.dq_acc is None and b.order == 1 + 8 * groups * 32
+    if groups <= fa.F32_CLUSTER_GROUPS:
+        assert (f.queries, f.keys, f.q_panels, f.stages, f.cluster) == (64, 32, 1, 2, groups)
+        assert f.smem == 229632 <= SMEM_LIMIT
+        assert b.kernels == ("prep", "one_pass_f32_cluster") and b.cluster == groups
+        assert b.smem == 229888 <= SMEM_LIMIT
+    else:
+        assert (f.queries, f.keys, f.q_panels, f.stages, f.cluster) == (64, 64, 0, 2, 1)
+        assert f.smem == 154240 <= SMEM_LIMIT
+        assert b.kernels == ("prep", "one_pass_f32_wide") and b.cluster == 1
+        assert b.smem == 178944 <= SMEM_LIMIT
 
 
 def test_float32_column_groups_match_the_kernel_sources():
@@ -170,9 +184,11 @@ def test_float32_column_groups_match_the_kernel_sources():
             "WIDE_OG) +\n          F32_KB * (F32_KB + 4)) * (int)sizeof(float);") in fwd
     assert ("return (2 * 4 * F32_QT * (WB_CW + 4) + 32 * (WB_OG + 4) + 2 * F32_QT * (WB_OG + 4) "
             "+\n          2 * F32_QT * (32 + 4) + 2 * F32_QT) * (int)sizeof(float);") in bwd
-    assert "if (dp > 256) return dp % 32 == 0 ? f32_wide_smem_bytes() : 0;" in fwd
-    assert ("if (dp > 256) return dp % 32 != 0 ? 0 : f ? f32_wide_bwd_smem_bytes() : "
-            "wide_bwd_smem_bytes();") in bwd
+    # past 8 groups the FFMA kernels' shared memory, up to 8 the clusters'
+    assert ("wide_groups(dp) <= C_MAX_GROUPS ? f32_cluster_smem_bytes() : "
+            "f32_wide_smem_bytes();") in fwd
+    assert ("wb_groups(dp) <= CB_MAX_GROUPS ? f32_cluster_bwd_smem_bytes() : "
+            "f32_wide_bwd_smem_bytes();") in bwd
     # one instance a training flag forward, one backward, whatever the width
     assert "template <bool TRAIN>\n__global__ void __launch_bounds__(F32_THREADS, 1) " \
            "flash_fwd_f32_wide_kernel(" in fwd
@@ -185,3 +201,52 @@ def test_float32_column_groups_match_the_kernel_sources():
     assert "(size_t)BH * groups * ((Nq + F32_QT - 1) / F32_QT)" in bwd
     # the wrappers no longer refuse float32 past 256
     assert "queue 3 item 1" not in open(fa.__file__).read()
+
+
+CLUSTER_SOURCES = {
+    "forward": ("flash_attention.cu", "C_", "flash_fwd_f32_cluster_kernel",
+                "template <bool TRAIN>\n__global__ void __launch_bounds__(C_THREADS, 1) "
+                "flash_fwd_f32_cluster_kernel(",
+                "return (C_QB * C_OG + 4 * C_TILE + 2 * C_QB * C_KB + 2 * C_QB * C_KB + C_QB) *"),
+    "backward": ("flash_attention_bwd.cu", "CB_", "flash_bwd_f32_cluster_kernel",
+                 "__global__ void __launch_bounds__(CB_THREADS, 1) flash_bwd_f32_cluster_kernel(",
+                 "return (2 * CB_TILE + 4 * CB_TILE + 2 * 2 * CB_SQ + 4 * CB_SQ + "
+                 "2 * 2 * CB_QT) *"),
+}
+
+
+@pytest.mark.parametrize("direction", sorted(CLUSTER_SOURCES))
+def test_float32_cluster_groups_match_the_kernel_sources(direction):
+    """The 3xTF32 cluster kernels' constants are the plans' (64 queries / 32
+    keys a block, key or query tiles of 32, groups of 256, at most 8 a
+    cluster, 256 threads), their shared memory is summed as the plans sum it,
+    one instance a training flag (forward) or one (backward) at every width;
+    the products are 3xTF32 m16n8k8 (tf32.cuh), the partials summed through
+    distributed shared memory in group order, no group recomputing them."""
+    name, pre, kernel, decl, smem = CLUSTER_SOURCES[direction]
+    src = _source(name)
+    consts = {n: int(v) for n, v in re.findall(r"(\w+) = (\d+)[,;]", src)}
+    if direction == "forward":
+        assert (consts["C_QB"], consts["C_KB"], consts["C_OG"], consts["C_THREADS"],
+                consts["C_MAX_GROUPS"]) == (64, 32, fa.WIDE_GROUP, 256, fa.F32_CLUSTER_GROUPS)
+    else:
+        assert (consts["CB_KB"], consts["CB_QT"], consts["CB_OG"], consts["CB_THREADS"],
+                consts["CB_MAX_GROUPS"]) == (32, 32, fa.WIDE_GROUP, 256, fa.F32_CLUSTER_GROUPS)
+    assert decl in src and smem in src
+    assert src.count(kernel) >= 3  # defined, its attribute set, launched
+    assert '#include "tf32.cuh"' in src and "cudaLaunchAttributeClusterDimension" in src
+    body = src[src.index(decl):]
+    body = body[:body.index("\n}\n")]
+    # the partials of every group summed in group order 0 .. G - 1, from
+    # group 0's, in every block alike
+    assert "for (int r = 0; r < G; ++r) {\n        const float* rp = " \
+           "cluster.map_shared_rank(sp, r);" in body
+    assert body.count("r == 0 ? ") in (1, 2)
+    assert "hopper::cluster_arrive();" in body and "hopper::cluster_wait();" in body
+    # the products on the tensor cores in 3xTF32 only: no FFMA dot products
+    assert "tf32::mma3(" in body and "dot4(" not in body and "fma4(" not in body
+    helpers = _source("tf32.cuh")
+    # cvt.rna.tf32.f32's rounding of a finite value, in two integer instructions
+    assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in helpers
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in helpers
+    assert "mma(c, as, bb);\n  mma(c, ab, bs);\n  mma(c, ab, bb);" in helpers

@@ -71,8 +71,8 @@
 // encoder lives in libcuda and is reached through
 // cudaGetDriverEntryPointByVersion; the map travels as a __grid_constant__
 // parameter, its boxes one [rows][32] sub-tile in the 64-byte swizzle.
-// float32: FFMA on the CUDA cores, not TF32 (the fp32 model exists for
-// exact arithmetic). FFMA on an H100 outruns shared memory: its 128 lanes
+// float32 up to DP 256: FFMA on the CUDA cores, not TF32 (the fp32 model
+// exists for float32 arithmetic; past 256, 3xTF32 keeps it, below). FFMA on an H100 outruns shared memory: its 128 lanes
 // of FMA a cycle face 128 bytes of shared loads a cycle, so each loaded
 // float must feed several FMAs, and that sets the tiles. A block of 256
 // threads owns 128 query rows (64 above DP 160, so that o fits the
@@ -108,12 +108,20 @@
 // (203 KB at DP 160) leaves its 8 warps' loads to hide behind each other's
 // FMAs.
 // Above DP 256, in both types: the column groups, a block a (query tile,
-// group of o's columns, plane), S recomputed over the whole DP in every
-// group (flash_fwd_wide_kernel and flash_fwd_f32_wide_kernel, below). At
-// the emb-768 path's shape (B*H 256, N 1654, D 768) the one-pass count is
-// 2.15 TFLOP, a 2.18 ms bound in bf16 and 32.1 ms at the fp32 rate; three
-// groups make it 4.3 TFLOP of products.
+// group of o's columns, plane). bf16 (flash_fwd_wide_kernel, below)
+// recomputes S over the whole DP in every group; float32 up to 8 groups
+// (DP 2048; flash_fwd_f32_cluster_kernel) takes its products on the tensor
+// cores in 3xTF32 (tf32.cuh), the groups of a query tile one cluster that
+// sums the partial scores, so S is computed once; past 8 groups FFMA
+// (flash_fwd_f32_wide_kernel), every group recomputing S. At the emb-768
+// path's shape (B*H 256, N 1654, D 768) the one-pass count is 2.15 TFLOP,
+// a 2.18 ms bound in bf16, 32.1 ms at the fp32 rate and 13.0 ms as 3xTF32
+// (the products three times at 495 TFLOP/s); three groups recomputing S
+// make it 4.3 TFLOP of products.
+#include <cooperative_groups.h>
+
 #include "hopper.cuh"
+#include "tf32.cuh"
 #include "wgmma_fwd.cuh"
 
 namespace {
@@ -1065,8 +1073,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1) flash_fwd_f32_kernel(
 // DP 768 three times, so the products are 4/2 of the one-pass count. The
 // keep mask is keyed by element, so every group draws the same one; group
 // 0 writes the LSE. One instance a training flag serves every multiple of
-// 32 past 256 (the group's width is a multiple of 32; a warp skips the
-// column blocks past it).
+// 32 past 8 groups (DP 2048; below, the cluster kernel) (the group's width
+// is a multiple of 32; a warp skips the column blocks past it).
 
 // the ring's two stages of a q and a K chunk, the group's V columns, P
 __host__ __device__ constexpr int f32_wide_smem_bytes() {
@@ -1259,6 +1267,276 @@ __global__ void __launch_bounds__(F32_THREADS, 1) flash_fwd_f32_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// float32 above DP 256, up to 2048: 3xTF32 in a cluster of the column groups
+//
+// The groups of one (64-query tile, plane) are one thread-block cluster,
+// block g (its rank) owning group g's columns (wide_groups,
+// wide_group_width; at most 256 wide, at most C_MAX_GROUPS = 8 groups: a
+// portable cluster). Block g keeps the tile's q columns of its group in
+// shared memory for the whole loop and streams its group's K and V columns
+// in key tiles of 32 through cp.async rings of two stages. For each key
+// tile it computes the partial scores over its own columns (a split of the
+// DP reduction), the cluster meets at a barrier, and every block adds the
+// partials of all groups through distributed shared memory in group order
+// 0 .. G - 1: every block holds the same S bits, so it draws the same P
+// and keep mask (keyed by element), and block 0 writes the LSE. The
+// partials are double-buffered, so a key tile costs one cluster barrier (a
+// block reuses a buffer two tiles on, after every block has passed the
+// barrier between). Each block adds P v_g into its own o columns, one tile
+// late: P_j-1 v_j-1 runs between the barrier's arrive and wait of tile j.
+// So S is computed once, the products are the one-pass count (4 BH Nq Nk
+// DP), and q is read once a block. Products on the tensor cores in 3xTF32
+// (tf32.cuh): S as m16n8k8 tiles, a warp 16 queries x 16 keys over the
+// group's columns (q and K by ldmatrix, split in registers, two
+// accumulator sets by k-step parity); the softmax a thread a row's 8 keys (two
+// Philox groups), P split into its TF32 parts in shared memory once by its
+// owner; o a warp all 64 rows x 32 of the group's columns (P by ldmatrix,
+// v read across its rows and split), each tile's product from zero, added
+// to o by an FFMA with the rescale. Tiles swizzled by row (tf32.cuh), no
+// padding: q [64][256], K and V [2][32][256], two partial score buffers and
+// P's two parts [64][32]: 229,632 bytes, one block a SM. mma.sync, not
+// wgmma: wgmma takes TF32 operands from shared memory only K-major, and o
+// += P v is not (v would need a transposed copy, and each small part a
+// tile of its own). What each cost takes, and mma.sync's TF32 rate alone:
+// tools/f32_wide_costs.py.
+constexpr int C_QB = 64, C_KB = 32, C_OG = 256, C_THREADS = 256, C_MAX_GROUPS = 8;
+constexpr int C_TILE = C_KB * C_OG;  // floats of a K or a V tile
+
+__host__ __device__ constexpr int f32_cluster_smem_bytes() {
+  return (C_QB * C_OG + 4 * C_TILE + 2 * C_QB * C_KB + 2 * C_QB * C_KB + C_QB) *
+         (int)sizeof(float);
+}
+
+template <bool TRAIN>
+__global__ void __launch_bounds__(C_THREADS, 1) flash_fwd_f32_cluster_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, int n_real, int D, int DP,
+    RowLayout ol, int lsa, Drop drop, int gw) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                   // [64][256] the tile's q columns of the group
+  float* Ks = Qs + C_QB * C_OG;      // [2][32][256] key tiles of the group's columns
+  float* Vs = Ks + 2 * C_TILE;       // [2][32][256]
+  float* Sp = Vs + 2 * C_TILE;       // [2][64][32] the partial scores over the group
+  float* Pb = Sp + 2 * C_QB * C_KB;  // [64][32] the kept P, its TF32 big part
+  float* Pl = Pb + C_QB * C_KB;      // [64][32] ... and its small part
+  float* Al = Pl + C_QB * C_KB;      // [64] each row's rescale; at the end 1 / l
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int G = (int)cluster.num_blocks(), gi = (int)cluster.block_rank();
+  const int qt = blockIdx.x, bh = blockIdx.z;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0);
+  const int ntiles = (Nk + C_KB - 1) / C_KB;
+  const float* qg = q + (size_t)bh * Nq * DP + g0;
+  const float* kg = k + (size_t)bh * Nk * DP + g0;
+  const float* vg = v + (size_t)bh * Nk * DP + g0;
+
+  // 16-byte chunks: a thread takes chunk tid % 64 of every fourth row (no
+  // division), those past the group's columns left alone
+  const int lc = (tid & 63) * 4, lr = tid >> 6;
+  if (lc < gcols)  // committed with key tile 0
+    for (int r = lr; r < C_QB; r += C_THREADS / 64) {
+      const int row = qt * C_QB + r;
+      const bool valid = row < Nq;
+      cp_async16(Qs + tf32::at(r, lc, C_OG), qg + (valid ? (size_t)row * DP + lc : 0), valid);
+    }
+  // K_j goes into stage j % 2 at step j - 1, V_j at step j (P_j v_j runs
+  // at step j + 1, while the cluster meets)
+  auto load_rows = [&](float* dst, const float* src, int j) {
+    if (lc >= gcols) return;
+    for (int r = lr; r < C_KB; r += C_THREADS / 64) {
+      const int key = j * C_KB + r;
+      const bool valid = key < Nk;
+      cp_async16(dst + (j & 1) * C_TILE + tf32::at(r, lc, C_OG),
+                 src + (valid ? (size_t)key * DP + lc : 0), valid);
+    }
+  };
+  load_rows(Ks, kg, 0);
+  cp_async_commit();
+
+  // S: warp w, queries 16 (w % 4) .. + 15, keys 16 (w / 4) .. + 15 (two n-tiles)
+  const int smt = warp & 3, skh = warp >> 2;
+  // the softmax: row sr (8 a warp), keys 8 t .. 8 t + 7 of the tile
+  const int sr = 8 * warp + g, srow = qt * C_QB + sr;
+  const int s_lo = tf32::at(sr, 8 * t, C_KB), s_hi = tf32::at(sr, 8 * t + 4, C_KB);
+  // o: warp w, rows 16 i + g (+ 8) (i < 4), columns 32 w + 8 n + 2t (+ 1) of the group
+  const bool pv = 32 * warp < gcols;
+  float o[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
+  float m = MASKED, l = 0.f;  // row sr's running max, and this lane's part of its sum
+
+  // o = o alpha_j + P_j v_j on the warp's 32 columns (alpha_j, P_j in shared
+  // memory). The tile's product starts from zero on the tensor cores and is
+  // added to o by an FFMA: the tensor cores' float32 accumulation drops
+  // bits an addition, and o carried through them across all key tiles
+  // strayed several times further from the plain version (in two halves of
+  // the columns, so that the tile's sums take 32 registers)
+  auto pv_step = [&](int j) {
+    const float* vt = Vs + (j & 1) * C_TILE;
+    float al[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      al[i][0] = Al[16 * i + g];
+      al[i][1] = Al[16 * i + g + 8];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d[4][2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[i][n][e] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < C_KB; k0 += 8) {
+        uint32_t ab[4][4], as[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tf32::load_a(ab[i], Pb, C_KB, 16 * i, k0, lane);
+          tf32::load_a(as[i], Pl, C_KB, 16 * i, k0, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t bb[2], bs[2];
+          tf32::load_bt(bb, bs, vt, C_OG, k0, 32 * warp + 16 * h + 8 * n, lane);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32::mma3(d[i][n], ab[i], as[i], bb, bs);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[i][2 * h + n][e] = fmaf(o[i][2 * h + n][e], al[i][e >> 1], d[i][n][e]);
+    }
+  };
+
+  // step j: tile j's partial scores, then (while the cluster meets) P_j-1
+  // v_j-1, then tile j's softmax; step ntiles only the last P v, and its
+  // barrier keeps every block until the others have read its partials
+  for (int j = 0; j <= ntiles; ++j) {
+    cp_async_wait<0>();
+    // K_j and v_j-1 have landed; P_j-1 and its rescales are in shared
+    // memory; every thread is done with K_j-1 and v_j-2
+    __syncthreads();
+    const bool tile = j < ntiles;
+    if (j + 1 < ntiles) load_rows(Ks, kg, j + 1);
+    if (tile) load_rows(Vs, vg, j);
+    cp_async_commit();
+    float* sp = Sp + (j & 1) * C_QB * C_KB;
+    if (tile) {  // the partial scores over the group's columns
+      float acc[2][4];
+      tf32::product_rows(acc, tf32::RowPairLoader(Qs, Ks + (j & 1) * C_TILE, C_OG, 16 * smt,
+                                                  16 * skh, lane), gcols);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int r0 = 16 * smt + g, c = 16 * skh + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(sp + tf32::at(r0, c, C_KB)) = make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(sp + tf32::at(r0 + 8, c, C_KB)) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+    // every group's partial scores of tile j in place; meanwhile P_j-1 v_j-1
+    hopper::cluster_arrive();
+    if (j > 0 && pv) pv_step(j - 1);
+    hopper::cluster_wait();
+    if (!tile) break;
+    __syncthreads();  // every thread is done with P_j-1 and its rescales
+    {
+      // S of row sr: the groups' partials in group order, alike in every
+      // block; then the online softmax in log2 units, masked as
+      // flash_fwd_f32_kernel masks
+      float s[8];
+      for (int r = 0; r < G; ++r) {
+        const float* rp = cluster.map_shared_rank(sp, r);
+        const float4 x0 = *reinterpret_cast<const float4*>(rp + s_lo);
+        const float4 x1 = *reinterpret_cast<const float4*>(rp + s_hi);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float x = lane4(e < 4 ? x0 : x1, e & 3);
+          s[e] = r == 0 ? x : s[e] + x;
+        }
+      }
+      const int key0 = j * C_KB + 8 * t;
+      float mx = MASKED;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int key = key0 + e;
+        float x = s[e] * LOG2E;
+        if (key >= Nk) x = __int_as_float(0xff800000u);  // -inf
+        else if (key >= n_real || (lsa && key == srow)) x = MASKED;
+        s[e] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(m, mx);
+      const float alpha = exp2f(m - mx);
+      m = mx;
+      l *= alpha;
+      uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
+      if (TRAIN && drop.on()) {
+        w0 = keep_words(drop, (uint32_t)bh, (uint32_t)srow, (uint32_t)key0 >> 2);
+        w1 = keep_words(drop, (uint32_t)bh, (uint32_t)srow, ((uint32_t)key0 >> 2) + 1u);
+      }
+      uint32_t pb[8], pl[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float p = exp2f(s[e] - mx);
+        l += p;
+        if (TRAIN && drop.on() && word_of(e < 4 ? w0 : w1, e & 3) >= drop.threshold) p = 0.f;
+        tf32::split(p, pb[e], pl[e]);
+      }
+      *reinterpret_cast<uint4*>(Pb + s_lo) = make_uint4(pb[0], pb[1], pb[2], pb[3]);
+      *reinterpret_cast<uint4*>(Pb + s_hi) = make_uint4(pb[4], pb[5], pb[6], pb[7]);
+      *reinterpret_cast<uint4*>(Pl + s_lo) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
+      *reinterpret_cast<uint4*>(Pl + s_hi) = make_uint4(pl[4], pl[5], pl[6], pl[7]);
+      if (t == 0) Al[sr] = alpha;
+    }
+  }
+  __syncthreads();  // every thread is done with the last P and its rescales
+
+  {  // row sr's sum over its four lanes; block 0 writes the LSE
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    float inv = l == 0.f ? 1.f : 1.f / l;
+    if (TRAIN && drop.on()) inv *= drop.scale;
+    if (t == 0) {
+      Al[sr] = inv;
+      if (gi == 0 && lse != nullptr && srow < Nq)
+        lse[(size_t)bh * Nq + srow] = (m + log2f(fmaxf(l, 1e-37f))) * LN2;
+    }
+  }
+  __syncthreads();
+  if (!pv) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * i + g + 8 * h, row = qt * C_QB + r;
+      if (row >= Nq) continue;
+      const float inv = Al[r];
+      float* orow = out + ol.at(bh, row) + g0;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = 32 * warp + 8 * n + 2 * t;
+        if (col >= gcols) continue;
+        if (g0 + col < D) orow[col] = o[i][n][2 * h] * inv;
+        if (g0 + col + 1 < D) orow[col + 1] = o[i][n][2 * h + 1] * inv;
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 
 template <int DP, bool TRAIN>
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
@@ -1296,6 +1574,36 @@ int launch_f32_wide(const void* q, const void* k, const void* v, void* out, void
   flash_fwd_f32_wide_kernel<TRAIN><<<grid, F32_THREADS, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, Nq, Nk,
       n_real, D, DP, ol, lsa, drop, wide_group_width(DP));
+  return (int)cudaGetLastError();
+}
+
+// the float32 column groups up to C_MAX_GROUPS groups: one cluster a (query
+// tile, plane); a refused cluster launch returns its error
+template <bool TRAIN>
+int launch_f32_cluster(const void* q, const void* k, const void* v, void* out, void* lse,
+                       int BH, int Nq, int Nk, int n_real, int D, int DP, RowLayout ol, int lsa,
+                       Drop drop, cudaStream_t stream) {
+  constexpr int bytes = f32_cluster_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_cluster_kernel<TRAIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = wide_groups(DP);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((Nq + C_QB - 1) / C_QB), (unsigned)groups, (unsigned)BH);
+  cfg.blockDim = dim3(C_THREADS, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u;
+  attr[0].val.clusterDim.y = (unsigned)groups;
+  attr[0].val.clusterDim.z = 1u;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_f32_cluster_kernel<TRAIN>, (const float*)q,
+                           (const float*)k, (const float*)v, (float*)out, (float*)lse, Nq, Nk,
+                           n_real, D, DP, ol, lsa, drop, wide_group_width(DP));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1424,8 +1732,13 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
     return wgmma_fwd::launch((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
                              (float*)lse, BH, Nq, Nk, n_real_k, D, DP, ol, lsa, drop, nullptr, 0,
                              train, s);
-  if (DP > 256) {  // the column groups
+  if (DP > 256) {  // the column groups: a cluster of them up to 8, else FFMA
     if (DP % 32 != 0) return (int)cudaErrorInvalidValue;
+    if (wide_groups(DP) <= C_MAX_GROUPS)
+      return train ? launch_f32_cluster<true>(q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, DP, ol,
+                                              lsa, drop, s)
+                   : launch_f32_cluster<false>(q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, DP, ol,
+                                               lsa, drop, s);
     return train ? launch_f32_wide<true>(q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, DP, ol,
                                          lsa, drop, s)
                  : launch_f32_wide<false>(q, k, v, out, lse, BH, Nq, Nk, n_real_k, D, DP, ol,
@@ -1449,7 +1762,9 @@ extern "C" int v1t_flash_attention(const void* q, const void* k, const void* v, 
 // for; above 256: the column groups', one size at every width).
 extern "C" int v1t_flash_attention_smem(int dp, int f32) {
   if (f32 == 0) return wgmma_fwd::smem(dp);
-  if (dp > 256) return dp % 32 == 0 ? f32_wide_smem_bytes() : 0;
+  if (dp > 256)
+    return dp % 32 != 0 ? 0
+           : wide_groups(dp) <= C_MAX_GROUPS ? f32_cluster_smem_bytes() : f32_wide_smem_bytes();
   switch (dp) {
     case 32: return f32_smem_bytes<32>();
     case 64: return f32_smem_bytes<64>();

@@ -74,7 +74,8 @@
 // are in log2 units, with 1 and ln 2, between its own prep and convert.
 // The tiling at each DP is mirrored by ops/flash_attention.py bwd_plan.
 //
-// float32 (FFMA, not TF32: the fp32 path's users want float32 arithmetic):
+// float32 up to DP 256 (FFMA, not TF32: the fp32 path's users want float32
+// arithmetic; past 256, 3xTF32 keeps it, below):
 // prep, dq zeroed, then one pass over key blocks with the five products on
 // the FMA pipes. A block of 256 threads owns 64 keys (32 from DP 192 on)
 // and loops over query tiles of 32, whose q, dO, lse and delta arrive by
@@ -114,13 +115,21 @@
 // 32 columns wait until its last add has read it;
 // the one pass's products and its P / dS arithmetic do not overlap within a
 // warpgroup; the float32 pass's two halves wait for each other twice a tile.
-// Above DP 256, in both types, the one pass runs on column groups
-// (flash_bwd_wide_kernel and flash_bwd_f32_wide_kernel, below): at the
-// emb-768 path's shape (B*H 256, N 1654, D 768) the five products are 5.38
-// TFLOP, a 5.44 ms bound in bf16 and 80.3 ms at the fp32 rate; three groups
-// recomputing S and dP make them 9.7 TFLOP.
+// Above DP 256, in both types, the one pass runs on column groups: bf16
+// (flash_bwd_wide_kernel, below) recomputes S and dP in every group;
+// float32 up to 8 groups (DP 2048; flash_bwd_f32_cluster_kernel) takes its
+// products on the tensor cores in 3xTF32 (tf32.cuh), the groups of a key
+// block one cluster that sums the partial S and dP, so each is computed
+// once; past 8 groups FFMA (flash_bwd_f32_wide_kernel), every group
+// recomputing them. At the emb-768 path's shape (B*H 256, N 1654, D 768)
+// the five products are 5.38 TFLOP, a 5.44 ms bound in bf16, 80.3 ms at
+// the fp32 rate and 32.6 ms as 3xTF32 (the products three times at 495
+// TFLOP/s); three groups recomputing S and dP make them 9.7 TFLOP.
+#include <cooperative_groups.h>
+
 #include "hopper.cuh"
 #include "one_pass_bwd.cuh"
+#include "tf32.cuh"
 
 
 namespace {
@@ -1145,7 +1154,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_kernel(
 // group, plane) items, key block fastest, and a turn a (plane, group,
 // query tile) passes from half to half, 2 kb + grp). Every group recomputes
 // S and dP: at DP 768 the products are 9/5 of the one-pass count. One
-// instance serves every multiple of 32 past 256.
+// instance serves every multiple of 32 past 8 groups (DP 2048; below, the
+// cluster kernel).
 
 // the ring's two stages of q, dO, K and V chunks; the block's K columns;
 // the tile's q and dO columns; Z P and P / dS; lse and delta
@@ -1427,6 +1437,340 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// float32 above DP 256, up to 2048: 3xTF32 in a cluster of the column groups
+//
+// The groups of one (32-key block, plane) are one thread-block cluster,
+// block g (its rank) owning group g's columns (wb_groups, wb_group_width:
+// at most CB_MAX_GROUPS = 8, a portable cluster). Block g keeps its keys' K
+// and V columns of the group in shared memory and streams the query tiles'
+// q and dO columns of the group (32 rows, two-stage cp.async ring). For each
+// query tile it computes the partial S = q K^T and dP = dO V^T over its own
+// columns (a split of the DP reduction), the cluster meets at a barrier,
+// and every block adds the partials of all groups through distributed
+// shared memory in group order 0 .. G - 1, so every block holds the same S
+// and dP bits and draws the same P, keep mask and dS. The partials are
+// double-buffered: one cluster barrier a query tile. Then, on its own
+// columns, dV_g += (Z P)^T dO_g and dK_g += dS^T q_g (owned outright, no
+// atomics) and, one tile late (between the next barrier's arrive and
+// wait), dq_g = dS K_g, added into dq with float4 atomics (in key order
+// under `order`: a turn a (plane, group, query tile), as the FFMA pass's;
+// the cluster's item comes from one ticket, taken by block 0). No group
+// recomputes S or dP: the products are the one-pass count (10 BH Nq Nk
+// DP). Products in 3xTF32 (tf32.cuh): S (warps 0-3) and dP (4-7) a warp 16
+// queries x 16 keys (ldmatrix, split in registers, two accumulator sets
+// by k-step parity); P, Z P and dS a thread one query's 4 keys (one Philox
+// group), Z P and dS split once by their owner into TF32 parts in shared
+// memory; dV (warps 0-3) and dK (4-7) a warp 32 keys x 64 columns, the A
+// operand read across the [query][key] parts, dO or q across its rows and
+// split, each tile's product from zero and added to the accumulator by an
+// FADD; dq a warp 32 queries x 32 columns (dS by ldmatrix, K across its
+// rows). Tiles swizzled by row, no padding: K, V [32][256], q and dO
+// [2][32][256], two buffers of the S and dP partials [32][32], the four
+// parts of Z P and dS [32][32], lse and delta: 229,888 bytes, one block a
+// SM. What each cost takes: tools/f32_wide_costs.py.
+constexpr int CB_KB = 32, CB_QT = 32, CB_OG = 256, CB_THREADS = 256, CB_MAX_GROUPS = 8;
+constexpr int CB_TILE = 32 * CB_OG;  // a [32][256] tile
+constexpr int CB_SQ = 32 * 32;       // a [32][32] tile
+
+__host__ __device__ constexpr int f32_cluster_bwd_smem_bytes() {
+  return (2 * CB_TILE + 4 * CB_TILE + 2 * 2 * CB_SQ + 4 * CB_SQ + 2 * 2 * CB_QT) *
+         (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(CB_THREADS, 1) flash_bwd_f32_cluster_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dohm, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dk,
+    float* __restrict__ dv, int Nq, int Nk, int n_real, int D, int DP, int lsa, Drop drop,
+    int* __restrict__ order, int gw) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                 // [32][256] the block's keys, the group's columns
+  float* Vs = Ks + CB_TILE;        // [32][256]
+  float* Qs = Vs + CB_TILE;        // [2][32][256] query tiles' q columns of the group
+  float* dOs = Qs + 2 * CB_TILE;   // [2][32][256] ... and their dO columns
+  float* Sp = dOs + 2 * CB_TILE;   // [2][S, dP][32][32] the partials over the group
+  float* Pb = Sp + 4 * CB_SQ;      // [32][32] Z P, TF32 big part
+  float* Pl = Pb + CB_SQ;          // ... small part
+  float* Db = Pl + CB_SQ;          // [32][32] dS, big part
+  float* Dlo = Db + CB_SQ;         // ... small part
+  float* Ls = Dlo + CB_SQ;         // [2][32] lse
+  float* Dl = Ls + 2 * CB_QT;      // [2][32] delta
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int G = (int)cluster.num_blocks(), gi = (int)cluster.block_rank();
+  __shared__ int ticket;
+  const int nkb = gridDim.x;
+  int item = blockIdx.z * nkb + blockIdx.x;
+  if (order != nullptr) {
+    // ordered: the cluster's (key block, plane) item in claim order (key
+    // block fastest), so that it only waits on lower key blocks of its
+    // plane, claimed before it
+    if (gi == 0 && tid == 0) ticket = atomicAdd(order, 1);
+    cluster.sync();
+    item = *cluster.map_shared_rank(&ticket, 0);
+  }
+  const int kb = item % nkb, bh = item / nkb;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0);
+  const int ntiles = (Nq + CB_QT - 1) / CB_QT;
+  int* turns = order != nullptr ? order + 1 + ((size_t)bh * G + gi) * ntiles : nullptr;
+  const float* qg = q + (size_t)bh * Nq * DP + g0;
+  const float* dog = dohm + (size_t)bh * Nq * DP + g0;
+  const float* lrow = lse + (size_t)bh * Nq;
+  const float* drow = delta + (size_t)bh * Nq;
+  // 16-byte chunks: a thread takes chunk tid % 64 of every fourth row (no
+  // division), those past the group's columns left alone
+  const int lc = (tid & 63) * 4, lr = tid >> 6;
+  if (lc < gcols) {  // committed with query tile 0
+    const float* kg = k + (size_t)bh * Nk * DP + g0;
+    const float* vg = v + (size_t)bh * Nk * DP + g0;
+    for (int r = lr; r < CB_KB; r += CB_THREADS / 64) {
+      const int key = kb * CB_KB + r;
+      const bool valid = key < Nk;
+      const size_t off = valid ? (size_t)key * DP + lc : 0;
+      cp_async16(Ks + tf32::at(r, lc, CB_OG), kg + off, valid);
+      cp_async16(Vs + tf32::at(r, lc, CB_OG), vg + off, valid);
+    }
+  }
+  auto load_tile = [&](int it) {
+    const int st = it & 1;
+    if (lc < gcols)
+      for (int r = lr; r < CB_QT; r += CB_THREADS / 64) {
+        const int row = it * CB_QT + r;
+        const bool valid = row < Nq;
+        const size_t off = valid ? (size_t)row * DP + lc : 0;
+        cp_async16(Qs + st * CB_TILE + tf32::at(r, lc, CB_OG), qg + off, valid);
+        cp_async16(dOs + st * CB_TILE + tf32::at(r, lc, CB_OG), dog + off, valid);
+      }
+    if (tid < CB_QT) {
+      const int row = it * CB_QT + tid;
+      hopper::cp_async4(Ls + st * CB_QT + tid, lrow + (row < Nq ? row : 0), row < Nq);
+      hopper::cp_async4(Dl + st * CB_QT + tid, drow + (row < Nq ? row : 0), row < Nq);
+    }
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  // S (warps 0-3) / dP (4-7): queries 16 (w % 2) .., keys 16 ((w / 2) % 2) .. (two n-tiles)
+  const int smt = warp & 1, skh = (warp >> 1) & 1, dpart = warp >> 2;
+  // P, Z P, dS: query pr, keys 4 pc .. 4 pc + 3 of the block (one Philox group)
+  const int pr = tid >> 3, pc = tid & 7, p_off = tf32::at(pr, 4 * pc, 32);
+  const int key0 = kb * CB_KB + 4 * pc;
+  // dV (warps 0-3) / dK (4-7): keys 16 i + g (+ 8), columns 64 (w % 4) + 8 n + 2t (+ 1)
+  const int kc0 = 64 * (warp & 3);
+  float acc[2][8][4];  // dV or dK
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  // dq: queries 16 i + g (+ 8), columns 32 w + 8 n + 2t (+ 1) of the group
+  const int qc0 = 32 * warp;
+
+  // dq[tile rows, the warp's columns] += dS K_g over the block's keys, tile it
+  auto dq_step = [&](int it) {
+    float gq[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gq[i][n][e] = 0.f;
+    const bool on = qc0 < gcols;
+    if (on) {
+#pragma unroll
+      for (int k0 = 0; k0 < CB_KB; k0 += 8) {
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          tf32::load_a(ab[i], Db, 32, 16 * i, k0, lane);
+          tf32::load_a(as[i], Dlo, 32, 16 * i, k0, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t bb[2], bs[2];
+          tf32::load_bt(bb, bs, Ks, CB_OG, k0, qc0 + 8 * n, lane);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) tf32::mma3(gq[i][n], ab[i], as[i], bb, bs);
+        }
+      }
+    }
+    if (turns != nullptr) {  // the key blocks before this one have added into tile it
+      if (tid == 0) wait_turn(turns + it, kb);
+      __syncthreads();
+    }
+    if (on) {
+      // lanes t and t ^ 1 trade halves so that each adds four columns of
+      // one row: even lanes row g (columns 2t .. 2t + 3), odd lanes row g + 8
+      const int odd = t & 1;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* c = gq[i][n];
+          const float y0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+          const float y1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+          const int row = it * CB_QT + 16 * i + g + 8 * odd;
+          const int col = qc0 + 8 * n + 2 * (t - odd);
+          const float4 val = odd ? make_float4(y0, y1, c[2], c[3]) : make_float4(c[0], c[1], y0, y1);
+          if (row < Nq)
+            atomicAdd(reinterpret_cast<float4*>(dq + ((size_t)bh * Nq + row) * DP + g0 + col), val);
+        }
+    }
+    if (turns != nullptr) {  // the block's adds are done: the next key block's turn
+      __syncthreads();
+      if (tid == 0) red_release(turns + it, 1);
+    }
+  };
+
+  // step it: tile it's partials, then (while the cluster meets) tile it -
+  // 1's dq, then tile it's P, dS, dV and dK; step ntiles only the last dq,
+  // and its barrier keeps every block until the others have read its
+  // partials
+  for (int it = 0; it <= ntiles; ++it) {
+    const int st = it & 1;
+    const bool tile = it < ntiles;
+    cp_async_wait<0>();
+    __syncthreads();  // query tile it has landed; every thread is done with tile it - 1's dV, dK
+    if (it + 1 < ntiles) load_tile(it + 1);
+    const float* q_t = Qs + st * CB_TILE;
+    const float* do_t = dOs + st * CB_TILE;
+    float* sp = Sp + st * 2 * CB_SQ;
+    if (tile) {  // the partial S (warps 0-3) or dP (4-7) over the group's columns
+      const float* at_ = dpart ? do_t : q_t;
+      const float* bt = dpart ? Vs : Ks;
+      float c[2][4];
+      tf32::product_rows(c, tf32::RowPairLoader(at_, bt, CB_OG, 16 * smt, 16 * skh, lane), gcols);
+      float* dst = sp + dpart * CB_SQ;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int r0 = 16 * smt + g, col = 16 * skh + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(dst + tf32::at(r0, col, 32)) = make_float2(c[n][0], c[n][1]);
+        *reinterpret_cast<float2*>(dst + tf32::at(r0 + 8, col, 32)) =
+            make_float2(c[n][2], c[n][3]);
+      }
+    }
+    hopper::cluster_arrive();
+    if (it > 0) dq_step(it - 1);
+    hopper::cluster_wait();
+    if (!tile) break;
+    __syncthreads();  // every thread is done with tile it - 1's dS
+    {
+      // S and dP of query pr, keys key0 .. key0 + 3: the groups' partials in
+      // group order, alike in every block; P from the LSE, its keep mask
+      // (one Philox), Z P and dS = P (Z dP - delta), as flash_bwd_f32_kernel
+      float s[4], d[4];
+      for (int r = 0; r < G; ++r) {
+        const float* rp = cluster.map_shared_rank(sp, r);
+        const float4 xs = *reinterpret_cast<const float4*>(rp + p_off);
+        const float4 xd = *reinterpret_cast<const float4*>(rp + CB_SQ + p_off);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[e] = r == 0 ? lane4(xs, e) : s[e] + lane4(xs, e);
+          d[e] = r == 0 ? lane4(xd, e) : d[e] + lane4(xd, e);
+        }
+      }
+      const int row = it * CB_QT + pr;
+      const float l2 = __fmul_rn(Ls[st * CB_QT + pr], LOG2E), del = Dl[st * CB_QT + pr];
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (drop.on()) w = keep_words(drop, (uint32_t)bh, (uint32_t)row, (uint32_t)key0 >> 2);
+      // only keys at or past n_real, a query past Nq or LSA mask
+      const bool edge = key0 + 4 > n_real || row >= Nq || lsa;
+      uint32_t zb[4], zl[4], db[4], dl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + e;
+        float p;
+        if (!edge) {
+          p = exp2f(s[e] * LOG2E - l2);
+        } else {
+          const bool masked = key >= n_real || (lsa && key == row);
+          p = key >= Nk || row >= Nq ? 0.f : exp2f((masked ? MASKED : s[e] * LOG2E) - l2);
+        }
+        const bool keep = !drop.on() || word_of(w, e) < drop.threshold;
+        const float z = drop.on() ? (keep ? drop.scale : 0.f) : 1.f;
+        tf32::split(keep ? p : 0.f, zb[e], zl[e]);
+        tf32::split(p * (z * d[e] - del), db[e], dl[e]);
+      }
+      *reinterpret_cast<uint4*>(Pb + p_off) = make_uint4(zb[0], zb[1], zb[2], zb[3]);
+      *reinterpret_cast<uint4*>(Pl + p_off) = make_uint4(zl[0], zl[1], zl[2], zl[3]);
+      *reinterpret_cast<uint4*>(Db + p_off) = make_uint4(db[0], db[1], db[2], db[3]);
+      *reinterpret_cast<uint4*>(Dlo + p_off) = make_uint4(dl[0], dl[1], dl[2], dl[3]);
+    }
+    __syncthreads();  // Z P and dS are in shared memory
+    if (kc0 < gcols) {
+      // dV += (Z P)^T dO_g (warps 0-3) or dK += dS^T q_g (4-7): keys x
+      // columns over the tile's queries
+      const float* xb = dpart ? Db : Pb;
+      const float* xl = dpart ? Dlo : Pl;
+      const float* y = dpart ? q_t : do_t;
+      // the tile's product from zero on the tensor cores, added to the
+      // accumulator by an FADD (their float32 accumulation drops bits an
+      // addition: carried across every query tile, dK and dV strayed several
+      // times further from the plain version), in two halves of the columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float d[2][4][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[i][n][e] = 0.f;
+#pragma unroll
+        for (int k0 = 0; k0 < CB_QT; k0 += 8) {
+          uint32_t ab[2][4], as[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            tf32::load_at(ab[i], xb, 32, 16 * i, k0, lane);
+            tf32::load_at(as[i], xl, 32, 16 * i, k0, lane);
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int col = kc0 + 32 * h + 8 * n;
+            if (col >= gcols) continue;
+            uint32_t bb[2], bs[2];
+            tf32::load_bt(bb, bs, y, CB_OG, k0, col, lane);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) tf32::mma3(d[i][n], ab[i], as[i], bb, bs);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][4 * h + n][e] += d[i][n][e];
+      }
+    }
+  }
+
+  // dV (times 1 / keep) and dK of the block's keys on the group's columns,
+  // zero past D
+  if (kc0 >= gcols) return;
+  const float out_scale = dpart == 0 && drop.on() ? drop.scale : 1.f;
+  float* outp = (dpart ? dk : dv) + (size_t)bh * Nk * DP + g0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = kb * CB_KB + 16 * i + g + 8 * h;
+      if (key >= Nk) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = kc0 + 8 * n + 2 * t;
+        if (col >= gcols) continue;
+        const float* c = acc[i][n];
+        *reinterpret_cast<float2*>(outp + (size_t)key * DP + col) =
+            make_float2(g0 + col < D ? c[2 * h] * out_scale : 0.f,
+                        g0 + col + 1 < D ? c[2 * h + 1] * out_scale : 0.f);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 
 template <int DP>
 int launch_one_pass(const void* q, const void* k, const void* v, const void* dohm,
@@ -1523,6 +1867,44 @@ int launch_f32_wide(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// the float32 backward above DP 256 up to CB_MAX_GROUPS groups: prep, dq
+// zeroed, the column groups' 3xTF32 pass, a cluster a (key block, plane); a
+// refused cluster launch returns its error
+int launch_f32_cluster(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const void* lse, const void* dlse, void* dq, void* dk,
+                       void* dv, void* dohm, void* delta, int* order, int BH, int Nq, int Nk,
+                       int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop,
+                       cudaStream_t stream) {
+  const int groups = wb_groups(DP);
+  if (DP % 32 != 0 || groups > CB_MAX_GROUPS) return (int)cudaErrorInvalidValue;
+  // a turn counter per (plane, group, query tile)
+  int rc = f32_prep(o, dout, dlse, dq, dohm, delta, order,
+                    (size_t)BH * groups * ((Nq + CB_QT - 1) / CB_QT), BH, Nq, D, DP, ol, stream);
+  if (rc != 0) return rc;
+  constexpr int bytes = f32_cluster_bwd_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_cluster_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((Nk + CB_KB - 1) / CB_KB), (unsigned)groups, (unsigned)BH);
+  cfg.blockDim = dim3(CB_THREADS, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u;
+  attr[0].val.clusterDim.y = (unsigned)groups;
+  attr[0].val.clusterDim.z = 1u;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_f32_cluster_kernel, (const float*)q, (const float*)k,
+                           (const float*)v, (const float*)dohm, (const float*)lse,
+                           (const float*)delta, (float*)dq, (float*)dk, (float*)dv, Nq, Nk,
+                           n_real, D, DP, lsa, drop, order, wb_group_width(DP));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // the bf16 backward at any DP: prep, the accumulator zeroed, the one pass
 // (column groups above DP 256), convert
 int launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -1608,8 +1990,11 @@ extern "C" int v1t_flash_attention_bwd(const void* q, const void* k, const void*
     case 192: return launch_f32<192>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     case 224: return launch_f32<224>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
     case 256: return launch_f32<256>(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order, BH, Nq, Nk, n_real_k, D, ol, lsa, drop, s);
-    default:  // the column groups
+    default:  // the column groups: a cluster of them up to 8, else FFMA
       if (DP <= 256) return (int)cudaErrorInvalidValue;
+      if (wb_groups(DP) <= CB_MAX_GROUPS)
+        return launch_f32_cluster(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta,
+                                  (int*)order, BH, Nq, Nk, n_real_k, D, DP, ol, lsa, drop, s);
       return launch_f32_wide(q, k, v, o, dout, lse, dlse, dq, dk, dv, dohm, delta, (int*)order,
                              BH, Nq, Nk, n_real_k, D, DP, ol, lsa, drop, s);
   }
@@ -1628,7 +2013,10 @@ int bwd_smem(bool f32) {
 // for a width it is not built for.
 extern "C" int v1t_flash_attention_bwd_smem(int dp, int f32) {
   const bool f = f32 != 0;
-  if (dp > 256) return dp % 32 != 0 ? 0 : f ? f32_wide_bwd_smem_bytes() : wide_bwd_smem_bytes();
+  if (dp > 256)
+    return dp % 32 != 0 ? 0
+           : !f ? wide_bwd_smem_bytes()
+           : wb_groups(dp) <= CB_MAX_GROUPS ? f32_cluster_bwd_smem_bytes() : f32_wide_bwd_smem_bytes();
   switch (dp) {
     case 32: return bwd_smem<32>(f);
     case 64: return bwd_smem<64>(f);

@@ -320,6 +320,16 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 
 // --- warpgroups -------------------------------------------------------------
 
+// a cluster barrier in two halves: what a thread wrote to shared memory
+// before it arrives is seen by every thread of the cluster past the wait,
+// and work between the two overlaps the other blocks' arrival
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // shared-memory writes of the generic proxy (st.shared, cp.async) made
 // visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {

@@ -25,8 +25,12 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   split by columns); in float32 one FFMA pass that adds dq into the output
   itself. Both types take any padded head width: above ``MAX_HEAD_PAD``
   (256) both kernels split o's (and dK's, dV's, dq's) columns into groups
-  of at most ``WIDE_GROUP``, a block a group, each recomputing the scores
-  over the whole width from chunks of ``WIDE_CHUNK`` columns.
+  of at most ``WIDE_GROUP``, a block a group. bf16, and float32 past
+  ``F32_CLUSTER_GROUPS`` groups (on FFMA), recompute the scores in every
+  group over the whole width from chunks of ``WIDE_CHUNK`` columns; float32
+  up to it takes its products in 3xTF32 on the tensor cores, the groups of
+  a tile one thread-block cluster that sums each group's partial scores
+  (and dP) in group order (``csrc/tf32.cuh``).
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -120,9 +124,13 @@ class FwdPlan(t.NamedTuple):
     keys: int  # keys a tile
     smem: int  # dynamic shared memory a block, bytes
     q_panels: int  # q panels a block holds (0: q streams in chunks beside K)
-    stages: int  # depth of the K / V ring (column groups: of the q and K chunks)
+    stages: int  # depth of the K / V ring (FFMA column groups: of the q and K chunks)
     groups: int = 1  # blocks a query tile, each a group of o's columns
     group_cols: int = 0  # o's columns a group (0: all of them)
+    cluster: int = 1  # blocks a thread-block cluster (the groups of a query tile)
+
+
+F32_CLUSTER_GROUPS = 8  # float32 past 256: up to this many groups a cluster (3xTF32), FFMA above
 
 
 def column_groups(dp: int) -> t.Tuple[int, int]:
@@ -155,14 +163,22 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     rows padded by 4 floats and 4 more every 8 rows. bf16 past
     ``MAX_HEAD_PAD``: a block a (128-query tile, column group, plane), no q
     panel (q and K stream in chunks of 64 columns through a ring 4 deep, the
-    group's V columns through one 2 deep). float32 past ``MAX_HEAD_PAD``: a
-    block a (64-query tile, column group, plane), no q tile (a q and a K
-    chunk of 64 columns at a time through a cp.async ring 2 deep, the
-    group's V columns, P)."""
+    group's V columns through one 2 deep). float32 past ``MAX_HEAD_PAD`` up
+    to ``F32_CLUSTER_GROUPS`` groups (DP 2048): 3xTF32, a block a (64-query
+    tile, column group, plane), the groups of a query tile one cluster that
+    sums the partial scores; the group's q columns resident ([64][256]), key
+    tiles of 32 of the group's K and V columns in a cp.async ring 2 deep, two
+    partial score buffers and P's TF32 parts [64][32], the rows' rescales
+    (tiles unpadded, swizzled). Past that, FFMA: a block a (64-query tile,
+    column group, plane), no q tile (a q and a K chunk of 64 columns at a
+    time through a cp.async ring 2 deep, the group's V columns, P)."""
     _check_width(dtype, dp, "flash_attention")
     f32 = dtype == torch.float32
     if dp > MAX_HEAD_PAD:
         groups, cols = column_groups(dp)
+        if f32 and groups <= F32_CLUSTER_GROUPS:
+            smem = (64 * WIDE_GROUP + 4 * 32 * WIDE_GROUP + 4 * 64 * 32 + 64) * 4
+            return FwdPlan(64, 32, smem, 1, 2, groups, cols, groups)
         if f32:
             smem = (2 * 2 * _f32_tile(64, WIDE_CHUNK) + _f32_tile(64, WIDE_GROUP) + 64 * 68) * 4
             return FwdPlan(64, 64, smem, 0, 2, groups, cols)
@@ -295,6 +311,7 @@ class BwdPlan(t.NamedTuple):
     dscale_part: t.Optional[t.Tuple[int, int]] = None
     groups: int = 1  # blocks a key block, each a group of the columns
     group_cols: int = 0  # dK's, dV's and dq's columns a group (0: all of them)
+    cluster: int = 1  # blocks a thread-block cluster (the groups of a key block)
 
 
 def fixed_order() -> bool:
@@ -323,13 +340,24 @@ def bwd_plan(dtype: torch.dtype, bh: int, nq: int, dp: int) -> BwdPlan:
     pass runs on column groups, a block a (key block, group, plane), and a
     turn a (plane, group, query tile): bf16 on 64-key blocks (q, dO, K and
     V chunks of 64 columns in a TMA ring 2 deep; the group's K, q and dO
-    panels; P and dS; a float32 dq box a warp); float32 on 32-key blocks
-    (q, dO, K and V chunks of 64 columns in a cp.async ring 2 deep; the
-    group's K columns, the query tile's q and dO columns; P and dS; lse and
-    delta; dq added into the output with atomics)."""
+    panels; P and dS; a float32 dq box a warp); float32 up to
+    ``F32_CLUSTER_GROUPS`` groups in 3xTF32 on 32-key blocks, the groups of
+    a key block one cluster that sums the partial S and dP (the group's K
+    and V columns resident, query tiles of 32 of its q and dO columns in a
+    cp.async ring 2 deep, two buffers of the partials, Z P's and dS's TF32
+    parts, lse and delta; tiles unpadded, swizzled; dq added into the output
+    with atomics); past that FFMA on 32-key blocks (q, dO, K and V chunks of
+    64 columns in a cp.async ring 2 deep; the group's K columns, the query
+    tile's q and dO columns; P and dS; lse and delta; dq added into the
+    output with atomics)."""
     _check_width(dtype, dp, "flash_attention_bwd")
     if dp > MAX_HEAD_PAD:
         groups, cols = column_groups(dp)
+        if dtype == torch.float32 and groups <= F32_CLUSTER_GROUPS:
+            qt, keys = 32, 32
+            smem = (6 * 32 * WIDE_GROUP + 8 * 32 * 32 + 4 * qt) * 4
+            return BwdPlan(("prep", "one_pass_f32_cluster"), None, keys, smem,
+                           1 + bh * groups * -(-nq // qt), None, groups, cols, groups)
         if dtype == torch.float32:
             qt, keys = 32, 32
             smem = (2 * 4 * qt * (WIDE_CHUNK + 4) + keys * (WIDE_GROUP + 4)
@@ -425,7 +453,7 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tenso
     bh, nq, dp = q.shape
     nk = k.shape[1]
     plan = bwd_plan(dt, bh, nq, dp)
-    if bh * plan.groups > 65535:
+    if bh * (plan.groups if plan.cluster == 1 else 1) > 65535:
         raise ValueError("flash_attention_bwd: batch x heads exceeds the launch grid")
     if out is None:
         out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))

@@ -35,10 +35,10 @@ def ms_of(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def step_device_ms(emb: int = E, mlp_dim: int = 0) -> float:
+def step_device_ms(emb: int = E, mlp_dim: int = 0, precision: str = "bf16") -> float:
     """Device time of one training step of the flagship V1T at embedding
-    ``emb`` (and MLP width ``mlp_dim``, 0: the configuration's default)
-    after a warm-up step: batch 64, two mice of 7000 neurons,
+    ``emb`` (and MLP width ``mlp_dim``, 0: the configuration's default) in
+    ``precision`` after a warm-up step: batch 64, two mice of 7000 neurons,
     dropout on, an AdamW update, under PyTorch's deterministic mode where it
     is on. The kernels' self time under torch.profiler, AdamW's annotation
     left out, as ``chip_smoke.py`` phase 6 sums it."""
@@ -52,7 +52,7 @@ def step_device_ms(emb: int = E, mlp_dim: int = 0) -> float:
     from v1t_tpu_torch.training import Trainer
 
     config = Config(core="vit", readout="gaussian2d", behavior_mode=3, shift_mode=2,
-                    precision="bf16", resize_image=0, batch_size=B, emb_dim=emb,
+                    precision=precision, resize_image=0, batch_size=B, emb_dim=emb,
                     deterministic=torch.are_deterministic_algorithms_enabled(),
                     **({"mlp_dim": mlp_dim} if mlp_dim else {}))
     card = synthetic_data_card(mouse_ids=("A", "B"), num_neurons=NEURONS,
