@@ -83,11 +83,14 @@ Phases, one line each as they go:
    512, 768 and 1024 (batch 16 x 4 heads, 1654 tokens, dropout, timed
    beside the bound and SDPA in the same type; rectangular 300 x 460 with
    n_real_k 400 and an LSE cotangent; LSA; the keep masks bit-identical;
-   the backward's dq in key order twice, bit for bit), rows whose every key
-   is masked at 768, a block of padding keys (float32), and the emb-768
+   the backward's dq in key order twice, bit for bit; the last two forms and
+   the keep masks also at 2048, a cluster of 8 groups, and 2080, past it),
+   rows whose every key is masked at 768, a block of padding keys
+   (float32), and the emb-768
    path's shape (batch 64 x 4 heads of 768, timed, each type); ``ln_linear`` with a
    LayerNorm at K 672, 768 and 1024 (qkv head-major with bias_row; fc1 with
-   bias, GELU, keep mask and the saved activation) and ``ln_linear_bwd``'s
+   bias, GELU, keep mask and the saved activation), the out-projection
+   and fc2 with their residual at K 3072 and 1030, and ``ln_linear_bwd``'s
    dX on the wgmma kernel: with the LayerNorm backward (qkv's head-major dY
    with bias_row and the residual's cotangent; fc1's; at K 2304, past one
    cluster, the mma.sync kernel with its d(ln) rows in device memory) and
@@ -613,10 +616,11 @@ def kernel_counters() -> dict:
 
 
 def zero_counts() -> None:
-    from v1t_tpu_torch.ops.ln_linear import ln_linear_bwd
+    from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_bwd
 
     for fn in kernel_counters().values():
         fn.launches = 0
+    ln_linear.form_launches = dict.fromkeys(ln_linear.form_launches, 0)
     ln_linear_bwd.form_launches = dict.fromkeys(ln_linear_bwd.form_launches, 0)
 
 
@@ -626,10 +630,12 @@ def read_counts() -> dict:
 
 def read_dx_forms() -> dict:
     """ln_linear_bwd's launches by kernel (its counter's split): the
-    mma.sync kernel, the wgmma kernel with and without the LayerNorm."""
-    from v1t_tpu_torch.ops.ln_linear import ln_linear_bwd
+    mma.sync kernel, the wgmma kernel with and without the LayerNorm; and
+    ln_linear's (keys fwd_*): ln_linear_kernel up to K 640, the wgmma kernel
+    past it with and without the LayerNorm."""
+    from v1t_tpu_torch.ops.ln_linear import ln_linear, ln_linear_bwd
 
-    return dict(ln_linear_bwd.form_launches)
+    return dict(ln_linear_bwd.form_launches, **ln_linear.form_launches)
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> tuple:
@@ -1562,6 +1568,15 @@ def check_flash_kernels(gen: torch.Generator) -> list:
         cases[f"wide_{d}_lsa"] = check(f"head width {d}, lsa, no dropout", 8, 4, 333, 333, d, bf,
                                        lsa=True, fixed=True)
         masks_bit_identical(f"head width {d}", 4, 300, d, bf)
+    # the widest cluster (8 groups, DP 2048) and past it (9 groups, DP 2080:
+    # the groups recompute S)
+    for d in (2048, 2080):
+        cases[f"wide_{d}_rect"] = check(f"head width {d}, rectangular 300 x 460, n_real_k 400, "
+                                        "dlse, dropout", 8, 4, 300, 460, d, bf, n_real=400,
+                                        dlse=True, drp=drop, fixed=True)
+        cases[f"wide_{d}_lsa"] = check(f"head width {d}, lsa, no dropout", 8, 4, 200, 200, d, bf,
+                                       lsa=True, fixed=True)
+        masks_bit_identical(f"head width {d}", 4, 300, d, bf)
     masked_rows(WIDE_EMB)
     cases["emb_768"] = check(f"emb {WIDE_EMB}: batch 64 x {H} heads of {WIDE_EMB}, dropout",
                              B * H, H, N, N, WIDE_EMB, bf, drp=drop, timed=True, fixed=True)
@@ -1657,7 +1672,8 @@ def check_flash_kernels(gen: torch.Generator) -> list:
                  "bf16, dropout on; ms_like_for_like without dropout, as the library call "
                  "runs); max_abs_err the largest over every column-group case; per_case holds "
                  "head widths 288, 384, 512, 768 and 1024 at B*H 64 (timed), rectangular with "
-                 "n_real_k and an LSE cotangent, and LSA (checked)",
+                 "n_real_k and an LSE cotangent, and LSA, also at 2048 (a cluster of 8) and "
+                 "2080 (past 8 groups) (checked)",
             per_case={k: v for k, v in cases.items() if k.startswith(("wide_", "emb_"))}))
     wide = cases["f32emb_768"]
     f32_cases = {k: v for k, v in cases.items() if k.startswith(("f32wide_", "f32emb_"))}
@@ -1825,8 +1841,8 @@ def check_wide_projections(gen: torch.Generator) -> list:
             fwd_cases[f"{use}_{k}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
                                            rel_err=err[1], rows=m, plan=plan._asdict())
-            log(f"  {label} ({m}x{k} @ {k}x{nout}; the LayerNorm's rows first, then "
-                f"{plan.tiles} tiles of {plan.tile}): kernel_ms {ms:.4f} plain_ms "
+            log(f"  {label} ({m}x{k} @ {k}x{nout}; the LayerNorm's rows first, then the wgmma "
+                f"kernel, {plan.tiles} tiles of {plan.tile} a row tile): kernel_ms {ms:.4f} plain_ms "
                 f"{plain_ms:.4f} layer_norm+linear_ms {lib_ms:.4f} bound_ms {b_ms:.4f} "
                 f"({b_by}); kernel / library {ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}")
         check_dx(k, b, x, row, gamma, beta, wqkv, w1, bwd_cases)
@@ -1842,9 +1858,11 @@ def check_wide_projections(gen: torch.Generator) -> list:
              randn(4 * k, k, scale=k ** -0.5), dln_cases)
     torch.cuda.empty_cache()
     plain_cases = check_wide_plain_dx(randn)
+    res_cases = check_wide_residual_forward(randn)
     rows = []
     for name, counter, cases, src, replaces, lib in (
-            ("ln_linear (LayerNorm past K 640)", "ln_linear", fwd_cases, "ln_linear.cu",
+            ("ln_linear (LayerNorm past K 640, wgmma)", "ln_linear:fwd_wgmma_layernorm", fwd_cases,
+             "ln_linear.cu",
              "v1t_tpu/ops/fused_mha.py:567 (_mha_fwd_kernel_dt2: +bias_row, LayerNorm, QKV); "
              "v1t_tpu/ops/fused_mlp.py:111 (_mlp_fwd_kernel: LayerNorm, fc1, GELU)",
              "F.layer_norm + F.linear (bf16)"),
@@ -1869,6 +1887,23 @@ def check_wide_projections(gen: torch.Generator) -> list:
         note=f"K {DLN_GLOBAL_K}, 8 x {N} rows, qkv and fc1: not the wgmma kernel but the "
              "mma.sync one with its fp32 d(ln) rows in device memory (a LayerNorm past 8 x 256)",
         per_case=dln_cases)
+    at = [res_cases[f"{use}_{WIDE_MLP}"] for use in ("out_proj", "fc2")]
+    rows.append(dict(
+        name="ln_linear (residual past K 640, wgmma)", counter="ln_linear:fwd_wgmma_plain",
+        main_path="wide_training", route="cuda", source="v1t_tpu_torch/csrc/ln_linear.cu",
+        replaces="v1t_tpu/ops/fused_mha.py:567 (_mha_fwd_kernel_dt2: the out-projection + "
+                 "bias + residual); v1t_tpu/ops/fused_mlp.py:111 (_mlp_fwd_kernel: fc2 + b2 + "
+                 "residual)",
+        max_abs_err=max(c["max_abs_err"] for c in res_cases.values()),
+        rel_err=max(c["rel_err"] for c in res_cases.values()),
+        ms=sum(c["ms"] for c in at), plain_ms=sum(c["plain_ms"] for c in at),
+        bound_ms=sum(c["bound_ms"] for c in at),
+        bound_by="bytes" if {c["bound_by"] for c in at} == {"bytes"} else "operations",
+        library_ms=sum(c["library_ms"] for c in at),
+        library="F.linear + the residual's add (bf16)",
+        note=f"times summed over the out-projection and fc2 at emb {WIDE_EMB} (K {WIDE_MLP}, "
+             f"B {B} x {N} rows, dropout on); per_case holds each also at K 1030",
+        per_case=res_cases))
     at = [plain_cases[f"{use}_{WIDE_MLP}"] for use in ("out_proj", "fc2")]
     rows.append(dict(
         name="ln_linear_bwd (plain dX past K 640)", counter="ln_linear_bwd:wgmma_plain",
@@ -1965,6 +2000,71 @@ def check_wide_plain_dx(randn) -> dict:
             f"plain_ms {plain_ms:.4f} matmul_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
             f"kernel / library {ms / lib_ms:.3f}, bound share {b_ms / ms:.3f}")
         del dy, w, kw, dy_rm
+        torch.cuda.empty_cache()
+    return cases
+
+
+def check_wide_residual_forward(randn) -> dict:
+    """Phase 3d, ln_linear's residual form past K 640 on the wgmma kernel:
+    the out-projection (bias, the output's keep mask, the residual and
+    bias_row) and fc2 (bias, keep mask, residual) at the emb-768 path's K
+    3072 (B 64 x 1654 rows, N 768) and at K 1030 (8 x 1654 rows; x padded
+    to aligned rows, fc2 into the flagship's 155 columns: rows that are not
+    16-byte aligned), against the plain version, twice bit for bit, the
+    keep mask bit-identical (a bias of 1000 leaves a zero only where the
+    mask drops), timed beside the bound, the plain version and F.linear +
+    the residual's add."""
+    from v1t_tpu_torch.ops.dropout import Dropout
+    from v1t_tpu_torch.ops.ln_linear import linear_plan, ln_linear, ln_linear_plain
+
+    drop_o, drop2 = Dropout(T_DROP, 20261017, 1), Dropout(T_DROP, 20261017, 3)
+    cases = {}
+    for use, k, nout in (("out_proj", WIDE_MLP, WIDE_EMB), ("fc2", WIDE_MLP, WIDE_EMB),
+                         ("out_proj", 1030, WIDE_EMB), ("fc2", 1030, E)):
+        b = B if k == WIDE_MLP else 8
+        m = b * N
+        x, w = randn(b, N, k), randn(nout, k, scale=k ** -0.5)
+        bias = randn(nout, scale=0.1, dtype=torch.float32)
+        res = randn(b, N, nout)
+        kw = dict(bias=bias, residual=res, drop=drop_o if use == "out_proj" else drop2)
+        if use == "out_proj":
+            kw["res_row"] = randn(b, nout, scale=0.5)
+        label = f"ln_linear[{use}, K {k}]"
+        ref = ln_linear_plain(x, w, **kw)
+        got = ln_linear(x, w, **kw)
+        err = compare(label, got, ref, KERNEL_TOL)
+        again = ln_linear(x, w, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            raise AssertionError(f"{label}: two runs differ")
+        mask_kw = dict(kw, bias=torch.full_like(bias, 1000.0), residual=torch.zeros_like(res),
+                       res_row=None)
+        through, plain = ln_linear(x, w, **mask_kw), ln_linear_plain(x, w, **mask_kw)
+        torch.cuda.synchronize()
+        if not torch.equal(through == 0, plain == 0):
+            raise AssertionError(f"{label}: the keep masks differ at "
+                                 f"{int(((through == 0) != (plain == 0)).sum())} elements")
+        log(f"  {label}: twice bit for bit; the keep mask bit-identical to the plain "
+            f"version's ({int((plain == 0).sum())} dropped of {plain.numel()})")
+        del through, plain, mask_kw, again
+        b_ms, b_by = bound(nbytes(x, w, res, got, kw.get("res_row")), 2.0 * m * nout * k,
+                           "bf16")
+        del got, ref
+        plan = linear_plan(m, nout, k, None, False, k % 8 == 0, True)
+        ms = cuda_ms(lambda: ln_linear(x, w, **kw))
+        plain_ms = cuda_ms(lambda: ln_linear_plain(x, w, **kw), iters=1)
+        lib_kw = dict(x=x, w=w, bias=bias, residual=res, res_row=kw.get("res_row"))
+        lib_ms = cuda_ms(lambda: torch_ln_linear(lib_kw))
+        cases[f"{use}_{k}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=err[0], rel_err=err[1], rows=m,
+                                   plan=None if plan is None else plan._asdict())
+        log(f"  {label} ({m}x{k} @ {k}x{nout}, + residual; the wgmma kernel, "
+            + (f"{plan.tiles} tiles of {plan.tile} a row tile" if plan else
+               "x padded to aligned rows first")
+            + f"): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} linear+residual_ms {lib_ms:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by}); kernel / library {ms / lib_ms:.3f}, bound share "
+            f"{b_ms / ms:.3f}")
+        del x, w, res, kw, lib_kw
         torch.cuda.empty_cache()
     return cases
 
@@ -3927,9 +4027,12 @@ def check_launch_plans(lib) -> None:
         if got != [p.smem for pair in plans for p in pair]:
             raise AssertionError(f"the column groups' plans at DP {dp} disagree: {got}")
         for (f, b), kind in zip(plans, ("bf16", "float32")):
+            how = (f"one cluster of {f.cluster} blocks summing the partial scores, q "
+                   f"resident, key tiles of {f.keys} {f.stages} deep" if f.cluster > 1 else
+                   f"q and K chunks of 64 columns in a ring {f.stages} deep")
             log(f"  {kind} flash at DP {dp} (column groups): forward {f.groups} groups of "
-                f"{f.group_cols} columns, {f.queries} query rows a block, q and K chunks of 64 "
-                f"columns in a ring {f.stages} deep, {f.smem} bytes a block; backward "
+                f"{f.group_cols} columns, {f.queries} query rows a block, {how}, {f.smem} bytes "
+                f"a block; backward "
                 f"{' -> '.join(b.kernels)}, {b.groups} groups of {b.group_cols}, {b.keys} keys "
                 f"a block, {b.smem} bytes a block, {b.order} fixed-order counters at B*H "
                 f"{B * H}")
@@ -3942,13 +4045,15 @@ def check_launch_plans(lib) -> None:
         got = [lib.v1t_ln_linear_plan(B * N, n_, k, -(-k // 32) * 32, h, WIDE_EMB if h else 0,
                                       WIDE_EMB if h else 0, int(ln), int(al), int(res), f)
                for f in range(7)]
-        if plan is None or got != [int(plan.stream), plan.rows, plan.tile, plan.tiles,
-                                   plan.stages, plan.smem, int(plan.ln_rows)]:
+        if plan is None or not plan.wgmma or got != [
+                int(plan.stream), plan.rows, plan.tile, plan.tiles, plan.stages, plan.smem,
+                int(plan.wgmma)]:
             raise AssertionError(f"linear_plan of {use} at emb {WIDE_EMB} disagrees: {got}")
-        log(f"  ln_linear[{use}, emb {WIDE_EMB}] (K {k}, N {n_}): "
-            + ("the LayerNorm's rows first (ln_rows_kernel), then " if plan.ln_rows else "")
-            + f"{'x streamed' if plan.stream else 'panel'}, {plan.rows} rows a block, "
-            f"{plan.tiles} tiles of {plan.tile}, {plan.stages} stages, {plan.smem} bytes")
+        log(f"  ln_linear[{use}, emb {WIDE_EMB}] (K {k}, N {n_}): the persistent wgmma "
+            + ("kernel, the LayerNorm's rows first (ln_rows_kernel), then streamed, " if ln
+               else "kernel, x streamed, ")
+            + f"{plan.rows} rows a tile, {plan.tiles} output tiles of {plan.tile} a row tile, "
+            f"{plan.stages} stages, {plan.smem} bytes")
     wide_dx = {"qkv": (WIDE_EMB, 3 * H * WIDE_EMB, True, True),
                "out_proj": (H * WIDE_EMB, WIDE_EMB, True, False),
                "fc1": (WIDE_EMB, WIDE_MLP, True, True),
@@ -4115,8 +4220,9 @@ def main() -> int:
                     m = re.match(r"flash_fwd_wide_kernelILb([01])E|flash_bwd_wide_kernel|"
                                  r"flash_fwd_f32_wide_kernelILb([01])E|flash_bwd_f32_wide_kernel|"
                                  r"flash_fwd_f32_cluster_kernelILb([01])E|"
-                                 r"flash_bwd_f32_cluster_kernel|"
-                                 r"ln_rows_kernel|ln_linear_dx_kernelILi([24])ELb1ELb1E|"
+                                 r"flash_bwd_f32_cluster_kernel|flash_fwd_cluster_kernelILb([01])E|"
+                                 r"ln_rows_kernel|linear_wgmma_kernel|"
+                                 r"ln_linear_dx_kernelILi([24])ELb1ELb1E|"
                                  r"dx_wgmma_kernelILb([01])E", entry)
                     if m:
                         past[m.group(0)] = reading
@@ -4132,13 +4238,15 @@ def main() -> int:
     if len(wide) != 9 or any(sp for _, sp in wide.values()):
         raise AssertionError(f"the wide instantiations' ptxas report: {wide} (9 expected, "
                              "no spill)")
-    log("  the kernels past the panels' widths (flash column groups above DP 256, bf16, "
-        "float32 in 3xTF32 clusters to 8 groups and on FFMA past them; the LayerNorm past K "
-        "640; the wgmma dX, its registers the launch's allotment with setmaxnreg giving its "
-        "consumers 232), ptxas's registers a thread / spill stores: "
+    log("  the kernels past the panels' widths (flash column groups above DP 256: bf16 in "
+        "wgmma clusters to 8 groups and recomputing S past them, float32 in 3xTF32 clusters "
+        "to 8 groups and on FFMA past them; the projection past K 640 on wgmma after its "
+        "LayerNorm's pass; the wgmma dX; the wgmma kernels' registers the launch's "
+        "allotment with setmaxnreg giving their consumers 232), ptxas's registers a thread / "
+        "spill stores: "
         + "; ".join(f"{name} {r} / {sp} B" for name, (r, sp) in sorted(past.items())))
-    if len(past) != 14 or any(sp for _, sp in past.values()):
-        raise AssertionError(f"the instances past the panels' widths: {past} (14 expected, "
+    if len(past) != 17 or any(sp for _, sp in past.values()):
+        raise AssertionError(f"the instances past the panels' widths: {past} (17 expected, "
                              "no spill)")
     widths = range(32, 257, 32)
     log("  dynamic shared memory a block (bytes), by padded head width: the bf16 flash "
@@ -4198,15 +4306,21 @@ def main() -> int:
                          (1, 36, 64), 1, CYCLES, WIDE_LAUNCHES_PER_STEP, WIDE_TOL, text)
     # every dX on the wgmma kernel, half of them with the LayerNorm (qkv,
     # fc1), half without (out-projection, fc2); the flagship's on mma.sync
-    dx_total = wide["launches"]["ln_linear_bwd"]
+    # and every forward projection on the wgmma kernel past K 640 likewise
+    dx_total, fwd_total = wide["launches"]["ln_linear_bwd"], wide["launches"]["ln_linear"]
     for label, forms, want in (
             (f"emb-{WIDE_EMB} training", wide["dx_forms"],
-             dict(mma_sync=0, wgmma_layernorm=dx_total // 2, wgmma_plain=dx_total // 2)),
+             dict(mma_sync=0, wgmma_layernorm=dx_total // 2, wgmma_plain=dx_total // 2,
+                  fwd_panel_or_streamed=0, fwd_wgmma_layernorm=fwd_total // 2,
+                  fwd_wgmma_plain=fwd_total // 2)),
             ("flagship training", runs["kernel"]["dx_forms"],
-             dict(mma_sync=train_launches["ln_linear_bwd"], wgmma_layernorm=0, wgmma_plain=0))):
-        log(f"  {label}: ln_linear_bwd's launches by kernel {forms}")
+             dict(mma_sync=train_launches["ln_linear_bwd"], wgmma_layernorm=0, wgmma_plain=0,
+                  fwd_panel_or_streamed=train_launches["ln_linear"], fwd_wgmma_layernorm=0,
+                  fwd_wgmma_plain=0))):
+        log(f"  {label}: ln_linear_bwd's and ln_linear's launches by kernel {forms}")
         if forms != want:
-            raise AssertionError(f"{label}: ln_linear_bwd's launches by kernel {forms} != {want}")
+            raise AssertionError(f"{label}: the projections' launches by kernel {forms} != "
+                                 f"{want}")
     torch.cuda.empty_cache()
     log(f"  emb-{WIDE_EMB} training from a second seed, held as the first")
     train(f"emb-{WIDE_EMB} training, seed 1", flagship_config(emb_dim=WIDE_EMB, mlp_dim=WIDE_MLP),
@@ -4268,9 +4382,11 @@ def main() -> int:
         if seen is None:
             continue
         wide_device[kind] = seen[0]
-        # the column groups and the LayerNorm's rows ran, and no row-1 or row-2 core
+        # the column groups' cluster forward, the LayerNorm's rows and the
+        # wgmma projections ran, and no row-1 or row-2 core; no
+        # recomputing forward, no streamed projection
         names = " ".join(seen[1])
-        want = ["flash_fwd_wide_kernel", "ln_rows_kernel"] + (
+        want = ["flash_fwd_cluster_kernel", "ln_rows_kernel", "linear_wgmma_kernel"] + (
             ["flash_bwd_wide_kernel", "flash_bwd_prep_kernel", "flash_bwd_dq_convert_kernel"]
             if kind == "training" else [])
         missing = [w for w in want if w not in names]
@@ -4285,9 +4401,15 @@ def main() -> int:
             if sum(dx.values()) != WIDE_DX_PER_STEP or "ln_linear_dx_kernel" in names:
                 missing.append(f"dx_wgmma_kernel x{WIDE_DX_PER_STEP} (seen {dx}), and no "
                                "ln_linear_dx_kernel")
-        if missing or "attention_bwd_" in names or "flash_fwd_wgmma_kernel" in names:
+        proj = sum(c for key, c in seen[2].items() if "linear_wgmma_kernel" in key)
+        log(f"  emb-{WIDE_EMB} {kind}: the wgmma projection launched {proj}x")
+        if proj != 16:
+            missing.append(f"linear_wgmma_kernel x16 (seen {proj})")
+        if missing or "attention_bwd_" in names or "flash_fwd_wgmma_kernel" in names or \
+                "flash_fwd_wide_kernel" in names or "ln_linear_kernel" in names:
             raise AssertionError(f"emb-{WIDE_EMB} {kind}: kernels {missing} missing from the "
-                                 "profile, or a narrower core's ran")
+                                 "profile, or a narrower core's, the recomputing column "
+                                 "groups' or the streamed projection's ran")
     f32_wide_device = {}
     for kind, fn in (("serving", f32_wide["serve_one"]), ("training", f32_wide["train_one"])):
         seen = where_the_time_goes(f"one fp32 emb-{WIDE_EMB} {kind} "

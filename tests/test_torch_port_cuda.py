@@ -340,6 +340,13 @@ def test_float32_model_runs_on_the_card(gen):
     (1, 1, 130, 70, 60, 300, False, 0.25),
     (2, 2, 129, 129, 129, 700, True, 0.5),
     (1, 1, 65, 200, 130, 768, False, 0.0),
+    # the widest cluster of the forward's groups (8 groups, DP 2048) and
+    # past it (9 groups, DP 2080: the groups recompute S), rectangular with
+    # padded keys and dropout, and LSA
+    (2, 2, 130, 200, 150, 2048, False, 0.25),
+    (2, 2, 97, 97, 97, 2048, True, 0.0),
+    (2, 2, 130, 200, 150, 2080, False, 0.25),
+    (2, 2, 97, 97, 97, 2080, True, 0.0),
 ], ids=lambda v: str(v))
 def test_flash_attention_matches_plain(gen, dtype, bh, heads, nq, nk, n_real, d, lsa, rate):
     """Forward (o, LSE) and backward (dq, dk, dv, with an LSE cotangent)."""
@@ -934,6 +941,69 @@ def test_attention_backward_pads_stay_zero_for_the_dx_kernel(gen):
     _check_dx(dqkv, w, kw)
 
 
+# --- the wgmma forward past K 640 ------------------------------------------------
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("use,k", [
+    ("qkv", 641), ("qkv", 672), ("qkv", 1030), ("qkv", 2304),
+    ("fc1", 672), ("fc1", 1030), ("fc1", 2304),
+    ("out_proj", 641), ("out_proj", 1030), ("out_proj", 3072),
+    ("fc2", 672), ("fc2", 2048),
+], ids=str)
+def test_wgmma_forward_matches_plain(gen, use, k, offset):
+    """ln_linear past K 640 on the wgmma kernel, 2 x 300 rows (row tiles end
+    mid-batch) at K that is no multiple of the 64-column chunk: qkv (bias_row,
+    LayerNorm, two head-major heads as wide as K, planes that end mid-tile),
+    fc1 (LayerNorm, bias, GELU, keep mask, the pre-GELU activation saved; N
+    1000, rows not 16-byte aligned), the out-projection (bias, keep mask,
+    residual and bias_row into 155 columns) and fc2 (bias, keep mask,
+    residual; N 768); x aligned and starting 2 bytes past a 16-byte boundary
+    (a LayerNorm's rows normalised into aligned scratch, other rows padded
+    by the wrapper)."""
+    b, n = 2, 300
+    x = _randn(gen, b, n, k)
+    gamma = 1.0 + _randn(gen, k, scale=0.1, dtype=torch.float32)
+    beta = _randn(gen, k, scale=0.1, dtype=torch.float32)
+    if use == "qkv":
+        w, kw = _randn(gen, 3 * 2 * k, k, scale=k ** -0.5), dict(
+            gamma=gamma, beta=beta, pro_row=_randn(gen, b, k, scale=0.5), heads=(2, k))
+    elif use == "fc1":
+        w, kw = _randn(gen, 1000, k, scale=k ** -0.5), dict(
+            gamma=gamma, beta=beta, bias=_randn(gen, 1000, scale=0.1, dtype=torch.float32),
+            gelu=True, drop=_drop(0.5), save_pre=True)
+    else:
+        nout = 155 if use == "out_proj" else 768
+        w, kw = _randn(gen, nout, k, scale=k ** -0.5), dict(
+            bias=_randn(gen, nout, scale=0.1, dtype=torch.float32), drop=_drop(0.5),
+            residual=_randn(gen, b, n, nout))
+        if use == "out_proj":
+            kw["res_row"] = _randn(gen, b, nout, scale=0.5)
+    x = _offset(x) if offset else x
+    got, ref = ln_linear(x, w, **kw), ln_linear_plain(x, w, **kw)
+    again = ln_linear(x, w, **kw)
+    if use == "fc1":
+        _close(got[1], ref[1])
+        assert torch.equal(again[1], got[1])
+        got, ref, again = got[0], ref[0], again[0]
+    _close(got, ref)
+    assert torch.equal(again, got)
+
+
+def test_wgmma_forward_keep_mask_is_the_plain_one(gen):
+    """The keep mask of element (0, row, col) past K 640 is the plain
+    version's: under a bias of 1000 a zero output is a dropped element, in
+    both fc1's form (GELU) and the residual's (a zero residual)."""
+    x, w = _randn(gen, 3, 111, 768), _randn(gen, 1000, 768, scale=768 ** -0.5)
+    bias = torch.full((1000,), 1000.0, device=x.device)
+    for kw in (dict(gelu=True), dict(residual=torch.zeros(3, 111, 1000, device=x.device,
+                                                           dtype=x.dtype))):
+        kw.update(bias=bias, drop=_drop(0.5))
+        got, ref = ln_linear(x, w, **kw), ln_linear_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got == 0, ref == 0) and int((ref == 0).sum()) > 0
+
+
 # --- the wgmma dX kernel past K 640 ----------------------------------------------
 
 
@@ -1136,10 +1206,11 @@ def test_ln_linear_wgrad_reruns_agree(gen, use):
 
 @pytest.mark.parametrize("lsa", [False, True], ids=["no_lsa", "lsa"])
 @pytest.mark.parametrize("n", [129, 1000])
-@pytest.mark.parametrize("d", [155, 192, 200, 256])
+@pytest.mark.parametrize("d", [155, 192, 200, 256, 768, 2048, 2080])
 def test_flash_bf16_keep_mask_matches_plain(gen, d, n, lsa):
-    """The bf16 forward's keep mask bit for bit, at the narrow tiles (D 155)
-    and the wide ones (padded 192, 224, 256): q = 0 makes every probability
+    """The bf16 forward's keep mask bit for bit, at the narrow tiles (D 155),
+    the wide ones (padded 192, 224, 256) and the column groups (a cluster of
+    3 and of 8, and 9 groups recomputing S): q = 0 makes every probability
     1 / N (1 / (N - 1) under LSA) and v[k] = e_(k mod D) makes o count the
     kept keys of each residue class, exact small integers times one scale."""
     bh, heads, dp = 4, 2, -(-d // 32) * 32

@@ -24,8 +24,9 @@ from v1t_tpu_torch import _build
 from v1t_tpu_torch.ops import flash_attention as fa
 from v1t_tpu_torch.ops.ln_linear import (
     DX_MAX_SMEM, PANEL_MAX_K, PANEL_MAX_K128, WGRAD_KT, WGRAD_MAX_CLUSTER, WGRAD_PARTIAL_SHARE,
-    WGRAD_TARGET, dx_plan, dx_weight, forward_weight, linear_plan, ln_linear_bwd_plain,
-    ln_linear_plain, merge_heads, padded_head_dim, wgrad_plan,
+    WGRAD_TARGET, WIDE_TILE, WL_CHUNK, WL_ROWS, WL_STAGES, WL_W_STAGES, dx_plan, dx_weight,
+    forward_weight, linear_plan, ln_linear_bwd_plain, ln_linear_plain, merge_heads,
+    padded_head_dim, wgrad_plan,
 )
 
 TOL = 1e-5
@@ -196,14 +197,17 @@ def test_forward_launch_plan_covers_the_sweep(emb, heads, mlp):
     """Every width of the sweep space has a forward launch within a block's
     shared memory; qkv's output tile is one head's plane of head_pad (two
     halves above 160), so that its pad columns come out of w's zero rows;
-    other outputs split N evenly into tiles of at most 160 columns."""
+    other outputs split N evenly into tiles of at most 160 columns, or of
+    at most 256 past K 640 (the wgmma kernel: the sweep's widest
+    out-projections and fc2)."""
     for use, (n, k, hd, ln, aligned, res) in _forward_uses(emb, heads, mlp).items():
         plan = linear_plan(M_FLAGSHIP, n, k, hd, ln, aligned, res)
         if plan is None:  # only an x without LayerNorm, unaligned, wider than a panel
             assert not ln and not aligned and k > PANEL_MAX_K, use
             plan = linear_plan(M_FLAGSHIP, n, -(-k // 8) * 8, hd, ln, True, res)
         assert plan is not None and plan.smem <= SMEM, use
-        assert plan.tile % 32 == 0 and plan.tile <= 160
+        assert plan.wgmma == (k > PANEL_MAX_K), use
+        assert plan.tile % 32 == 0 and plan.tile <= (256 if plan.wgmma else 160)
         if use == "qkv":
             dp = padded_head_dim(emb)
             parts = 1 if dp <= 160 else 2
@@ -311,6 +315,11 @@ def test_projection_plan_constants_match_the_kernel_sources():
     consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", fwd)}
     assert (consts["MAX_NT"], consts["MAX_PANEL_K"], consts["MAX_PANEL_K128"], consts["CK"]) == (
         160, PANEL_MAX_K, PANEL_MAX_K128, 64)
+    # past a panel: the wgmma kernel's tiles, ring and staged rows
+    wl = fwd[fwd.index("namespace wl {"):]
+    consts = {n: int(v) for n, v in re.findall(r"(\w+) = (\d+)[,;]", wl[:wl.index("}")])}
+    assert (consts["ROWS"], consts["TILE"], consts["CHUNK"], consts["X_STAGES"],
+            consts["W_STAGES"]) == (WL_ROWS, WIDE_TILE, WL_CHUNK, WL_STAGES, WL_W_STAGES)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

@@ -446,19 +446,27 @@ def _source(name):
                                             (768, 3, 256), (1024, 4, 256), (2080, 9, 256)])
 def test_column_group_plans(dp, groups, cols):
     """bf16 past DP 256: ceil(DP / 256) groups of one width (a multiple of
-    32, the last narrower where it must), the same tiles and shared memory
-    at every width (hand-computed: forward 1024 + 4 x (128 + 64) x 64 x 2 +
-    2 x 64 x 256 x 2 + 96 = 164,960 bytes; backward 1024 + 3 x 64 x 256 x 2
-    + 2 x 4 x 64 x 64 x 2 + 2 x 64 x 64 x 2 + 8 x 16 x 32 x 4 + 48 =
-    197,680), within a block's 232,448; the fixed-order counters a turn a
-    (plane, group, query tile of 64)."""
+    32, the last narrower where it must). The forward up to 8 groups is one
+    cluster of them (hand-computed: 1024 + q [128][256] + K and V [2][64][256]
+    in bf16 + a float32 partial [128][64] + 64 bytes of barriers = 230,464
+    bytes); past 8 groups (2080) the groups recompute S, no cluster (1024 +
+    4 x (128 + 64) x 64 x 2 + 2 x 64 x 256 x 2 + 96 = 164,960); the backward
+    the same at every width (1024 + 3 x 64 x 256 x 2 + 2 x 4 x 64 x 64 x 2 +
+    2 x 64 x 64 x 2 + 8 x 16 x 32 x 4 + 48 = 197,680); all within a block's
+    232,448; the fixed-order counters a turn a (plane, group, query tile of
+    64)."""
     f = fa.fwd_plan(torch.bfloat16, dp)
     b = fa.bwd_plan(torch.bfloat16, 8, 1000, dp)
     assert fa.column_groups(dp) == (groups, cols)
     assert (groups - 1) * cols < dp <= groups * cols
-    assert (f.groups, f.group_cols, f.queries, f.keys, f.q_panels, f.stages) == (
-        groups, cols, 128, 64, 0, 4)
-    assert f.smem == 164960 <= SMEM_LIMIT
+    if groups <= fa.CLUSTER_GROUPS:
+        assert (f.groups, f.group_cols, f.queries, f.keys, f.q_panels, f.stages, f.cluster) == (
+            groups, cols, 128, 64, 1, 2, groups)
+        assert f.smem == 230464 <= SMEM_LIMIT
+    else:
+        assert (f.groups, f.group_cols, f.queries, f.keys, f.q_panels, f.stages, f.cluster) == (
+            groups, cols, 128, 64, 0, 4, 1)
+        assert f.smem == 164960 <= SMEM_LIMIT
     assert (b.groups, b.group_cols, b.keys) == (groups, cols, 64)
     assert b.kernels == ("prep", "one_pass_wide", "dq_convert") and b.dq_acc == (8, 1000, dp)
     assert b.smem == 197680 <= SMEM_LIMIT
@@ -484,30 +492,53 @@ def test_column_group_constants_match_the_kernel_sources():
     assert (f["WIDE_OG"], f["WIDE_CW"], f["WIDE_A_STAGES"], f["WIDE_V_STAGES"]) == (
         fa.WIDE_GROUP, fa.WIDE_CHUNK, 4, 2)
     assert (b["WB_OG"], b["WB_CW"], b["WB_STAGES"]) == (fa.WIDE_GROUP, fa.WIDE_CHUNK, 2)
-    assert "return dp % 32 == 0 ? wide_fwd_smem_bytes() : 0;" in fwd
+    assert f["CL_MAX_GROUPS"] == fa.CLUSTER_GROUPS and "CL_THREADS = 2 * WG;" in fwd
+    assert ("wide_groups(dp) <= CL_MAX_GROUPS ? cluster_fwd_smem_bytes()\n"
+            "                                               : wide_fwd_smem_bytes();") in fwd
     assert "return launch_wide_bwd(" in bwd and "launch_wide<true>(" in fwd
+    # up to 8 groups the forward's groups are one cluster along grid y
+    assert "if (wide_groups(DP) <= CL_MAX_GROUPS)\n      return train ? launch_cluster<true>(" \
+        in fwd
+    assert "attr[0].val.clusterDim.y = (unsigned)groups;" in fwd
+    assert "template <bool TRAIN>\n__global__ void __launch_bounds__(CL_THREADS, 1) " \
+           "flash_fwd_cluster_kernel(" in fwd
     # one template instance a direction (and training flag), whatever the width
     assert "template <bool TRAIN>\n__global__ void __launch_bounds__(WIDE_THREADS, 1) " \
            "flash_fwd_wide_kernel(" in fwd
     assert "__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_wide_kernel(" in bwd
     # every group draws the same keep mask, by element; group 0 writes the LSE
-    assert "keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);" in fwd
-    assert "if (gi == 0 && lse != nullptr && t == 0)" in fwd
+    # (in both kernels); the cluster sums the partials in group order
+    at = fwd.index("flash_fwd_cluster_kernel(")
+    cl = fwd[at:fwd.index("// ---", at)]
+    wide = fwd[fwd.index("flash_fwd_wide_kernel("):fwd.index("flash_fwd_cluster_kernel(")]
+    for body in (wide, cl):
+        assert "keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);" in body
+        assert "if (gi == 0 && lse != nullptr && t == 0)" in body
+    assert "for (int r = 0; r < G; ++r) {\n      const float4* pr = cluster.map_shared_rank(Sp, r);" \
+        in cl
+    assert cl.count("cluster_arrive();") == 2 and cl.count("cluster_wait();") == 3
+    # the copies are never waited for by their issuer: no empty barrier
+    assert "empty" not in cl
 
 
 @pytest.mark.parametrize("k", [672, 768, 1024, 1030])
 @pytest.mark.parametrize("heads", [None, (4, 768)], ids=["row_major", "head_major"])
 def test_layernorm_past_640_plans(k, heads):
-    """A LayerNorm wider than a panel: the forward normalises the rows
-    first and streams them (ln_rows); the dX takes the wgmma kernel, its
-    row in one cluster of ceil(K / 256) blocks of 128 rows x 256 columns
-    that add the row sums in distributed shared memory, no d(ln) rows in
-    device memory; both within a block's shared memory. Up to K 640
-    neither, as before."""
+    """A LayerNorm wider than a panel: the forward takes the persistent
+    wgmma kernel (tiles of 128 rows x 256 columns), its rows first
+    normalised into aligned scratch that streams by TMA, so rows that are
+    not 16-byte aligned get a launch too; without the LayerNorm they do
+    not (the wrapper pads them). The dX takes the wgmma kernel, its row in one
+    cluster of ceil(K / 256) blocks of 128 rows x 256 columns that add the
+    row sums in distributed shared memory, no d(ln) rows in device memory;
+    both within a block's shared memory. Up to K 640 neither, as before."""
     n = 3 * 4 * 768 if heads else 3072
-    plan = linear_plan(64 * 1654, n, k, heads, True, False, False)
-    assert plan.ln_rows and plan.stream and plan.rows == 128 and plan.smem <= SMEM_LIMIT
-    assert not linear_plan(64 * 1654, n, 640, heads, True, False, False).ln_rows
+    plan = linear_plan(64 * 1654, n, k, heads, True, True, False)
+    assert plan.wgmma and plan.stream and plan.rows == 128 and plan.smem <= SMEM_LIMIT
+    assert plan.tile == 256 and plan.tiles == (36 if heads else 12)
+    assert linear_plan(64 * 1654, n, k, heads, True, False, False) == plan
+    assert linear_plan(64 * 1654, n, k, heads, False, False, False) is None
+    assert not linear_plan(64 * 1654, n, 640, heads, True, False, False).wgmma
     ns = n if heads else -(-n // 32) * 32
     dx = dx_plan(k, ns, True, True)
     assert dx.wgmma and not dx.dln_global and dx.rows == 128 and dx.smem <= SMEM_LIMIT
@@ -518,9 +549,21 @@ def test_layernorm_past_640_plans(k, heads):
 
 def test_layernorm_past_640_matches_the_kernel_sources():
     fwd, bwd = _source("ln_linear.cu"), _source("ln_linear_bwd.cu")
-    assert "p.ln_rows = ln && KP > MAX_PANEL_K;" in fwd
-    assert "p.stream = (!ln && x_aligned) || p.ln_rows;" in fwd
+    # past a panel the wgmma kernel, one instance; a LayerNorm's rows first
+    # normalised into aligned scratch (ln_rows_kernel), which streams as x
+    assert "p.wgmma = KP > MAX_PANEL_K;" in fwd
     assert "__global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(" in fwd
+    assert "namespace wl {\n\nconstexpr int THREADS" in fwd
+    assert "__global__ void __launch_bounds__(THREADS, 1) linear_wgmma_kernel(" in fwd
+    assert "template <bool LN>" not in fwd and "ln_stats" not in fwd
+    assert "x = ln_x;\n      ldx = KS;" in fwd
+    lw = fwd[fwd.index("linear_wgmma_kernel("):fwd.index("int launch(const Plan& P")]
+    # the consumers' products wait for x and w to land, nothing else
+    assert "bar_wait_or_trap(&xfull[xs], (uint32_t)((c / X_STAGES) & 1));" in lw
+    assert "gamma" not in lw
+    assert "wgmma::Mma<TILE>::template ss<0, 0>(" in lw
+    # the keep mask of element (0, row, col), one Philox for two lanes
+    assert "keep_frag_rows(drop, 0u, row0, col0 + 8 * j, lane, keep);" in lw
     # past K 640 the wgmma kernel; its LayerNorm form with the cluster's row
     # sums, its statistics in shared memory, no (M, K) float32 scratch
     assert "if (K > MAX_LN_K && !(ln && K > wx::LN_MAX_K)) {" in bwd

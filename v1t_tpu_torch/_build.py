@@ -43,7 +43,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # for every float
 _DROP = [_U] * 3 + [_F]  # seed, site, threshold, scale
 SIGNATURES = {
-    "v1t_ln_linear": [_P] * 11 + [_I] * 9 + _DROP + [_P],
+    "v1t_ln_linear": [_P] * 11 + [_I] * 10 + _DROP + [_P],
     "v1t_ln_linear_plan": [_I] * 11,
     "v1t_ln_linear_dx": [_P] * 3 + [_I] * 8 + [_U] * 3 + [_P] + [_U] * 2 + [_F] + [_P] * 13,
     "v1t_ln_linear_dx_plan": [_I] * 5,

@@ -108,16 +108,17 @@
 // (203 KB at DP 160) leaves its 8 warps' loads to hide behind each other's
 // FMAs.
 // Above DP 256, in both types: the column groups, a block a (query tile,
-// group of o's columns, plane). bf16 (flash_fwd_wide_kernel, below)
-// recomputes S over the whole DP in every group; float32 up to 8 groups
-// (DP 2048; flash_fwd_f32_cluster_kernel) takes its products on the tensor
-// cores in 3xTF32 (tf32.cuh), the groups of a query tile one cluster that
-// sums the partial scores, so S is computed once; past 8 groups FFMA
-// (flash_fwd_f32_wide_kernel), every group recomputing S. At the emb-768
-// path's shape (B*H 256, N 1654, D 768) the one-pass count is 2.15 TFLOP,
-// a 2.18 ms bound in bf16, 32.1 ms at the fp32 rate and 13.0 ms as 3xTF32
-// (the products three times at 495 TFLOP/s); three groups recomputing S
-// make it 4.3 TFLOP of products.
+// group of o's columns, plane). Up to 8 groups (DP 2048) the groups of a
+// query tile are one cluster that sums the partial scores over each
+// group's columns in distributed shared memory, so S is computed once:
+// bf16 on wgmma (flash_fwd_cluster_kernel), float32 in 3xTF32 on the
+// tensor cores (flash_fwd_f32_cluster_kernel, tf32.cuh). Past 8 groups
+// every group recomputes S over the whole DP: bf16 flash_fwd_wide_kernel,
+// float32 FFMA (flash_fwd_f32_wide_kernel). At the emb-768 path's shape
+// (B*H 256, N 1654, D 768) the one-pass count is 2.15 TFLOP, a 2.18 ms
+// bound in bf16, 32.1 ms at the fp32 rate and 13.0 ms as 3xTF32 (the
+// products three times at 495 TFLOP/s); three groups recomputing S make it
+// 4.3 TFLOP of products.
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
@@ -594,7 +595,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 above DP 256 (column groups)
+// bf16 above DP 2048 (column groups that recompute S; up to 2048 the
+// cluster kernel below)
 //
 // o of 64 rows is DP / 2 fp32 a thread, and a K tile of 64 keys at DP 768
 // is 98 KB: neither the panels nor the accumulator scale past DP 256. So a
@@ -837,6 +839,287 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) flash_fwd_wide_kernel(
   }
   // o's group columns below D, from the fragments (two columns a store
   // where both lie below D and the layout keeps them 4-byte aligned)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? r1 : r0;
+    if (row >= Nq) continue;
+    const float inv = h ? inv1 : inv0;
+    bf16* orow = out + ol.at(bh, row);
+#pragma unroll
+    for (int i = 0; i < WIDE_OG / 8; ++i) {
+      const int cl = 8 * i + 2 * t, col = g0 + cl;
+      if (cl >= gcols || col >= D) continue;
+      const float v0 = o[4 * i + 2 * h] * inv, v1 = o[4 * i + 2 * h + 1] * inv;
+      if (pair && col + 1 < D) {
+        *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(v0, v1);
+      } else {
+        orow[col] = __float2bfloat16_rn(v0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 above DP 256, up to 2048: the column groups of a query tile as one
+// thread-block cluster that computes S once
+//
+// What held flash_fwd_wide_kernel (above) at DP 768: every group recomputed
+// S over the whole DP (the products 4/2 of the one-pass count), and for
+// every key tile all of q's and K's chunks streamed again from L2 (8.5 MB a
+// block, 43 FLOP a byte: more than half the call at L2's ~5.7 TB/s), with S,
+// the softmax and P v in turn and thread 0 refilling the rings after
+// waiting on them. Here the G = ceil(DP / 256) <= CL_MAX_GROUPS groups of a
+// 128-query tile are one cluster along grid y (flash_fwd_f32_cluster_kernel's
+// design, on wgmma): block g keeps its group's q columns resident ([128][<= 256], 64
+// KB, copied once), streams only its group's K and V columns (64-key tiles,
+// [64][256] each), computes its partial S over those columns (wgmma
+// m64n64k16), and every block adds all G partials through distributed
+// shared memory in group order 0 .. G - 1: every block holds the same S
+// bits, draws the same P and keep mask (keyed by element) and block 0
+// writes the LSE; o += P v_g (m64n256k16, P from registers) on its own
+// columns. So S is computed once (the one-pass count, 2.15 TFLOP at the
+// emb-768 shape) and a block reads ~1.7 MB from L2, not 8.5; the exchange
+// moves (G - 1) x 32 KB a block and key tile over the cluster's network.
+// Shared memory (written down before the design): q 64 KB, a K tile 32 KB,
+// a V tile 32 KB, a 128 x 64 float32 partial 32 KB; double-buffering all
+// four needs 256 KB, past a block's 232,448. So K and V are double-buffered
+// (128 KB) and the partial is one buffer with two cluster barriers a tile
+// (229,440 bytes with the barriers): B1 after a block wrote its partial
+// (P_j-1 v_j-1 runs between its arrive and wait), B2 after it read every
+// partial (its wait comes after the next tile's partial products are
+// issued). No empty barriers: the barriers say when a stage is free, so
+// thread 0 issues K_j+2 right after B1 of tile j and V_j right after B2 of
+// tile j - 1, and never waits on the consumers. Past 8 groups the
+// recomputing kernel above stays.
+constexpr int CL_MAX_GROUPS = 8, CL_THREADS = 2 * WG;
+constexpr int CL_Q_BYTES = BQ * WIDE_OG * 2, CL_KV_BYTES = BKV * WIDE_OG * 2;
+constexpr int CL_S_BYTES = BQ * BKV * 4;  // a block's partial scores, float32
+
+__host__ __device__ constexpr int cluster_fwd_smem_bytes() {
+  return 1024 + CL_Q_BYTES + 4 * CL_KV_BYTES + CL_S_BYTES + 8 * 8;
+}
+
+template <bool TRAIN>
+__global__ void __launch_bounds__(CL_THREADS, 1) flash_fwd_cluster_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out, float* __restrict__ lse,
+    int Nq, int Nk, int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop, int gw,
+    int pair) {
+  using namespace hopper;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* Qs = base;                  // [BQ][<= 256] the group's q columns
+  unsigned char* Ks = Qs + CL_Q_BYTES;       // [2][BKV][<= 256] K tiles of the group's columns
+  unsigned char* Vs = Ks + 2 * CL_KV_BYTES;  // [2][BKV][<= 256] V tiles
+  float4* Sp = reinterpret_cast<float4*>(Vs + 2 * CL_KV_BYTES);  // [8][CL_THREADS] the partial
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Sp + 8 * CL_THREADS);
+  uint64_t* k_full = q_full + 1;  // [2]
+  uint64_t* v_full = k_full + 2;  // [2]
+
+  const int G = (int)cluster.num_blocks(), gi = (int)cluster.block_rank();
+  const int qt = blockIdx.x, bh = blockIdx.z, tid = threadIdx.x;
+  const int g0 = gi * gw, gcols = min(gw, DP - g0);  // the group's columns
+  const int ntiles = (Nk + BKV - 1) / BKV;
+  const uint32_t kv_bytes = (uint32_t)(gcols / 32 * BKV * ROW_BYTES);
+  if (tid == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      bar_init(&k_full[s], 1);
+      bar_init(&v_full[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the q and K sub-tiles past the group's columns hold zeros, so that the
+  // partial scores always run over 256 columns: no product is predicated
+  // (a wgmma behind a branch is serialised), and the zeros add nothing
+  const int tail = (WIDE_OG - gcols) / 32;  // sub-tiles past the group's columns
+  uint4* qz = reinterpret_cast<uint4*>(Qs + gcols / 32 * BQ * ROW_BYTES);
+  for (int i = tid; i < tail * BQ * ROW_BYTES / 16; i += CL_THREADS) qz[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int st = 0; st < 2; ++st) {
+    uint4* kz = reinterpret_cast<uint4*>(Ks + st * CL_KV_BYTES + gcols / 32 * BKV * ROW_BYTES);
+    for (int i = tid; i < tail * BKV * ROW_BYTES / 16; i += CL_THREADS)
+      kz[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+  auto issue_k = [&](int j) {
+    unsigned char* st = Ks + (j & 1) * CL_KV_BYTES;
+    bar_expect(&k_full[j & 1], kv_bytes);
+    for (int b = 0; b < gcols / 32; ++b)
+      tma_box(st + b * BKV * ROW_BYTES, &kmap, g0 + 32 * b, j * BKV, bh, &k_full[j & 1]);
+  };
+  auto issue_v = [&](int j) {
+    unsigned char* st = Vs + (j & 1) * CL_KV_BYTES;
+    bar_expect(&v_full[j & 1], kv_bytes);
+    for (int b = 0; b < gcols / 32; ++b)
+      tma_box(st + b * BKV * ROW_BYTES, &vmap, g0 + 32 * b, j * BKV, bh, &v_full[j & 1]);
+  };
+  if (tid == 0) {
+    bar_expect(q_full, (uint32_t)(gcols / 32 * BQ * ROW_BYTES));
+    for (int b = 0; b < gcols / 32; ++b)
+      tma_box(Qs + b * BQ * ROW_BYTES, &qmap, g0 + 32 * b, qt * BQ, bh, q_full);
+    for (int j = 0; j < min(2, ntiles); ++j) {
+      issue_k(j);
+      issue_v(j);
+    }
+  }
+
+  // warpgroup c owns rows 64 c .. 64 c + 63 of the query tile
+  const int c = tid / WG, lane = tid & 31, warp = (tid / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qt * BQ + 64 * c + 16 * warp;  // this warp's 16 rows
+  const int r0 = row0 + g, r1 = r0 + 8;
+  const uint32_t q_s = smem_u32(Qs);
+  float o[WIDE_OG / 2], s[BKV / 2];
+#pragma unroll
+  for (int i = 0; i < WIDE_OG / 2; ++i) o[i] = 0.f;
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+  uint32_t pf[BKV / 16][4];
+  auto pv = [&](int j) {  // o += P_j v_j over the group's columns
+    const int vs = j & 1;
+    bar_wait_or_trap(&v_full[vs], (uint32_t)((j >> 1) & 1));
+    fence_regs(o);
+    mma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks)
+      wgmma::Mma<WIDE_OG>::template rs<1>(
+          o, pf[ks], desc_mn(smem_u32(Vs + vs * CL_KV_BYTES), BKV, 0, ks), 1);
+    mma_commit();
+  };
+  bar_wait_or_trap(q_full, 0u);
+
+  for (int j = 0; j < ntiles; ++j) {
+    // the partial scores of key tile j over the group's columns
+    bar_wait_or_trap(&k_full[j & 1], (uint32_t)((j >> 1) & 1));
+    const uint32_t k_s = smem_u32(Ks + (j & 1) * CL_KV_BYTES);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WIDE_OG / 16; ++kk)
+      wgmma::Mma<BKV>::template ss<0, 0>(s, desc_k(q_s, BQ, 64 * c, kk), desc_k(k_s, BKV, 0, kk),
+                                         kk > 0);
+    mma_commit();
+    if (j > 0) cluster_wait();  // B2 of tile j - 1: every block has read the partials
+    mma_wait<0>();
+    fence_regs(s);
+    if (tid == 0 && j >= 2) issue_v(j);  // over v_j-2, whose products ended before B2
+#pragma unroll
+    for (int q = 0; q < BKV / 8; ++q)
+      Sp[q * CL_THREADS + tid] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+    cluster_arrive();  // B1 of tile j: this block's partial is in place
+    if (j > 0) pv(j - 1);
+    cluster_wait();
+    // S: the groups' partials in group order, the same bits in every block
+    // (into registers of their own: no wgmma accumulator is written while
+    // P v runs, which ptxas would serialise)
+    float sc[BKV / 2];
+    for (int r = 0; r < G; ++r) {
+      const float4* pr = cluster.map_shared_rank(Sp, r);
+#pragma unroll
+      for (int q = 0; q < BKV / 8; ++q) {
+        const float4 x = pr[q * CL_THREADS + tid];
+        sc[4 * q] = r == 0 ? x.x : sc[4 * q] + x.x;
+        sc[4 * q + 1] = r == 0 ? x.y : sc[4 * q + 1] + x.y;
+        sc[4 * q + 2] = r == 0 ? x.z : sc[4 * q + 2] + x.z;
+        sc[4 * q + 3] = r == 0 ? x.w : sc[4 * q + 3] + x.w;
+      }
+    }
+    if (j > 0) {  // P_j-1 v_j-1 is done: o and P's fragments are free
+      mma_wait<0>();
+      fence_regs(o);
+      fence_frags(pf);
+    }
+    // over K_j: every thread of the block finished its products before B1
+    if (tid == 0 && j + 2 < ntiles) issue_k(j + 2);
+    cluster_arrive();  // B2 of tile j: this block has read every partial
+
+    // the online softmax of the tile's scores (flash_fwd_wide_kernel's)
+    const bool edge = (j + 1) * BKV > n_real ||
+                      (lsa && j * BKV < qt * BQ + BQ && (j + 1) * BKV > qt * BQ);
+    float scale = LOG2E;
+    if (edge) {
+      scale = 1.f;
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * BKV + ni * 8 + 2 * t + (e & 1);
+          const bool masked = key >= n_real || (lsa && key == ((e >> 1) ? r1 : r0));
+          sc[4 * ni + e] = key >= Nk ? __int_as_float(0xff800000u)
+                          : masked  ? MASKED
+                                    : sc[4 * ni + e] * LOG2E;
+        }
+    }
+    float mx0 = sc[0], mx1 = sc[2];
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * ni + 0], sc[4 * ni + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * ni + 2], sc[4 * ni + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0 * scale);
+    mx1 = fmaxf(m1, mx1 * scale);
+    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+      float p00 = ex2(fmaf(sc[4 * ni + 0], scale, -m0));
+      float p01 = ex2(fmaf(sc[4 * ni + 1], scale, -m0));
+      float p10 = ex2(fmaf(sc[4 * ni + 2], scale, -m1));
+      float p11 = ex2(fmaf(sc[4 * ni + 3], scale, -m1));
+      l0 += p00 + p01;
+      l1 += p10 + p11;
+      if (TRAIN && drop.on()) {  // select only: 1/keep folds into 1/l
+        bool keep[4];
+        keep_frag_rows(drop, (uint32_t)bh, row0, j * BKV + ni * 8, lane, keep);
+        p00 = keep[0] ? p00 : 0.f;
+        p01 = keep[1] ? p01 : 0.f;
+        p10 = keep[2] ? p10 : 0.f;
+        p11 = keep[3] ? p11 : 0.f;
+      }
+      pf[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(p00, p01);
+      pf[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(p10, p11);
+    }
+    if (a0 != 1.f || a1 != 1.f) {  // no product in flight: o rescaled
+#pragma unroll
+      for (int i = 0; i < WIDE_OG / 8; ++i) {
+        o[4 * i + 0] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+    }
+  }
+  pv(ntiles - 1);
+  mma_wait<0>();
+  fence_regs(o);
+  fence_frags(pf);
+  cluster_wait();  // B2 of the last tile: no block leaves while another reads its partial
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+  float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  if (TRAIN && drop.on()) {
+    inv0 *= drop.scale;
+    inv1 *= drop.scale;
+  }
+  if (gi == 0 && lse != nullptr && t == 0) {
+    float* lrow = lse + (size_t)bh * Nq;
+    if (r0 < Nq) lrow[r0] = (m0 + log2f(fmaxf(l0, 1e-37f))) * LN2;
+    if (r1 < Nq) lrow[r1] = (m1 + log2f(fmaxf(l1, 1e-37f))) * LN2;
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h ? r1 : r0;
@@ -1666,6 +1949,41 @@ int launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* l
   return (int)cudaGetLastError();
 }
 
+template <bool TRAIN>
+int launch_cluster(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int BH,
+                   int Nq, int Nk, int n_real, int D, int DP, RowLayout ol, int lsa, Drop drop,
+                   cudaStream_t stream) {
+  constexpr int bytes = cluster_fwd_smem_bytes();
+  CUtensorMap qmap, kmap, vmap;
+  int rc;
+  if ((rc = hopper::make_panel_map(&qmap, q, BH, Nq, DP, BQ)) != 0 ||
+      (rc = hopper::make_panel_map(&kmap, k, BH, Nk, DP, BKV)) != 0 ||
+      (rc = hopper::make_panel_map(&vmap, v, BH, Nk, DP, BKV)) != 0)
+    return rc;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_cluster_kernel<TRAIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int pair = D % 2 == 0 && ol.batch % 2 == 0 && ol.head % 2 == 0 && ol.row % 2 == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  const int groups = wide_groups(DP);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((Nq + BQ - 1) / BQ), (unsigned)groups, (unsigned)BH);
+  cfg.blockDim = dim3(CL_THREADS, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u;
+  attr[0].val.clusterDim.y = (unsigned)groups;
+  attr[0].val.clusterDim.z = 1u;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_cluster_kernel<TRAIN>, qmap, kmap, vmap, out, lse, Nq,
+                           Nk, n_real, D, DP, ol, lsa, drop, wide_group_width(DP), pair);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int wgmma_fwd::launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
@@ -1674,8 +1992,13 @@ int wgmma_fwd::launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, fl
                       cudaStream_t stream) {
   if (BH < 1 || BH > 65535 || D > DP || n_real > Nk || Nq < 1 || Nk < 1)
     return (int)cudaErrorInvalidValue;
-  if (DP > 256) {  // the column groups, in natural-log units only
+  if (DP > 256) {  // the column groups, in natural-log units only: a cluster up to 8
     if (DP % 32 != 0 || q_scale != nullptr || o_pad != 0) return (int)cudaErrorInvalidValue;
+    if (wide_groups(DP) <= CL_MAX_GROUPS)
+      return train ? launch_cluster<true>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, DP, ol, lsa,
+                                          drop, stream)
+                   : launch_cluster<false>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, DP, ol, lsa,
+                                           drop, stream);
     return train ? launch_wide<true>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, DP, ol, lsa, drop,
                                      stream)
                  : launch_wide<false>(q, k, v, out, lse, BH, Nq, Nk, n_real, D, DP, ol, lsa,
@@ -1695,7 +2018,10 @@ int wgmma_fwd::launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, fl
 }
 
 int wgmma_fwd::smem(int dp) {
-  if (dp > 256) return dp % 32 == 0 ? wide_fwd_smem_bytes() : 0;
+  if (dp > 256)
+    return dp % 32 != 0                        ? 0
+           : wide_groups(dp) <= CL_MAX_GROUPS ? cluster_fwd_smem_bytes()
+                                               : wide_fwd_smem_bytes();
   switch (dp) {
     case 32: return bf16_smem_bytes<32>();
     case 64: return bf16_smem_bytes<64>();

@@ -35,12 +35,7 @@
 //     once) and the fp32 LayerNorm, and writes them rounded, once, into a
 //     swizzled [rows][KP] panel that every output tile reads;
 //   - streamed (no LayerNorm, 16-byte aligned rows: fc2's hidden layer):
-//     x chunks [128][64] ride the ring beside w's. A LayerNorm wider than a
-//     panel (K > 640: emb 768's qkv and fc1) runs ln_rows_kernel first,
-//     which writes the rows' bf16 LayerNorm output (the panel's arithmetic)
-//     into scratch with 16-byte aligned rows, and then streams it: one
-//     more write and read of M x K bf16 (162 MB at B 64 x 1654 x 768, ~0.1
-//     ms of the card's bytes) against a panel that no longer fits.
+//     x chunks [128][64] ride the ring beside w's.
 // The epilogue of a tile: the accumulators into an fp32 tile of their own
 // (not the ring, so that the producer runs ahead into the next tile); then
 // a loop over units of 8 columns, compiled once (an epilogue unrolled over
@@ -53,6 +48,48 @@
 // copied out. A residual (out-projection, fc2: rows of 155 bf16 are 310
 // bytes) goes through a bf16 tile and a writer of the rows' contiguous
 // span, 16 bytes at a time, that adds it (+ res_row, rounded once).
+//
+// Past K 640 (ViT-Base width: qkv and fc1 at K 768, the out-projection and
+// fc2 at K 3072; the sweep's out-projections past 640) every call runs
+// wl::linear_wgmma_kernel. Bound there by operations: 2 M N K over ~2 (M K
+// + N K + M N) bytes is ~300-500 FLOP a byte of device memory at emb 768
+// (qkv 1.50 TFLOP, 1.515 ms at 989 TFLOP/s). What held the streamed kernel
+// of 128 x 160 tiles was L2: a 64-column chunk of x and w brought 36,864
+// bytes for 2.6 MFLOP (71 FLOP a byte; qkv's 21 GB from L2 in 3.7 ms is
+// about what an H100's L2 delivers), 4% of the columns were padding, and
+// the epilogue ran alone, the residual's one row at a time. The design:
+//   - tiles of 128 rows x 256 columns on wgmma m64n256k16 (two consumer
+//     warpgroups of 64 rows, fp32 accumulators in registers): 85 FLOP a
+//     byte from L2, and the planes split evenly into multiples of 32 (768 =
+//     3 x 256, 3072 = 12 x 256: no padded column at emb 768). x ([128][64]
+//     of a batch's rows, a row tile lies within one batch) and w ([256][64])
+//     arrive by TMA in 128-byte swizzled boxes through rings of 3 stages
+//     behind mbarriers, one producer thread. Two blocks of a cluster sharing
+//     each w chunk by TMA multicast (a 128-FLOP-a-byte tile) were built and
+//     timed, and were slower, as for the dX (ln_linear_bwd.cu);
+//   - persistent: min(tiles, SMs) blocks walk the tiles (output tiles of a
+//     row tile consecutive, so that its x chunks are read from device
+//     memory once and w, 14 MB at qkv, stays in L2); the rings run on
+//     across tiles, so the next tile's copies land during an epilogue;
+//   - the LayerNorm as a pass of its own: ln_rows_kernel writes the rows
+//     normalised (the panel's arithmetic, rounded once) into scratch of
+//     16-byte aligned rows, which then stream like any x: one more write
+//     and read of M x K bf16 (162 MB at B 64 x 1654 x 768, ~0.17 ms a
+//     call on an H100). Fused instead (8 bytes of statistics a row, each
+//     raw x chunk normalised in shared memory before its products), a row
+//     tile's chunks are normalised once for every output tile that reads
+//     them, 36 times at qkv (36 tiles of 256 a row tile) and 12 at fc1:
+//     built and timed, qkv read 3.4x slower than the streamed kernel;
+//   - the epilogue: bias, fc1's pre-GELU activation (stored straight from
+//     the accumulators), exact-erf GELU and the keep mask (element (0, row,
+//     col); lanes t and t ^ 1 share a Philox, keep_frag_rows, its bits drawn
+//     in a loop of their own) on the accumulators, rounded into a bf16 tile
+//     of the warpgroup's rows ([64][256], granules swizzled by row); the
+//     rows then go out, coalesced 16 bytes a lane (head-major plane rows, or
+//     y's rows with the residual, + res_row rounded once, added on the way:
+//     all 128 threads) while the next tile's copies land. Written out a few
+//     rows at a time under the next tile's products instead, the writer
+//     beside the live accumulators spilled.
 #include <string.h>
 
 #include "hopper.cuh"
@@ -72,11 +109,25 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int up(int a, int b) { return cdiv(a, b) * b; }
 
+// Past K 640: wl::linear_wgmma_kernel, tiles of ROWS x TILE, CHUNK
+// reduction columns a step: x's [ROWS][CHUNK] in a ring of X_STAGES, w's
+// [TILE][CHUNK] in one of W_STAGES, each consumer warpgroup's 64 output rows
+// staged in bf16 [64][TILE] (16-byte granules swizzled by row), and the
+// barriers.
+namespace wl {
+constexpr int ROWS = 128, TILE = 256, CHUNK = 64, X_STAGES = 3, W_STAGES = 3;
+
+constexpr int X_BYTES = ROWS * CHUNK * 2, W_BYTES = TILE * CHUNK * 2;
+constexpr int OUT_BYTES = 64 * TILE * 2;  // a warpgroup's staged rows
+constexpr int BARS = 16 * 8;              // room for 16 mbarriers
+constexpr int SMEM = 1024 + X_STAGES * X_BYTES + W_STAGES * W_BYTES + 2 * OUT_BYTES + BARS;
+}  // namespace wl
+
 // The launch of one call (ops/ln_linear.py linear_plan mirrors it).
 struct Plan {
   int stream, bm, nt, parts, n_tiles;  // parts: tiles a head-major plane
   int stages, stage_bytes, panel_bytes, smem;
-  int ln_rows;  // a LayerNorm past a panel: ln_rows_kernel first, then x streamed
+  int wgmma;  // past a panel (K > 640): wl::linear_wgmma_kernel, tiles of 128 x 256
 };
 
 // row stride (elements) of the staged output tile, fp32 and bf16: 32 bytes
@@ -93,20 +144,30 @@ __host__ __device__ constexpr bool direct_out(int heads, int N, bool residual) {
 __host__ __device__ inline Plan linear_plan(int M, int N, int K, int KP, int heads, int head_dim,
                                            int head_pad, bool ln, bool x_aligned, bool residual) {
   Plan p{};
+  // past a panel every call runs the wgmma kernel on tiles up to 256 wide;
+  // its x streams by TMA: a LayerNorm's rows from aligned scratch
+  // (ln_rows_kernel), other unaligned rows get no launch (the caller pads)
+  p.wgmma = KP > MAX_PANEL_K;
+  const int max_nt = p.wgmma ? wl::TILE : MAX_NT;
   if (heads) {
-    p.parts = cdiv(head_pad, MAX_NT);
+    p.parts = cdiv(head_pad, max_nt);
     p.nt = up(cdiv(head_pad, p.parts), 32);
     p.n_tiles = N / head_dim * p.parts;
   } else {
     p.parts = 1;
-    p.n_tiles = cdiv(N, MAX_NT);
+    p.n_tiles = cdiv(N, max_nt);
     p.nt = up(cdiv(N, p.n_tiles), 32);
   }
-  // a LayerNorm wider than a panel: its rows normalised by ln_rows_kernel
-  // into 16-byte aligned rows, which then stream like an aligned x
-  p.ln_rows = ln && KP > MAX_PANEL_K;
-  p.stream = (!ln && x_aligned) || p.ln_rows;
-  if (!p.stream && KP > MAX_PANEL_K) return p;
+  if (p.wgmma) {
+    if (!x_aligned && !ln) return p;
+    p.stream = 1;
+    p.bm = wl::ROWS;
+    p.stages = wl::X_STAGES;
+    p.stage_bytes = wl::X_BYTES + wl::W_BYTES;
+    p.smem = wl::SMEM;
+    return p;
+  }
+  p.stream = !ln && x_aligned;
   for (int bm = 128; bm >= 64; bm /= 2) {
     if (p.stream && bm != 128) break;
     if (!p.stream && bm == 128 && KP > MAX_PANEL_K128) continue;
@@ -497,22 +558,23 @@ __global__ void __launch_bounds__(128 * (WGS + 1), 1) ln_linear_kernel(
 
 // The LayerNorm of rows wider than a panel (K > 640): out (M, KS) bf16, KS =
 // K rounded up to 8 (16-byte aligned rows, zero from K on) = bf16(LN(z))
-// with z = x (+ pro_row, rounded once), the statistics in fp32 as the panel
-// computes them (a lane's columns k = lane + 32 i, summed in that order,
-// then across the warp), one warp a row; the streamed kernel then takes out
-// as its x. Replaces nothing on the TPU by itself: it is the panel's
-// prologue (fused_mha.py :567's and fused_mlp.py :111's LayerNorm) run as a
-// pass of its own where a row does not fit a lane's registers.
+// with z = x (+ pro_row, rounded once; x's rows ldx apart), the statistics
+// in fp32 as the panel computes them (a lane's columns k = lane + 32 i,
+// summed in that order, then across the warp), one warp a row; the wgmma
+// kernel then streams out as its x. Replaces nothing on the TPU by itself:
+// it is the panel's prologue (fused_mha.py :567's and fused_mlp.py :111's
+// LayerNorm) run as a pass of its own where a row does not fit a lane's
+// registers.
 constexpr int LN_ROWS_THREADS = 256;
 
 __global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ pro_row,
     const float* __restrict__ gamma, const float* __restrict__ beta, bf16* __restrict__ out,
-    int M, int K, int KS, int rows_per_batch) {
+    int M, int K, int ldx, int KS, int rows_per_batch) {
   const int lane = threadIdx.x & 31;
   const long long m = (long long)blockIdx.x * (LN_ROWS_THREADS / 32) + (threadIdx.x >> 5);
   if (m >= M) return;
-  const bf16* xr = x + m * K;
+  const bf16* xr = x + m * ldx;
   const bf16* br = pro_row != nullptr ? pro_row + (m / rows_per_batch) * K : nullptr;
   auto z_at = [&](int k) {
     float z = to_f(xr[k]);
@@ -532,6 +594,286 @@ __global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
   for (int k = lane; k < KS; k += 32)
     orow[k] = __float2bfloat16_rn(k < K ? (z_at(k) - mean) * rstd * gamma[k] + beta[k] : 0.f);
 }
+
+namespace wl {
+
+constexpr int THREADS = 384;  // two consumer warpgroups, a producer warpgroup
+// setmaxnreg (multiples of 8 within the launch's 168 x 384): the producer
+// warpgroup, which only copies, and the consumers beside it
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int PASSES = 16;    // a warpgroup's 64 staged rows go out 4 a pass
+
+struct Args {
+  int N, K, rows, batches, tpb;  // y (batches x rows, N); row tiles a batch
+  int n_tiles, parts, nt, nk;    // output tiles (a head-major plane's), their width; chunks
+  int heads, head_dim, head_pad;
+  int gelu, vec;                 // vec: y, pre and the residual in 16-byte aligned rows
+};
+
+// y = epilogue(x w^T) for tiles of ROWS rows (within one batch) x nt <=
+// TILE output columns (a head-major plane's part, or an even split of N):
+// xmap reads x as (batches, rows, K) in boxes [ROWS][CHUNK], wmap w (rows,
+// KP) in boxes [TILE][CHUNK], both 128-byte swizzled. Persistent: block b
+// takes tiles b, b + gridDim.x, ... (a row tile's output tiles consecutive).
+// A LayerNorm's rows come normalised (ln_rows_kernel) as x.
+__global__ void __launch_bounds__(THREADS, 1) linear_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap, Args g,
+    const float* __restrict__ bias, const bf16* __restrict__ residual,
+    const bf16* __restrict__ res_row, bf16* __restrict__ y, bf16* __restrict__ pre, Drop drop) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* xring = base;                                 // [X_STAGES] x chunks
+  unsigned char* wring = xring + X_STAGES * X_BYTES;          // [W_STAGES] w chunks
+  bf16* outs = reinterpret_cast<bf16*>(wring + W_STAGES * W_BYTES);  // [2][64][TILE]
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(outs + 2 * 64 * TILE);  // a chunk landed
+  uint64_t* xempty = xfull + X_STAGES;                                  // its products are done
+  uint64_t* wfull = xempty + X_STAGES;
+  uint64_t* wempty = wfull + W_STAGES;
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int tiles = g.batches * g.tpb * g.n_tiles;
+
+  if (tid == 0) {
+    for (int s = 0; s < X_STAGES; ++s) {
+      bar_init(&xfull[s], 1);
+      bar_init(&xempty[s], 2);
+    }
+    for (int s = 0; s < W_STAGES; ++s) {
+      bar_init(&wfull[s], 1);
+      bar_init(&wempty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile T: output tile ti of row tile T / n_tiles (batch b, its rows n0 ..
+  // n0 + ROWS - 1); the output tile's plane, its first column (of the plane
+  // or of y) and w's first row
+  auto tile_of = [&](int T, int& b, int& n0, int& ti) {
+    const int R = T / g.n_tiles;
+    ti = T - R * g.n_tiles;
+    b = R / g.tpb;
+    n0 = (R - b * g.tpb) * ROWS;
+  };
+  auto cols_of = [&](int ti, int& plane, int& col0) {
+    plane = g.heads ? ti / g.parts : 0;
+    col0 = (g.heads ? ti - plane * g.parts : ti) * g.nt;
+    return g.heads ? plane * g.head_pad + col0 : col0;
+  };
+
+  if (wgi == 2) {
+    // the producer warpgroup: one thread keeps the rings full, across tiles
+    regs_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      int it = 0;
+      for (int T = blockIdx.x; T < tiles; T += gridDim.x) {
+        int b, n0, ti, plane, col0;
+        tile_of(T, b, n0, ti);
+        const int wrow = cols_of(ti, plane, col0);
+        for (int ch = 0; ch < g.nk; ++ch, ++it) {
+          const int xs = it % X_STAGES, ws = it % W_STAGES;
+          if (it >= X_STAGES) bar_wait_or_trap(&xempty[xs], (uint32_t)((it / X_STAGES - 1) & 1));
+          bar_expect(&xfull[xs], X_BYTES);
+          tma_box(xring + xs * X_BYTES, &xmap, ch * CHUNK, n0, b, &xfull[xs]);
+          if (it >= W_STAGES) bar_wait_or_trap(&wempty[ws], (uint32_t)((it / W_STAGES - 1) & 1));
+          bar_expect(&wfull[ws], W_BYTES);
+          tma_box(wring + ws * W_BYTES, &wmap, ch * CHUNK, wrow, 0, &wfull[ws]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns rows 64 wgi .. 64 wgi + 63 of each tile
+  regs_inc<CONSUMER_REGS>();
+  const int l = tid & 127, lane = tid & 31, warp = l >> 5;
+  bf16* so = outs + wgi * 64 * TILE;
+  const int wbar = 1 + wgi;  // the warpgroup's named barrier
+
+  // the staged rows go out in PASSES passes of 4 rows once the accumulators
+  // are staged (put beside live accumulators, the writer spilled)
+  // pass p of tile (p_b, p_n0, p_plane, p_col0; p_w columns, p_nr rows): warp
+  // w takes staged row 4 p + w, lane u its columns 8 u .. 8 u + 7, to y, with
+  // the residual (+ res_row) added when there is one
+  auto put = [&](int p, int p_b, int p_n0, int p_plane, int p_col0, int p_w, int p_nr) {
+    bf16* __restrict__ dst = y;
+    const bf16* __restrict__ res = residual;
+    const int r = 4 * p + warp, c = 8 * lane, tr = 64 * wgi + r;
+    if (tr >= p_nr || c >= p_w) return;
+    const uint4 sv = *reinterpret_cast<const uint4*>(so + r * TILE + ((lane ^ (r & 7)) << 3));
+    if (g.heads) {
+      const int hs = p_plane / g.heads, hh = p_plane - hs * g.heads;
+      *reinterpret_cast<uint4*>(
+          dst + ((size_t)((hs * g.batches + p_b) * g.heads + hh) * g.rows + p_n0 + tr) *
+                    g.head_pad + p_col0 + c) = sv;
+      return;
+    }
+    const size_t m = (size_t)p_b * g.rows + p_n0 + tr, at = m * g.N + p_col0 + c;
+    if (res == nullptr && g.vec) {
+      *reinterpret_cast<uint4*>(dst + at) = sv;
+      return;
+    }
+    const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __uint_as_float(e & 1 ? sw[e >> 1] & 0xffff0000u : sw[e >> 1] << 16);
+    const int n = min(8, p_w - c);  // the granule's columns in the tile
+    if (res != nullptr) {
+      float z[8];
+      if (g.vec) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(res + at);
+        const uint32_t rw[4] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          z[e] = __uint_as_float(e & 1 ? rw[e >> 1] & 0xffff0000u : rw[e >> 1] << 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) z[e] = e < n ? to_f(res[at + e]) : 0.f;
+      }
+      if (res_row != nullptr)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e < n) z[e] = round_bf16(z[e] + to_f(res_row[(size_t)p_b * g.N + p_col0 + c + e]));
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += z[e];
+    }
+    if (g.vec) {
+      *reinterpret_cast<uint4*>(dst + at) = make_uint4(
+          pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < n) dst[at + e] = __float2bfloat16_rn(v[e]);
+    }
+  };
+
+  // chunk c's products are done: its stages are free
+  auto release = [&](int c) {
+    bar_arrive(&xempty[c % X_STAGES]);
+    bar_arrive(&wempty[c % W_STAGES]);
+  };
+  float acc[TILE / 2];
+#pragma unroll
+  for (int i = 0; i < TILE / 2; ++i) acc[i] = 0.f;
+  int it = 0;  // the ring's step, as the producer counts
+  for (int T = blockIdx.x; T < tiles; T += gridDim.x) {
+    int b, n0, ti, plane, col0;
+    tile_of(T, b, n0, ti);
+    cols_of(ti, plane, col0);
+    const int nr = min(ROWS, g.rows - n0);
+    for (int ch = 0; ch < g.nk; ++ch) {
+      const int c = it + ch, xs = c % X_STAGES, ws = c % W_STAGES;
+      // x and w landed
+      bar_wait_or_trap(&xfull[xs], (uint32_t)((c / X_STAGES) & 1));
+      bar_wait_or_trap(&wfull[ws], (uint32_t)((c / W_STAGES) & 1));
+      const uint32_t a_s = smem_u32(xring + xs * X_BYTES), b_s = smem_u32(wring + ws * W_BYTES);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CHUNK / 16; ++kk)
+        wgmma::Mma<TILE>::template ss<0, 0>(acc, desc_k128(a_s, 64 * wgi, kk),
+                                            desc_k128(b_s, 0, kk), ch > 0 || kk > 0);
+      mma_commit();
+      mma_wait<1>();  // the previous chunk's products are done: its stages are free
+      if (ch > 0 && l == 0) release(c - 1);
+    }
+    mma_wait<0>();
+    fence_regs(acc);
+    if (l == 0) release(it + g.nk - 1);
+    it += g.nk;
+
+    // epilogue of tile T: the accumulators (+ bias, fc1's pre-GELU
+    // activation straight from them, GELU, keep mask) rounded into the
+    // staged rows, then the rows out
+    const int gq = lane >> 2, t4 = lane & 3, lr = 16 * warp + gq;  // the lane's rows lr, lr + 8
+    const int wcols = min(g.nt, (g.heads ? g.head_pad : g.N) - col0);  // the tile's columns
+    // (every loop over the accumulators unrolled whole, so that they stay in
+    // registers)
+    if (bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          int n = col0 + 8 * j + 2 * t4 + e;  // the logical output column, or -1 (a plane's pad)
+          if (g.heads) n = n < g.head_dim ? plane * g.head_dim + n : -1;
+          else if (n >= g.N) n = -1;
+          const float bn = n >= 0 ? bias[n] : 0.f;
+          acc[4 * j + e] += bn;
+          acc[4 * j + 2 + e] += bn;
+        }
+    }
+    if (pre != nullptr) {  // row-major (no heads): two columns a 4-byte store where aligned
+      const size_t m0r = (size_t)b * g.rows + n0 + 64 * wgi + lr;
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int cl = 8 * j + 2 * t4, r = 64 * wgi + lr + 8 * h;
+          if (r >= nr || cl >= wcols) continue;
+          bf16* at = pre + (m0r + 8 * h) * g.N + col0 + cl;
+          if (g.vec) {
+            *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          } else {
+            at[0] = __float2bfloat16_rn(acc[4 * j + 2 * h]);
+            if (cl + 1 < wcols) at[1] = __float2bfloat16_rn(acc[4 * j + 2 * h + 1]);
+          }
+        }
+    }
+    if (g.gelu) {
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i)
+        acc[i] = 0.5f * acc[i] * (1.f + erff(acc[i] * 0.70710678118654752f));
+    }
+    if (drop.on()) {
+      // element (0, row, col) of y: the keep bits first, a Philox at a time
+      // shared by lanes t and t ^ 1 (a loop that touches no accumulator, so
+      // that the draws do not pile up beside them), then applied
+      const int row0 = b * g.rows + n0 + 64 * wgi + 16 * warp;
+      uint32_t bits[4] = {0u, 0u, 0u, 0u};  // bits[e] bit j: element e of column group j
+#pragma unroll 1
+      for (int j = 0; j < TILE / 8; ++j) {
+        bool keep[4];
+        keep_frag_rows(drop, 0u, row0, col0 + 8 * j, lane, keep);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bits[e] |= (uint32_t)keep[e] << j;
+      }
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * j + e] = (bits[e] >> j) & 1u ? acc[4 * j + e] * drop.scale : 0.f;
+    }
+#pragma unroll  // granule j of row r at granule j ^ (r & 7): no bank conflict
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = lr + 8 * h;
+        *reinterpret_cast<uint32_t*>(so + r * TILE + ((j ^ (r & 7)) << 3) + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    named_sync(wbar, 128);
+    for (int p = 0; p < PASSES; ++p) put(p, b, n0, plane, col0, wcols, nr);
+    named_sync(wbar, 128);  // the staged rows are free for the next tile
+  }
+}
+
+int launch(const Plan& P, const CUtensorMap& xmap, const CUtensorMap& wmap, const Args& g,
+           const float* bias, const bf16* residual, const bf16* res_row, bf16* y, bf16* pre,
+           Drop drop, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(linear_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const int tiles = g.batches * g.tpb * g.n_tiles;
+  linear_wgmma_kernel<<<tiles < sms ? tiles : sms, THREADS, P.smem, stream>>>(
+      xmap, wmap, g, bias, residual, res_row, y, pre, drop);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wl
 
 template <int NT, int WGS, bool STREAM>
 int launch_kernel(const Plan& P, const CUtensorMap& wmap, const CUtensorMap& xmap, const bf16* x,
@@ -566,11 +908,15 @@ int launch_nt(const Plan& P, const CUtensorMap& wmap, const CUtensorMap& xmap, c
 // Returns a CUDA error code (0 on success). w is (N, KP) bf16, zero-padded
 // from K to KP = a multiple of 32; with heads > 0 its rows are each head's
 // head_dim rows zero-padded to head_pad, N / head_dim * head_pad rows in
-// all. A LayerNorm (gamma/beta not null) wider than K 640 takes ln_x,
-// scratch of (M, K rounded up to 8) bf16 from a 16-byte aligned start: its
-// rows are normalised there first (ln_rows_kernel), then streamed. An x
-// without a LayerNorm whose rows are not 16-byte aligned (or that starts off
-// a 16-byte boundary) takes K <= 640 (the caller pads a wider one). Null pointers switch off
+// all. x's rows are ldx elements apart: ldx = K up to K 640 (the panel's
+// and the streamed kernel's limit); past it (the wgmma kernel) x streams
+// by TMA: an x without a LayerNorm has ldx a multiple of 8 and starts
+// 16-byte aligned (the caller pads other rows), and a LayerNorm
+// (gamma/beta not null) takes ln_x, scratch of (M, K rounded up to 8)
+// bf16 from a 16-byte aligned start: its rows are normalised there first
+// (ln_rows_kernel), then streamed. An x without a LayerNorm whose rows are
+// not 16-byte aligned (or that starts off a 16-byte boundary) takes K <=
+// 640. Null pointers switch off
 // the LayerNorm (gamma/beta), the row bias before it (pro_row), the output
 // bias, the residual and the row bias added to the residual (res_row).
 // heads > 0 writes y head-major for attention.cu: (N / (heads*head_dim), B,
@@ -582,42 +928,22 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
                              const void* beta, const void* pro_row,
                              const void* bias, const void* residual,
                              const void* res_row, void* y, void* pre, void* ln_x, int M,
-                             int N, int K, int KP, int rows_per_batch, int gelu, int heads,
-                             int head_dim, int head_pad, unsigned seed, unsigned site,
+                             int N, int K, int KP, int ldx, int rows_per_batch, int gelu,
+                             int heads, int head_dim, int head_pad, unsigned seed, unsigned site,
                              unsigned threshold, float drop_scale, void* stream) {
   const uintptr_t x_at = reinterpret_cast<uintptr_t>(x);
-  if (M < 1 || N < 1 || K < 1 || KP % 32 != 0 || KP < K || rows_per_batch < 1 ||
+  if (M < 1 || N < 1 || K < 1 || KP % 32 != 0 || KP < K || ldx < K || rows_per_batch < 1 ||
       M % rows_per_batch != 0 || (x_at & 1) || (reinterpret_cast<uintptr_t>(y) & 15))
     return (int)cudaErrorInvalidValue;
   if (heads && (head_dim < 1 || head_pad < head_dim || head_pad % 32 != 0 ||
                 N % (heads * head_dim) != 0 || residual != nullptr || pre != nullptr ||
                 threshold != 0u))
     return (int)cudaErrorInvalidValue;
-  const bool x_aligned = K % 8 == 0 && (x_at & 15) == 0;
+  const bool x_aligned = ldx % 8 == 0 && (x_at & 15) == 0;
   const Plan P = linear_plan(M, N, K, KP, heads, head_dim, head_pad, gamma != nullptr, x_aligned,
                              residual != nullptr);
-  if (P.smem == 0) return (int)cudaErrorInvalidValue;
+  if (P.smem == 0 || (!P.wgmma && ldx != K)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (P.ln_rows) {  // the LayerNorm's rows into ln_x, which streams as x
-    const int KS = up(K, 8);
-    if (ln_x == nullptr || (reinterpret_cast<uintptr_t>(ln_x) & 15)) return (int)cudaErrorInvalidValue;
-    ln_rows_kernel<<<(unsigned)cdiv(M, LN_ROWS_THREADS / 32), LN_ROWS_THREADS, 0, s>>>(
-        (const bf16*)x, (const bf16*)pro_row, (const float*)gamma, (const float*)beta,
-        (bf16*)ln_x, M, K, KS, rows_per_batch);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    x = ln_x;
-    K = KS;
-    gamma = beta = pro_row = nullptr;
-  }
-  const Args g{M, N, K, KP, rows_per_batch, M / rows_per_batch, gelu, heads, head_dim, head_pad};
-  CUtensorMap wmap, xmap;
-  memset(&wmap, 0, sizeof(wmap));
-  memset(&xmap, 0, sizeof(xmap));
-  const int w_rows = heads ? N / head_dim * head_pad : N;
-  int rc = hopper::make_map(&wmap, w, 1, w_rows, KP, KP, P.nt);
-  if (rc != 0) return rc;
-  if (P.stream && (rc = hopper::make_map(&xmap, x, 1, M, K, K, P.bm)) != 0) return rc;
   const Drop drop{seed, site, threshold, drop_scale};
   auto* xb = (const bf16*)x;
   auto* ga = (const float*)gamma;
@@ -628,6 +954,36 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
   auto* rr = (const bf16*)res_row;
   auto* yb = (bf16*)y;
   auto* pb = (bf16*)pre;
+  CUtensorMap wmap, xmap;
+  memset(&wmap, 0, sizeof(wmap));
+  memset(&xmap, 0, sizeof(xmap));
+  const int w_rows = heads ? N / head_dim * head_pad : N;
+  const int batches = M / rows_per_batch;
+  int rc;
+  if (P.wgmma) {
+    if (gamma != nullptr) {  // the LayerNorm's rows into ln_x, which streams as x
+      const int KS = up(K, 8);
+      if (ln_x == nullptr || (reinterpret_cast<uintptr_t>(ln_x) & 15))
+        return (int)cudaErrorInvalidValue;
+      ln_rows_kernel<<<(unsigned)cdiv(M, LN_ROWS_THREADS / 32), LN_ROWS_THREADS, 0, s>>>(
+          xb, pr, ga, be, (bf16*)ln_x, M, K, ldx, KS, rows_per_batch);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      x = ln_x;
+      ldx = KS;
+    }
+    const auto aligned16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+    const wl::Args wa{N, K, rows_per_batch, batches, cdiv(rows_per_batch, wl::ROWS), P.n_tiles,
+                      P.parts, P.nt, cdiv(K, wl::CHUNK), heads, head_dim, head_pad, gelu,
+                      (int)(heads || (N % 8 == 0 && aligned16(pre) && aligned16(residual)))};
+    if ((rc = hopper::make_map128(&xmap, x, batches, rows_per_batch, K, ldx, wl::ROWS)) != 0 ||
+        (rc = hopper::make_map128(&wmap, w, 1, w_rows, KP, KP, wl::TILE)) != 0)
+      return rc;
+    return wl::launch(P, xmap, wmap, wa, bi, re, rr, yb, pb, drop, s);
+  }
+  const Args g{M, N, K, KP, rows_per_batch, batches, gelu, heads, head_dim, head_pad};
+  if ((rc = hopper::make_map(&wmap, w, 1, w_rows, KP, KP, P.nt)) != 0) return rc;
+  if (P.stream && (rc = hopper::make_map(&xmap, x, 1, M, K, K, P.bm)) != 0) return rc;
   switch (P.nt) {
     case 32: return launch_nt<32>(P, wmap, xmap, xb, ga, be, pr, bi, re, rr, yb, pb, g, drop, s);
     case 64: return launch_nt<64>(P, wmap, xmap, xb, ga, be, pr, bi, re, rr, yb, pb, g, drop, s);
@@ -640,12 +996,12 @@ extern "C" int v1t_ln_linear(const void* x, const void* w, const void* gamma,
 
 // One number of the ln_linear launch for these operands (field: 0 streamed
 // x, 1 rows a block, 2 tile columns, 3 tiles, 4 ring stages, 5 shared
-// memory a block, 0 when no launch fits; 6 the LayerNorm's rows normalised
-// first by ln_rows_kernel), x's rows 16-byte aligned or not.
+// memory a block, 0 when no launch fits; 6 the wgmma kernel of 128 x 256
+// tiles past K 640), x's rows 16-byte aligned or not.
 extern "C" int v1t_ln_linear_plan(int M, int N, int K, int KP, int heads, int head_dim,
                                   int head_pad, int ln, int x_aligned, int residual, int field) {
   const Plan P = linear_plan(M, N, K, KP, heads, head_dim, head_pad, ln != 0, x_aligned != 0,
                              residual != 0);
-  const int values[7] = {P.stream, P.bm, P.nt, P.n_tiles, P.stages, P.smem, P.ln_rows};
+  const int values[7] = {P.stream, P.bm, P.nt, P.n_tiles, P.stages, P.smem, P.wgmma};
   return field >= 0 && field < 7 ? values[field] : -1;
 }

@@ -30,7 +30,9 @@ dtype, so its gradient flows through autodiff. Here the same boundary is a
   group over the whole width from chunks of ``WIDE_CHUNK`` columns; float32
   up to it takes its products in 3xTF32 on the tensor cores, the groups of
   a tile one thread-block cluster that sums each group's partial scores
-  (and dP) in group order (``csrc/tf32.cuh``).
+  (and dP) in group order (``csrc/tf32.cuh``). The bf16 forward up to
+  ``CLUSTER_GROUPS`` groups is such a cluster too, on wgmma; its backward
+  still recomputes S and dP in every group.
 - ``flash_fwd_plain`` / ``flash_bwd_plain``: the same functions in PyTorch,
   with the kernels' rounding points, in chunks of query rows so that their
   memory is O(chunk x Nk): at 34,114 tokens the whole float32 score matrix
@@ -131,6 +133,7 @@ class FwdPlan(t.NamedTuple):
 
 
 F32_CLUSTER_GROUPS = 8  # float32 past 256: up to this many groups a cluster (3xTF32), FFMA above
+CLUSTER_GROUPS = 8  # bf16 forward past 256: up to this many groups a cluster, recomputing S above
 
 
 def column_groups(dp: int) -> t.Tuple[int, int]:
@@ -160,10 +163,7 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     one above, where K and V have barriers of their own; float32, 128 queries (8 rows a thread) up to DP 160 and 64
     (4 rows) above, so that o fits the registers, one q tile, key tiles of
     64 whose K and V take turns in a two-stage cp.async ring, every tile's
-    rows padded by 4 floats and 4 more every 8 rows. bf16 past
-    ``MAX_HEAD_PAD``: a block a (128-query tile, column group, plane), no q
-    panel (q and K stream in chunks of 64 columns through a ring 4 deep, the
-    group's V columns through one 2 deep). float32 past ``MAX_HEAD_PAD`` up
+    rows padded by 4 floats and 4 more every 8 rows. float32 past ``MAX_HEAD_PAD`` up
     to ``F32_CLUSTER_GROUPS`` groups (DP 2048): 3xTF32, a block a (64-query
     tile, column group, plane), the groups of a query tile one cluster that
     sums the partial scores; the group's q columns resident ([64][256]), key
@@ -171,7 +171,14 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
     partial score buffers and P's TF32 parts [64][32], the rows' rescales
     (tiles unpadded, swizzled). Past that, FFMA: a block a (64-query tile,
     column group, plane), no q tile (a q and a K chunk of 64 columns at a
-    time through a cp.async ring 2 deep, the group's V columns, P)."""
+    time through a cp.async ring 2 deep, the group's V columns, P). bf16
+    past ``MAX_HEAD_PAD`` up to ``CLUSTER_GROUPS`` groups: a block a
+    (128-query tile, group, plane), the groups one cluster that sums the
+    partial scores; the group's q columns resident ([128][256]), K and V
+    tiles of 64 keys each in a TMA ring 2 deep, one float32 partial score
+    buffer [128][64] (two cluster barriers a tile). Past that the groups
+    recompute S: no q panel (q and K stream in chunks of 64 columns through
+    a ring 4 deep, the group's V columns through one 2 deep)."""
     _check_width(dtype, dp, "flash_attention")
     f32 = dtype == torch.float32
     if dp > MAX_HEAD_PAD:
@@ -182,6 +189,9 @@ def fwd_plan(dtype: torch.dtype, dp: int) -> FwdPlan:
         if f32:
             smem = (2 * 2 * _f32_tile(64, WIDE_CHUNK) + _f32_tile(64, WIDE_GROUP) + 64 * 68) * 4
             return FwdPlan(64, 64, smem, 0, 2, groups, cols)
+        if groups <= CLUSTER_GROUPS:
+            smem = 1024 + (128 + 4 * 64) * WIDE_GROUP * 2 + 128 * 64 * 4 + 8 * 8
+            return FwdPlan(128, 64, smem, 1, 2, groups, cols, groups)
         smem = 1024 + 4 * (128 + 64) * WIDE_CHUNK * 2 + 2 * 64 * WIDE_GROUP * 2 + 2 * (4 + 2) * 8
         return FwdPlan(128, 64, smem, 0, 4, groups, cols)
     if f32:

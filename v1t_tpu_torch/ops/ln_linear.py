@@ -33,19 +33,21 @@ A CUDA tensor launches the kernel (bf16 only: the fp32 model takes the
 composed path, ``models/cores/vit.py``); a CPU tensor takes the plain
 version (bf16 or float32). Any K runs on the card. Up to ``MAX_LN_K`` the
 kernels hold a LayerNorm's whole rows (a panel of K bf16 columns forward,
-fp32 rows in shared memory backward); past it the forward first normalises
-the rows into bf16 scratch (``ln_rows_kernel``), which then streams like an
-aligned x (``LinearPlan.ln_rows``), and the backward's dX runs on the wgmma
-kernel (``DxPlan.wgmma``; a masked or unaligned row-major dY first masked
-once into aligned scratch); a LayerNorm wider than 2048 keeps its fp32 d(ln)
-rows in scratch of device memory (``DxPlan.dln_global``). The kernels copy
-operands by TMA (16-byte aligned rows) or as the contiguous span of whole
-rows (rows of 155 bf16 are 310 bytes), the weight gradient also row by row;
-only a forward x without LayerNorm, rows not 16-byte aligned and K > 640,
-is zero-padded here to a multiple of 8 columns first (no flagship use).
+fp32 rows in shared memory backward); past it the forward runs the wgmma
+kernel of 128 x 256 tiles (``LinearPlan.wgmma``; a LayerNorm's rows first
+normalised into bf16 scratch by ``ln_rows_kernel``, which then streams like
+an aligned x), and the backward's dX runs on the wgmma kernel (``DxPlan.wgmma``;
+a masked or unaligned row-major dY first masked once into aligned
+scratch); a LayerNorm wider than 2048 keeps its fp32 d(ln) rows in scratch
+of device memory (``DxPlan.dln_global``). The kernels copy operands by TMA
+(16-byte aligned rows) or as the contiguous span of whole rows (rows of
+155 bf16 are 310 bytes), the weight gradient also row by row; only a
+forward x without LayerNorm, rows not 16-byte aligned and K > 640, is
+zero-padded here to a multiple of 8 columns first (no configuration's use).
 ``ln_linear.launches`` (and ``ln_linear_bwd``'s, ``ln_linear_wgrad``'s)
-counts kernel launches; ``ln_linear_bwd.form_launches`` counts the dX's
-again by kernel (``DX_FORMS``).
+counts kernel launches; ``ln_linear.form_launches`` and
+``ln_linear_bwd.form_launches`` count them again by kernel
+(``FORWARD_FORMS``, ``DX_FORMS``).
 """
 
 from __future__ import annotations
@@ -106,22 +108,24 @@ def _check(x, w, gamma, beta, pro_row, bias, residual, res_row, heads) -> None:
 
 
 MAX_TILE = 160  # output columns a forward tile / dY columns a weight-gradient tile at most
+WIDE_TILE = 256  # output columns a forward tile past MAX_LN_K at most (the wgmma kernel)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _tiles(n: int, heads) -> t.Tuple[int, int, int]:
+def _tiles(n: int, heads, max_tile: int = MAX_TILE) -> t.Tuple[int, int, int]:
     """(tile columns NT, tiles a head-major plane, tiles) of an output of N
     logical columns: each head's plane of ``padded_head_dim`` split evenly
-    (wider than 160: in two), or N split evenly; NT a multiple of 32 up to
-    160, so that the accumulator fits the registers."""
+    (wider than ``max_tile``: in two or more), or N split evenly; NT a
+    multiple of 32 up to ``max_tile``, so that the accumulator fits the
+    registers."""
     if heads is not None:
         head_pad = padded_head_dim(heads[1])
-        parts = _cdiv(head_pad, MAX_TILE)
+        parts = _cdiv(head_pad, max_tile)
         return _cdiv(_cdiv(head_pad, parts), 32) * 32, parts, n // heads[1] * parts
-    tiles = _cdiv(n, MAX_TILE)
+    tiles = _cdiv(n, max_tile)
     return _cdiv(_cdiv(n, tiles), 32) * 32, 1, tiles
 
 
@@ -140,13 +144,20 @@ class LinearPlan(t.NamedTuple):
     stream: bool  # x streams through the ring by TMA (else a panel built once a block)
     rows: int  # rows a block: 128 (two consumer warpgroups) or 64
     tile: int  # output columns a tile
-    tiles: int  # output tiles a block walks
+    tiles: int  # output tiles a block walks (the wgmma kernel: output tiles a row tile)
     stages: int  # depth of the ring
     smem: int  # dynamic shared memory a block, bytes
-    ln_rows: bool = False  # a LayerNorm past a panel: its rows normalised first, then streamed
+    wgmma: bool = False  # past PANEL_MAX_K: the persistent wgmma kernel, tiles of 128 x 256
 
 
 PANEL_MAX_K, PANEL_MAX_K128, SMEM_LIMIT = 640, 320, 232448
+# the wgmma kernel past PANEL_MAX_K: chunks of 64 reduction columns, x's
+# [128][64] and w's [256][64] in rings of 3 stages each, each consumer
+# warpgroup's 64 output rows staged in bf16 [64][256], room for 16
+# mbarriers
+WL_ROWS, WL_STAGES, WL_W_STAGES, WL_CHUNK = 128, 3, 3, 64
+WL_SMEM = 1024 + (WL_STAGES * WL_ROWS + WL_W_STAGES * WIDE_TILE) * WL_CHUNK * 2 + (
+    2 * 64 * WIDE_TILE * 2 + 16 * 8)
 
 
 def linear_plan(m: int, n: int, k: int, heads=None, ln: bool = False, x_aligned: bool = False,
@@ -158,15 +169,20 @@ def linear_plan(m: int, n: int, k: int, heads=None, ln: bool = False, x_aligned:
     (KP, a multiple of 32, up to 640; blocks of 128 rows up to 320). Of ring
     depths 4, 3, 2 the deepest that fits; the output tile is staged in fp32
     (and, with a residual or rows not 16-byte aligned, once more in bf16)
-    in a region of its own, which the panel's x span uses first. A
-    LayerNorm past ``PANEL_MAX_K`` normalises its rows first into aligned
-    scratch (``ln_rows``), which streams."""
+    in a region of its own, which the panel's x span uses first. Past
+    ``PANEL_MAX_K`` every call takes the persistent wgmma kernel
+    (``wgmma``): tiles of 128 rows x up to 256 columns (planes and N split
+    evenly into multiples of 32), x and w by TMA through rings of 3 stages
+    each, so x's rows must be 16-byte aligned there (None otherwise: the
+    wrapper pads them), but for a LayerNorm's, which are first normalised
+    into aligned scratch."""
     kp = _cdiv(k, 32) * 32
+    if kp > PANEL_MAX_K:
+        nt, _, tiles = _tiles(n, heads, WIDE_TILE)
+        return (LinearPlan(True, WL_ROWS, nt, tiles, WL_STAGES, WL_SMEM, True)
+                if x_aligned or ln else None)
     nt, _, tiles = _tiles(n, heads)
-    ln_rows = ln and kp > PANEL_MAX_K
-    stream = (not ln and x_aligned) or ln_rows
-    if not stream and kp > PANEL_MAX_K:
-        return None
+    stream = not ln and x_aligned
     direct = heads is not None or (n % 8 == 0 and not residual)
     for rows in ((128,) if stream else (128, 64)):
         if not stream and rows == 128 and kp > PANEL_MAX_K128:
@@ -179,7 +195,7 @@ def linear_plan(m: int, n: int, k: int, heads=None, ln: bool = False, x_aligned:
         for stages in (4, 3, 2):
             smem = 3072 + panel + stages * stage + region
             if smem <= SMEM_LIMIT:
-                return LinearPlan(stream, rows, nt, tiles, stages, smem, ln_rows)
+                return LinearPlan(stream, rows, nt, tiles, stages, smem)
     return None
 
 
@@ -280,14 +296,14 @@ def ln_linear(
     _build.require_cuda("ln_linear", (bf, bf, f32, f32, bf, f32, bf, bf), *args)
     b, n, k = x.shape
     nout = w.shape[0]
-    # a LayerNorm past a panel: its rows normalised into scratch first
-    ln_x = (torch.empty((b * n, _cdiv(k, 8) * 8), dtype=bf, device=x.device)
-            if gamma is not None and k > MAX_LN_K else None)
-    if gamma is None and not _aligned(x) and k > PANEL_MAX_K:
-        # the kernel streams x by TMA: unaligned rows, padded to 8 columns
-        x, w = _pad_columns(x), _pad_columns(w)
-        k = x.shape[2]
     kp = _cdiv(k, 32) * 32
+    # past a panel (the wgmma kernel, x streamed by TMA): a LayerNorm's rows
+    # normalised into aligned scratch first; other unaligned rows padded to
+    # 8 columns (ldx their stride)
+    ln_x = (torch.empty((b * n, _cdiv(k, 8) * 8), dtype=bf, device=x.device)
+            if gamma is not None and kp > PANEL_MAX_K else None)
+    if kp > PANEL_MAX_K and gamma is None and not _aligned(x):
+        x = _pad_columns(x)
     w_pad = forward_weight(w, heads)
     if heads is None:
         num_heads = head_dim = head_pad = 0
@@ -301,15 +317,22 @@ def ln_linear(
     args = (x, w_pad, *args[2:])
     rc = _build.library().v1t_ln_linear(
         *(_build.ptr(a) for a in args), y.data_ptr(), _build.ptr(pre), _build.ptr(ln_x),
-        b * n, nout, k, kp, n, int(gelu), num_heads, head_dim, head_pad,
+        b * n, nout, k, kp, x.shape[2], n, int(gelu), num_heads, head_dim, head_pad,
         *drop_args(drop), _build.stream_of(x),
     )
     _build.check_launch("ln_linear", rc)
     ln_linear.launches += 1
+    ln_linear.form_launches[
+        "fwd_panel_or_streamed" if kp <= PANEL_MAX_K
+        else "fwd_wgmma_layernorm" if gamma is not None else "fwd_wgmma_plain"] += 1
     return (y, pre) if save_pre else y
 
 
 ln_linear.launches = 0
+# the same launches by kernel: ln_linear_kernel (K <= 640, a panel or x
+# streamed) and the wgmma kernel past it, with and without the LayerNorm
+FORWARD_FORMS = ("fwd_panel_or_streamed", "fwd_wgmma_layernorm", "fwd_wgmma_plain")
+ln_linear.form_launches = dict.fromkeys(FORWARD_FORMS, 0)
 
 
 def _dy_rows(dy: Tensor, heads) -> t.Tuple[int, int, int]:
